@@ -1,0 +1,124 @@
+"""Generalized R-CNN for the CPM Grid-Cascade configuration: eval forward.
+
+Port of cpm_tpu/modeling/model.py (`GeneralizedRCNN` test forward,
+`_normalize_uint8`, `build_model`) for the path the flagship config takes:
+ResNet trunk -> FPN (P2..P6) -> RPN -> GridCascadeRCNNHead. The forward
+takes the JAX package's layouts: images `[B, H, W, 3]` (uint8 or float)
+and image sizes `[B, 2]` (h, w); it returns fixed-shape `Detections`.
+
+Inside, images become an NCHW view of their NHWC memory (channels_last), so
+every convolution stays channels_last and each FPN level's NHWC view
+`[B, H, W, C]` is contiguous: the pooler kernel reads it without a copy.
+"""
+
+import contextlib
+
+import numpy as np
+import torch
+from torch import nn
+
+from cpm_tpu_torch.modeling.backbone.resnet import build_resnet
+from cpm_tpu_torch.modeling.fpn import build_fpn
+from cpm_tpu_torch.modeling.roi_heads.box_head import Detections
+from cpm_tpu_torch.modeling.roi_heads.grid_cascade_head import GridCascadeRCNNHead
+from cpm_tpu_torch.modeling.rpn import AnchorLayout, RPNHead, select_proposals
+from cpm_tpu_torch.ops import pooler as pooler_mod
+from cpm_tpu_torch.ops.box_coder import BoxCoder
+from cpm_tpu_torch.utils.amp import compute_dtype
+
+# TPU.POOLER_KERNEL names the JAX package's TPU pooling kernels ('pallas',
+# 'stacked', 'clustered') or its XLA gather path. Every value is accepted,
+# and on CUDA every value routes to the one CUDA multilevel RoIAlign kernel
+# (on the CPU, to its plain version): the stacked variant computes the same
+# numbers, and the clustered and windowed forms were TPU memory layouts.
+POOLER_KERNELS = ("auto", "pallas", "stacked", "clustered", "gather")
+
+
+class GeneralizedRCNN(nn.Module):
+    """Backbone -> FPN -> RPN -> CPM grid-cascade head (eval)."""
+
+    def __init__(self, cfg, generator: torch.Generator = None):
+        super().__init__()
+        c = cfg
+        if not (c.MODEL.FPN_ON and c.MODEL.GRID_ON) or c.MODEL.FASTER_RCNN or c.MODEL.RPN_ONLY:
+            raise NotImplementedError("the port runs the FPN grid-cascade family only")
+        if c.BACKBONE.CONV_BODY != "resnet":
+            raise NotImplementedError("the port runs the ResNet trunk only")
+        self.cfg = cfg
+        self.backbone = build_resnet(c, generator)
+        self.fpn = build_fpn(c, self.backbone.dim_out, generator)
+        strides = tuple(c.RPN.ANCHOR_STRIDE)
+        num_cell_anchors = len(c.RPN.ASPECT_RATIOS) * (
+            1 if len(strides) > 1 else len(c.RPN.ANCHOR_SIZES)
+        )
+        self.rpn_head = RPNHead(c.FPN.DIM, num_cell_anchors, generator)
+        self.rpn_box_coder = BoxCoder(weights=(1.0, 1.0, 1.0, 1.0))
+        self.roi_head = GridCascadeRCNNHead(c, c.FPN.DIM, generator)
+        self._layouts = {}
+
+    def _anchor_layout(self, feats) -> AnchorLayout:
+        c = self.cfg
+        strides = tuple(c.RPN.ANCHOR_STRIDE)
+        shapes = tuple(tuple(int(d) for d in f.shape[-2:]) for f in feats[: len(strides)])
+        if shapes not in self._layouts:
+            self._layouts[shapes] = AnchorLayout(
+                shapes, strides, tuple(c.RPN.ANCHOR_SIZES), tuple(c.RPN.ASPECT_RATIOS)
+            )
+        return self._layouts[shapes]
+
+    def _normalize_uint8(self, images: torch.Tensor) -> torch.Tensor:
+        """Per-channel (x*a + b) of raw uint8 pixels on the device, the
+        reference's in-model AffineChannel2d normalization. Padded regions
+        (zeros) map to -mean/std, as in the JAX package."""
+        c = self.cfg
+        mean = np.asarray(c.PIXEL_MEANS, np.float32)
+        std = np.asarray(c.PIXEL_STDS, np.float32)
+        a = 1.0 / std if c.TO_BGR255 else 1.0 / (255.0 * std)
+        b = -mean / std
+        a = torch.as_tensor(a, device=images.device)
+        b = torch.as_tensor(b, device=images.device)
+        return (images.float() * a + b).to(compute_dtype(c))
+
+    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Detections:
+        """images [B, H, W, 3] on the model's device; image_sizes [B, 2]."""
+        scope = (
+            pooler_mod.pooler_force_f32_scope(True)
+            if str(getattr(self.cfg.TPU, "EVAL_POOLER_DTYPE", "compute")) == "float32"
+            else contextlib.nullcontext()
+        )
+        with scope:
+            return self._forward(images, image_sizes)
+
+    def _forward(self, images, image_sizes):
+        c = self.cfg
+        if images.dtype == torch.uint8:
+            images = self._normalize_uint8(images)
+        else:
+            images = images.to(compute_dtype(c))
+        x = images.permute(0, 3, 1, 2)  # NCHW view of NHWC memory
+        feats = self.fpn(self.backbone(x))
+        objectness, box_reg = self.rpn_head(feats)
+        proposals, _, prop_mask = select_proposals(
+            self._anchor_layout(feats), objectness, box_reg, image_sizes,
+            pre_nms_top_n=c.RPN.PRE_NMS_TOP_N_TEST,
+            post_nms_top_n=c.RPN.POST_NMS_TOP_N_TEST,
+            nms_thresh=c.RPN.NMS_THRESH, min_size=c.RPN.MIN_SIZE,
+            fpn_post_nms_top_n=c.RPN.FPN_POST_NMS_TOP_N_TEST,
+            box_coder=self.rpn_box_coder,
+        )
+        levels_nhwc = [f.permute(0, 2, 3, 1) for f in feats]
+        return self.roi_head(levels_nhwc, proposals, prop_mask, image_sizes)
+
+
+def build_model(cfg, device, seed: int = 0) -> GeneralizedRCNN:
+    """The model for `cfg` on `device`, fresh weights drawn from `seed`.
+
+    Parameters are created in f32 (make_forward_fn casts them to the
+    compute dtype) and in channels_last memory.
+    """
+    kernel = getattr(cfg.TPU, "POOLER_KERNEL", "auto")
+    if kernel not in POOLER_KERNELS:
+        raise ValueError(f"TPU.POOLER_KERNEL invalid: {kernel}")
+    generator = torch.Generator().manual_seed(seed)
+    model = GeneralizedRCNN(cfg, generator)
+    return model.to(device=device, memory_format=torch.channels_last).eval()

@@ -1,0 +1,113 @@
+"""Weights bridge: the JAX package's flax `params` tree -> the port's state_dict.
+
+The tree's leaves are numpy arrays (`jax.device_get` of the flax params);
+this module imports no JAX. Layouts:
+
+* Conv kernels HWIO -> OIHW (depthwise ones too: [5, 5, 1, C] -> [C, 1, 5, 5]).
+* Dense kernels [in, out] -> [out, in]. The flattened inputs of the dense
+  layers are NHWC in both packages, so rows need no permutation.
+* The grouped deconv kernel [4, 4, Cin/P, Cout], which flax applies flipped
+  over a 2x-dilated input, is exactly a ConvTranspose2d(k=4, s=2, p=1,
+  groups=P) with weight [Cin, Cout/P, 4, 4]:
+  W[g*Cin/P + i, o, a, b] = kernel[a, b, i, g*Cout/P + o].
+* AffineChannel and GroupNorm `scale` -> `weight`.
+
+Every flax leaf must land on one torch parameter and every torch parameter
+must receive one leaf, with matching shapes; anything else raises.
+"""
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+# (pattern, replacement) on the '/'-joined flax path; the first match wins
+_RULES = [
+    (r"^backbone/AffineChannel_0/", "backbone/bn1/"),
+    (r"^(backbone/layer\d+)_(\d+)/AffineChannel_3/", r"\1/\2/downsample/1/"),
+    (r"^(backbone/layer\d+)_(\d+)/AffineChannel_([0-2])/",
+     lambda m: f"{m[1]}/{m[2]}/bn{int(m[3]) + 1}/"),
+    (r"^(backbone/layer\d+)_(\d+)/downsample_conv/", r"\1/\2/downsample/0/"),
+    (r"^(backbone/layer\d+)_(\d+)/", r"\1/\2/"),
+    (r"^fpn/fpn_(in|out)_(\d+)/", r"fpn/fpn_\1/\2/"),
+    (r"^roi_head/grid_head_(\d+)/conv(\d+)/", r"roi_head/grid_heads/\1/convs/\2/"),
+    (r"^roi_head/grid_head_(\d+)/gn(\d+)/", r"roi_head/grid_heads/\1/gns/\2/"),
+    (r"^roi_head/grid_head_(\d+)/([fs]order)_(\d+)_(\d+)/",
+     r"roi_head/grid_heads/\1/\2/\3_\4/"),
+    (r"^roi_head/grid_output_(\d+)/(deconv\d)_(kernel|bias)$",
+     r"roi_head/grid_outputs/\1/\2/\3"),
+    (r"^roi_head/grid_output_(\d+)/", r"roi_head/grid_outputs/\1/"),
+]
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
+def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (str(k),)))
+        else:
+            out[prefix + (str(k),)] = np.asarray(v)
+    return out
+
+
+def torch_key(flax_path) -> str:
+    """The state_dict key of one flax leaf path (tuple of names)."""
+    path = "/".join(flax_path)
+    for pattern, repl in _RULES:
+        new, n = re.subn(pattern, repl, path)
+        if n:
+            path = new
+            break
+    *mods, leaf = path.split("/")
+    if leaf not in _LEAF:
+        raise KeyError(f"no torch counterpart for flax leaf {'/'.join(flax_path)}")
+    return ".".join(mods + [_LEAF[leaf]])
+
+
+def deconv_kernel_to_torch(kernel: np.ndarray, groups: int) -> np.ndarray:
+    """Flax grouped-deconv kernel [kh, kw, Cin/P, Cout] -> ConvTranspose2d
+    weight [Cin, Cout/P, kh, kw] for `groups` = P."""
+    kh, kw, cin_g, cout = kernel.shape
+    w = kernel.reshape(kh, kw, cin_g, groups, cout // groups)
+    return w.transpose(3, 2, 4, 0, 1).reshape(groups * cin_g, cout // groups, kh, kw)
+
+
+def _convert(flax_path, value: np.ndarray, target_shape) -> np.ndarray:
+    if value.ndim == 4 and "deconv" in flax_path[-1]:
+        return deconv_kernel_to_torch(value, target_shape[0] // value.shape[2])
+    if value.ndim == 4:
+        return value.transpose(3, 2, 0, 1)
+    if value.ndim == 2:
+        return value.T
+    return value
+
+
+def flax_to_state_dict(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Convert a flax params tree into a state_dict for `model`."""
+    targets = model.state_dict()
+    out = {}
+    for path, value in _flatten(params).items():
+        key = torch_key(path)
+        if key not in targets:
+            raise KeyError(f"flax leaf {'/'.join(path)} -> {key}: no such torch parameter")
+        if key in out:
+            raise KeyError(f"two flax leaves map to {key}")
+        w = _convert(path, value, tuple(targets[key].shape))
+        if tuple(w.shape) != tuple(targets[key].shape):
+            raise ValueError(
+                f"{'/'.join(path)} {value.shape} -> {key}: got {w.shape}, "
+                f"want {tuple(targets[key].shape)}"
+            )
+        out[key] = torch.tensor(w, dtype=targets[key].dtype)
+    missing = sorted(set(targets) - set(out))
+    if missing:
+        raise KeyError(f"torch parameters without a flax leaf: {missing}")
+    return out
+
+
+def load_flax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
+    """Load a flax params tree into `model` in place; returns the model."""
+    model.load_state_dict(flax_to_state_dict(params, model), strict=True)
+    return model

@@ -38,3 +38,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (full-size parity etc.)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without one"
+    )

@@ -1,0 +1,102 @@
+"""The port stands apart from JAX, and chip_smoke.py refuses to run without
+a card.
+
+Each check runs in a fresh interpreter, so that modules the test process
+already imported (JAX among them) cannot hide a missing dependency.
+"""
+
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _python(code, cwd=REPO, timeout=300):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=timeout,
+    )
+
+
+def test_every_port_module_imports_without_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "    sys.modules[m] = None\n"
+        "import cpm_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(cpm_tpu_torch.__path__, 'cpm_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "print(len(names))\n"
+    )
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20
+
+
+def test_port_sources_import_no_jax_inside_functions_either():
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax)\b", re.M)
+    for path in list((REPO / "cpm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
+
+
+def test_config_imports_without_pyyaml_and_yaml_use_raises():
+    code = (
+        "import sys\n"
+        "sys.modules['yaml'] = None\n"
+        "from cpm_tpu_torch.config import get_default_cfg, merge_cfg_from_file\n"
+        "cfg = get_default_cfg()\n"
+        "assert cfg.TPU.COMPUTE_DTYPE == 'bfloat16'\n"
+        "try:\n"
+        "    merge_cfg_from_file('cfgs/debug/tiny_fast_rcnn.yaml', cfg)\n"
+        "except ImportError:\n"
+        "    print('refused')\n"
+    )
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "refused"
+
+
+def test_collecting_the_port_tests_loads_no_torch():
+    # a test worker with torch loaded can deadlock the 8-device XLA:CPU
+    # collectives of tests/test_multichip.py, so the port's tests import
+    # torch inside the tests, as the repo's other tests do
+    code = (
+        "import glob, sys, pytest\n"
+        "files = sorted(glob.glob('tests/test_torch_*.py'))\n"
+        "rc = pytest.main(['--collect-only', '-q', '-p', 'no:cacheprovider', *files])\n"
+        "print(len(files), int(rc), 'torch' in sys.modules)\n"
+    )
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr
+    n_files, rc, torch_loaded = proc.stdout.split()[-3:]
+    assert int(n_files) >= 5 and rc == "0"
+    assert torch_loaded == "False"
+
+
+def _assert_refused(proc):
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_without_cuda():
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+    )
+    _assert_refused(proc)
+
+
+def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True,
+        timeout=300, env=env,
+    )
+    _assert_refused(proc)
