@@ -9,7 +9,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from cpm_tpu_torch.utils.amp import compute_dtype
+from cpm_tpu_torch.utils.amp import cast_floating_to, compute_dtype
 
 
 def detections_to_coco(
@@ -42,16 +42,24 @@ def detections_to_coco(
 
 
 def make_forward_fn(cfg, model: torch.nn.Module):
-    """The eval forward in TPU.COMPUTE_DTYPE: casts the model's float
-    parameters once, and returns `forward(images, image_sizes)`, which moves
-    numpy or tensor inputs to the model's device and runs without autograd."""
-    model.to(compute_dtype(cfg)).eval()
+    """The eval forward in TPU.COMPUTE_DTYPE: `forward(images, image_sizes)`
+    moves numpy or tensor inputs to the model's device and runs without
+    autograd.
+
+    The model's own parameters are left as they are (a model that trains
+    keeps f32 masters): the forward runs, through
+    `torch.func.functional_call`, on casts of them made once, here. Call
+    `make_forward_fn` again after further training to evaluate the new
+    weights in a compute dtype other than float32."""
+    state = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    with torch.no_grad():
+        state = cast_floating_to(state, compute_dtype(cfg))
     device = next(model.parameters()).device
 
     def forward(images, image_sizes):
         images = torch.as_tensor(images, device=device)
         image_sizes = torch.as_tensor(image_sizes, device=device)
         with torch.inference_mode():
-            return model(images, image_sizes)
+            return torch.func.functional_call(model, state, (images, image_sizes))
 
     return forward

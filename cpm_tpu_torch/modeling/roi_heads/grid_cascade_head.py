@@ -1,7 +1,8 @@
-"""CPM Grid-Cascade R-CNN head: the test path.
+"""CPM Grid-Cascade R-CNN head: the train and test paths.
 
 Port of cpm_tpu/modeling/roi_heads/grid_cascade_head.py
-(`GridCascadeRCNNHead._test_cls`, `_test_cascade`, `_test_rescore`):
+(`GridCascadeRCNNHead`: `_train_cls`, `_stage_match`, `_train_cascade`,
+`_train_rescore`, `_test_cls`, `_test_cascade`, `_test_rescore`):
 
 * cls branch: 7x7 pooling of the RPN proposals, 2 FC, softmax, then the
   fixed-shape multiclass filter (score threshold, NMS, TEST_MAX_DETECTIONS);
@@ -13,12 +14,23 @@ Port of cpm_tpu/modeling/roi_heads/grid_cascade_head.py
 * RSM: a second 7x7 cls branch rescoring the refined boxes, fused as
   score^0.8 * rescore^0.2.
 
-The JAX package runs the eval towers in size buckets (EVAL_TOWER_BUCKETS
-and `nn.switch`), a TPU shape device. Here the detection set is compacted
-once, valid detections first, and each stage's tower runs on the prefix that
-holds every valid detection; the valid detections get the same numbers.
-Pooling runs over the whole padded set, as in the JAX package: the kernel
-writes zeros for masked rois without reading features.
+Training: the cls branch samples BATCH_SIZE_PER_IMAGE rois and takes the
+cross entropy; the cascade takes up to MAX_SAMPLE_NUM_GRID of its positives
+through the stages (per-stage matching at rising IoU thresholds, heatmap
+BCE x LOSS_WEIGHT x stage weight, ISM L2 on the last stage, boxes refined
+under no gradient, gt-identical rows dropped and gt re-added between
+stages); the RSM head is trained on the cls negatives plus the refined
+boxes.
+
+The JAX package runs the towers in size buckets (TOWER_BUCKETS /
+EVAL_TOWER_BUCKETS with `nn.switch` and `nn.remat`), a TPU shape device. Here
+the roi set is compacted, valid rois first, and each stage's targets, tower,
+outputs, losses and decode run on a prefix that holds every valid roi; the
+valid rois get the same numbers and the masked losses are the same. In
+training the prefix is rounded up to the caps of TPU.TOWER_BUCKETS, so that
+cuDNN sees few shapes. Pooling runs over the whole padded set, as in the
+JAX package: the kernel writes zeros for masked rois without reading
+features.
 """
 
 import torch
@@ -31,12 +43,29 @@ from cpm_tpu_torch.modeling.roi_heads.grid_modules import (
     GridHead,
     GridOutput,
 )
-from cpm_tpu_torch.modeling.roi_heads.grid_ops import grid_decode
+from cpm_tpu_torch.modeling.roi_heads.grid_ops import grid_decode, grid_targets
 from cpm_tpu_torch.modeling.roi_heads.targets import (
     compact_by_mask,
     gather_rows,
+    match_to_gt,
     rois_with_batch_index,
+    subsample_rois,
 )
+from cpm_tpu_torch.ops.box_coder import BoxCoder
+from cpm_tpu_torch.ops.losses import (
+    bce_with_logits_elementwise,
+    ism_l2_loss,
+    softmax_cross_entropy,
+)
+from cpm_tpu_torch.utils.sampler import sample_k_from_mask
+
+
+def _masked_bce_mean(logits, targets, roi_mask):
+    """BCE-with-logits, mean over the valid rois' elements."""
+    bce = bce_with_logits_elementwise(logits, targets)
+    m = roi_mask.reshape(roi_mask.shape + (1,) * (bce.dim() - 1)).to(bce.dtype)
+    denom = torch.clamp(m.sum() * bce[0].numel(), min=1.0)
+    return (bce * m).sum() / denom
 
 
 class GridCascadeRCNNHead(nn.Module):
@@ -56,7 +85,12 @@ class GridCascadeRCNNHead(nn.Module):
         cascade_on = bool(g.CASCADE_MAPPING_ON)
         opt = g.CASCADE_MAPPING_OPTION
         self.stage_num = opt.STAGE_NUM if cascade_on else 1
+        self.cascade_on = cascade_on
         self.test_stage = opt.TEST_STAGE if cascade_on else 1
+        self.stage_weights = tuple(opt.STAGE_WEIGHTS) if cascade_on else (1.0,)
+        self.fg_thresholds = tuple(opt.FG_IOU_THRESHOLD) if cascade_on else (g.FG_IOU_THRESHOLD,)
+        self.bg_thresholds = tuple(opt.BG_IOU_THRESHOLD) if cascade_on else (g.BG_IOU_THRESHOLD,)
+        self.box_coder = BoxCoder(weights=(10.0, 10.0, 5.0, 5.0))
         self.mapping_ratios = tuple(opt.STAGE_MAPPING_RATIO) if cascade_on else (1.0,)
         self.grid_nums = tuple(opt.GRID_NUM) if cascade_on else (g.GRID_POINTS,)
         self.num_levels = c.FPN.ROI_MAX_LEVEL - c.FPN.ROI_MIN_LEVEL + 1
@@ -93,6 +127,139 @@ class GridCascadeRCNNHead(nn.Module):
                 g.ROI_XFORM_SAMPLING_RATIO, mlp, gen,
             )
             self.rescore_output = ClsOutput(mlp, c.MODEL.NUM_CLASSES, gen)
+
+    # ---------------- train ----------------
+
+    def _subsample(self, boxes, mask, gt, draws):
+        g = self.cfg.GRID_RCNN
+        return subsample_rois(
+            boxes, mask, gt["boxes"], gt["labels"], gt["mask"],
+            draws(mask.shape, mask.device), draws(mask.shape, mask.device),
+            batch_size_per_image=g.BATCH_SIZE_PER_IMAGE,
+            positive_fraction=g.POSITIVE_FRACTION,
+            fg_iou_threshold=g.FG_IOU_THRESHOLD,
+            bg_iou_threshold=g.BG_IOU_THRESHOLD,
+            box_coder=self.box_coder,
+        )
+
+    def _train_cls(self, features, proposals, prop_mask, gt, draws):
+        sampled = self._subsample(proposals, prop_mask, gt, draws)
+        x = self.cls_head(features, rois_with_batch_index(sampled.boxes), sampled.mask.reshape(-1))
+        loss = softmax_cross_entropy(
+            self.cls_output(x), sampled.labels.reshape(-1), sampled.mask.reshape(-1)
+        )
+        return sampled, dict(loss_classifier=loss)
+
+    def _tower_size(self, stage_mask, S: int) -> int:
+        """The prefix length the stage's tower runs on: the largest per-image
+        valid count (read on the host), rounded up to a cap of
+        TPU.TOWER_BUCKETS or to S."""
+        n_max = int(stage_mask.sum(dim=1).max())
+        caps = [k for k in getattr(self.cfg.TPU, "TOWER_BUCKETS", ()) if k < S] + [S]
+        return next(k for k in caps if n_max <= k)
+
+    def _train_cascade(self, features, sampled, gt, image_sizes, draws):
+        g = self.cfg.GRID_RCNN
+        losses = {}
+        # stage-0 input: at most MAX_SAMPLE_NUM_GRID positives of the cls sample
+        pos = sampled.is_pos
+        capped = sample_k_from_mask(pos, g.MAX_SAMPLE_NUM_GRID, draws(pos.shape, pos.device))
+        idx, mask = compact_by_mask(capped, g.MAX_SAMPLE_NUM_GRID)
+        boxes = gather_rows(sampled.boxes, idx)
+
+        for stage in range(self.stage_num):
+            matches, matched_gt, matched_iou = match_to_gt(
+                boxes, gt["boxes"], gt["mask"],
+                self.fg_thresholds[stage], self.bg_thresholds[stage],
+            )
+            # stage 0 keeps the whole (positive-capped) set
+            stage_mask = mask if stage == 0 else (matches >= 0) & mask
+            B, S = boxes.shape[:2]
+            # valid rois first; the loop-carried (boxes, mask) pair stays
+            # aligned, since the RSM union below indexes boxes by mask bits
+            cidx, stage_mask = compact_by_mask(stage_mask, S)
+            boxes = gather_rows(boxes, cidx)
+            matched_gt = gather_rows(matched_gt, cidx)
+            matched_iou = torch.gather(matched_iou, 1, cidx)
+            mask = torch.gather(mask, 1, cidx)
+
+            head, out = self.grid_heads[stage], self.grid_outputs[stage]
+            pooled = head.pooler(features, rois_with_batch_index(boxes), stage_mask.reshape(B * S))
+            K = self._tower_size(stage_mask, S)
+            bK = boxes[:, :K].reshape(B * K, 4)
+            mK = stage_mask[:, :K].reshape(B * K)
+            pK = pooled.reshape(B, S, *pooled.shape[1:])[:, :K].reshape(B * K, *pooled.shape[1:])
+            tK = grid_targets(
+                bK, matched_gt[:, :K].reshape(B * K, 4), mK,
+                mapping_ratio=self.mapping_ratios[stage], grid_points=self.grid_nums[stage],
+                roi_feat_size=g.ROI_FEAT_SIZE, pos_radius=g.POS_RADIUS,
+                target_refine=g.TARGET_REFINE,
+            )
+            x, x_so, _ = head(pooled=pK)
+            heatmaps, iou_logits = out(x, x_so, train=True)
+            loss_grid = _masked_bce_mean(heatmaps["unfused"], tK, mK)
+            if g.FUSED_ON and heatmaps["fused"] is not None:
+                loss_grid = loss_grid + _masked_bce_mean(heatmaps["fused"], tK, mK)
+            losses[f"loss_grid_{stage + 1}"] = g.LOSS_WEIGHT * self.stage_weights[stage] * loss_grid
+
+            last = stage == self.stage_num - 1
+            if g.IOU_HELPER and last:
+                iou_K = matched_iou[:, :K].reshape(B * K)
+                iou_t = torch.stack([1.0 - iou_K, iou_K], dim=-1)
+                losses[f"loss_iou_{stage + 1}"] = g.IOU_LOSS_WEIGHT * ism_l2_loss(iou_logits, iou_t, mK)
+            if not last:
+                # refined boxes carry no gradient
+                hm = (heatmaps["fused"] if g.FUSED_ON else heatmaps["unfused"]).detach()
+                refined = grid_decode(
+                    bK, hm, image_sizes.repeat_interleave(K, dim=0),
+                    mapping_ratio=self.mapping_ratios[stage],
+                    grid_points=self.grid_nums[stage], roi_feat_size=g.ROI_FEAT_SIZE,
+                ).reshape(B, K, 4)
+                refined = torch.cat([refined, refined.new_zeros(B, S - K, 4)], dim=1)
+                # drop rows equal to a gt box, then re-add the gt boxes
+                same = (boxes[:, :, None, :] - gt["boxes"][:, None, :, :]).abs() < 1e-5
+                eq_gt = (same.all(dim=-1) & gt["mask"][:, None, :]).any(dim=-1)
+                boxes = torch.cat([refined, gt["boxes"]], dim=1)
+                mask = torch.cat([stage_mask & ~eq_gt, gt["mask"]], dim=1)
+        return boxes, mask, losses
+
+    def _train_rescore(self, features, cls_sampled, grid_boxes, grid_mask, gt, draws):
+        g = self.cfg.GRID_RCNN
+        # the negatives of the cls sample plus the grid-refined boxes
+        neg_mask = cls_sampled.mask & (cls_sampled.labels == 0)
+        union_boxes = torch.cat([cls_sampled.boxes, grid_boxes], dim=1)
+        union_mask = torch.cat([neg_mask, grid_mask], dim=1)
+        sampled = self._subsample(union_boxes, union_mask, gt, draws)
+        x = self.rescore_head(features, rois_with_batch_index(sampled.boxes), sampled.mask.reshape(-1))
+        loss = softmax_cross_entropy(
+            self.rescore_output(x), sampled.labels.reshape(-1), sampled.mask.reshape(-1)
+        )
+        return dict(loss_rescore=g.RESCORE_LOSS_WEIGHT * loss)
+
+    def _train(self, roi_feats, proposals, prop_mask, image_sizes, gt, draws):
+        g = self.cfg.GRID_RCNN
+        unported = [
+            name for name, on in (
+                ("RANDOM_JITTER", g.RANDOM_JITTER), ("BETTER_ROI", g.BETTER_ROI),
+                ("CASCADE_MAPPING_OPTION.RESIZE_ROI",
+                 self.cascade_on and g.CASCADE_MAPPING_OPTION.RESIZE_ROI),
+                ("RESCORE_OPTION.KEEP_RATIO", g.RESCORE_ON and g.RESCORE_OPTION.KEEP_RATIO),
+            ) if on
+        ]
+        if unported:
+            raise NotImplementedError(f"GRID_RCNN training options not ported: {unported}")
+        sampled, losses = self._train_cls(roi_feats, proposals, prop_mask, gt, draws)
+        grid_boxes, grid_mask, grid_losses = self._train_cascade(
+            roi_feats, sampled, gt, image_sizes, draws
+        )
+        losses.update(grid_losses)
+        if self.rescore_on:
+            losses.update(
+                self._train_rescore(roi_feats, sampled, grid_boxes, grid_mask, gt, draws)
+            )
+        return losses
+
+    # ---------------- test ----------------
 
     def _test_cls(self, features, proposals, prop_mask):
         g = self.cfg.GRID_RCNN
@@ -152,9 +319,14 @@ class GridCascadeRCNNHead(nn.Module):
         fused = torch.clamp(dets.scores, min=0.0) ** 0.8 * torch.clamp(rescores, min=1e-12) ** 0.2
         return dets._replace(scores=torch.where(dets.mask, fused, 0.0))
 
-    def forward(self, features, proposals, prop_mask, image_sizes) -> Detections:
-        """features: NHWC RoI levels [B, H_l, W_l, C] (P2..P5 first)."""
+    def forward(self, features, proposals, prop_mask, image_sizes, gt=None,
+                train: bool = False, draws=None):
+        """features: NHWC RoI levels [B, H_l, W_l, C] (P2..P5 first).
+        Train (gt: dict of boxes / labels / mask; draws: the sampler's
+        source of uniform draws) returns the loss dict, test `Detections`."""
         roi_feats = list(features[: self.num_levels])
+        if train:
+            return self._train(roi_feats, proposals, prop_mask, image_sizes, gt, draws)
         dets = self._test_cls(roi_feats, proposals, prop_mask)
         dets = self._test_cascade(roi_feats, dets, image_sizes)
         if self.rescore_on:

@@ -1,10 +1,12 @@
-"""Grid R-CNN heatmap decode.
+"""Grid R-CNN heatmap targets and decode.
 
 Port of cpm_tpu/modeling/roi_heads/grid_ops.py (`calc_sub_regions`,
-`_point_factors`, `expand_boxes`, `grid_decode`): per grid point, the
-argmax of its sub-region heatmap, mapped back through the mapping-ratio
-expansion of the box, then confidence-weighted border voting and a clamp
-of the refined box into the image.
+`_point_factors`, `expand_boxes`, `grid_targets`, `grid_decode`). Targets:
+per grid point, a disc of radius POS_RADIUS around the gt point's position
+in the mapping-ratio expansion of the box, cropped to the point's
+sub-region. Decode: per grid point, the argmax of its sub-region heatmap,
+mapped back through the expansion, then confidence-weighted border voting
+and a clamp of the refined box into the image.
 """
 
 from typing import List, Tuple
@@ -56,6 +58,59 @@ def expand_boxes(boxes: torch.Tensor, mapping_ratio: float) -> torch.Tensor:
         boxes[..., 2] + mapping_ratio * w2,
         boxes[..., 3] + mapping_ratio * h2,
     ], dim=-1)
+
+
+def grid_targets(
+    pos_bboxes: torch.Tensor,
+    pos_gt_bboxes: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    mapping_ratio: float = 1.0,
+    grid_points: int = 9,
+    roi_feat_size: int = 14,
+    pos_radius: int = 1,
+    target_refine: bool = False,
+) -> torch.Tensor:
+    """Heatmap targets [N, P, half, half] float32 (half = 2 * roi_feat_size)
+    for proposals [N, 4] (before expansion) and their matched gt [N, 4];
+    invalid rois and rois whose expanded size does not exceed the grid get
+    all-zero targets. target_refine: a grid point whose centre falls outside
+    the whole map also marks the centre clamped into the map."""
+    grid_size = int(np.sqrt(grid_points))
+    whole = roi_feat_size * 4
+    half = whole // 4 * 2
+    dev = pos_bboxes.device
+    subs = torch.tensor(calc_sub_regions(grid_points, grid_size, whole), dtype=torch.int32, device=dev)
+    factors = torch.from_numpy(_point_factors(grid_points, grid_size)).to(dev)
+
+    exp = expand_boxes(pos_bboxes, mapping_ratio)
+    ws = exp[:, 2] - exp[:, 0]
+    hs = exp[:, 3] - exp[:, 1]
+    ok = valid & (ws > grid_size) & (hs > grid_size)
+
+    fx = factors[None, :, 0]
+    fy = factors[None, :, 1]
+    gx = fx * pos_gt_bboxes[:, 0:1] + (1 - fx) * pos_gt_bboxes[:, 2:3]
+    gy = fy * pos_gt_bboxes[:, 1:2] + (1 - fy) * pos_gt_bboxes[:, 3:4]
+    safe_w = torch.clamp(ws, min=1e-6)[:, None]
+    safe_h = torch.clamp(hs, min=1e-6)[:, None]
+    # truncation toward zero, as int() in the reference
+    cx = torch.trunc((gx - exp[:, 0:1]) / safe_w * whole).to(torch.int32)
+    cy = torch.trunc((gy - exp[:, 1:2]) / safe_h * whole).to(torch.int32)
+
+    # sub-region pixel (y, x) of point p is whole-map (y + sub_y1[p], x + sub_x1[p])
+    ar = torch.arange(half, dtype=torch.int32, device=dev)
+    map_x = (ar[None, None, :] + subs[:, 0, None, None])[None]  # [1, P, 1, half]
+    map_y = (ar[None, :, None] + subs[:, 1, None, None])[None]  # [1, P, half, 1]
+    dx = map_x - cx[:, :, None, None]
+    dy = map_y - cy[:, :, None, None]
+    inside = (dx * dx + dy * dy) <= pos_radius * pos_radius
+    if target_refine:
+        oob = (cx < 0) | (cx >= whole) | (cy < 0) | (cy >= whole)
+        ccx = torch.clamp(cx, 0, whole - 1)[:, :, None, None]
+        ccy = torch.clamp(cy, 0, whole - 1)[:, :, None, None]
+        inside = inside | (oob[:, :, None, None] & (map_x == ccx) & (map_y == ccy))
+    return (inside & ok[:, None, None, None]).to(torch.float32)
 
 
 def grid_decode(

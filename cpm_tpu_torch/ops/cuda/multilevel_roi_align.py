@@ -1,11 +1,12 @@
-"""Multilevel FPN RoIAlign: the hand-written CUDA kernel and its wrapper.
+"""Multilevel FPN RoIAlign: the hand-written CUDA kernels and their wrapper.
 
-Replaces the TPU kernel
-cpm_tpu/ops/pallas/multilevel_pallas.py::multilevel_roi_align_pallas
-(forward). The kernel, cpm_tpu_torch/csrc/multilevel_roi_align.cu, is CUDA
-C++ for sm_90a with a plain C entry point, built by nvcc into
-`build/cpm_tpu_torch/` at first use (keyed by a hash of the source and the
-flags) and bound with ctypes.
+Replaces the TPU kernels of cpm_tpu/ops/pallas/multilevel_pallas.py:
+`multilevel_roi_align_pallas` (forward, `_fwd`) and its custom_vjp backward
+(`_bwd` / `_bwd_kernel_body`). The kernels,
+cpm_tpu_torch/csrc/multilevel_roi_align.cu, are CUDA C++ for sm_90a with
+plain C entry points, built by one nvcc call into `build/cpm_tpu_torch/` at
+first use (keyed by a hash of the source and the flags) and bound with
+ctypes. A `torch.autograd.Function` pairs them.
 
 What bounds it on the H100 is the bytes its bilinear gathers read from
 L2/HBM, not FLOPs: one multiply-add per element read. The design keeps each
@@ -16,9 +17,26 @@ nothing. It takes none of the TPU kernel's window, so it is exact for every
 roi aspect ratio and the JAX pooler's window-overflow patch has no
 counterpart here.
 
+The backward is the transpose of that gather: per valid roi, bin and sample,
+`g / sr^2` times each bilinear weight is added to the cell the forward read.
+What bounds it on the H100 is again bytes: `g` is read once, coalesced, and
+every sample sends four C-vectors of atomic adds to L2, one multiply per
+element; the level gradients are written once. Blocks run in no order and
+rois overlap, so the sums go through `atomicAdd` (four channels to one
+float4 atomic) into float32 accumulators that this wrapper zero-fills, one
+flat buffer for all levels, cast to the feature dtype afterwards. The TPU
+kernel accumulates in the feature dtype (bf16 in training) to halve its DMA
+traffic; float32 accumulation is closer to the true sum and within one bf16
+rounding of it. The atomics' order changes from run to run, so two backward
+runs agree to float32 rounding of each cell's sum, not to the bit.
+
 `multilevel_roi_align` dispatches on where the tensors lie: on the CPU it
-runs the plain PyTorch version (cpm_tpu_torch/ops/roi_align.py); on a CUDA
-device it launches the kernel or raises. `KERNEL.launches` counts launches.
+runs the plain PyTorch version (cpm_tpu_torch/ops/roi_align.py), through
+which autograd differentiates by itself, so the plain version of the
+backward kernel is autograd of the plain forward
+(`plain_multilevel_roi_align_backward`); on a CUDA device it launches the
+kernels or raises. `KERNEL.launches` counts forward launches,
+`KERNEL.backward_launches` backward ones.
 """
 
 import ctypes
@@ -62,6 +80,7 @@ class MultilevelRoIAlignKernel:
 
     def __init__(self):
         self.launches = 0
+        self.backward_launches = 0
         self.build_seconds = None
         self.build_log = ""
         self.library_path = None
@@ -88,16 +107,60 @@ class MultilevelRoIAlignKernel:
                 )
             os.replace(tmp, lib_path)
         lib = ctypes.CDLL(str(lib_path))
-        fn = lib.cpm_multilevel_roi_align_fwd
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [
-            vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp,
-        ]
-        fn.restype = ci
+        for fn in (lib.cpm_multilevel_roi_align_fwd, lib.cpm_multilevel_roi_align_bwd):
+            fn.argtypes = [
+                vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp,
+            ]
+            fn.restype = ci
         self.build_seconds = time.perf_counter() - t0
         self.library_path = lib_path
         self._lib = lib
         return lib
+
+    def _launch(self, entry, level_tensors, rois, levels, valid, output_size,
+                spatial_scales, sampling_ratio, aligned, dtype, data):
+        """One launch of `entry` ('fwd' or 'bwd') on the current stream.
+        level_tensors: the per-level maps the kernel reads (fwd) or adds
+        into (bwd); data: the output (fwd) or the incoming gradient (bwd),
+        of `dtype`."""
+        if rois.device.type != "cuda":
+            raise ValueError(f"the kernels take CUDA tensors, got {rois.device}")
+        ph, pw = output_size
+        sr = sampling_ratio if sampling_ratio > 0 else 2
+        num_levels = len(level_tensors)
+        lib = self.build()
+        fn = getattr(lib, f"cpm_multilevel_roi_align_{entry}")
+        ptrs = (ctypes.c_void_p * num_levels)(*[f.data_ptr() for f in level_tensors])
+        hw = (ctypes.c_int * (2 * num_levels))(
+            *[int(d) for f in level_tensors for d in f.shape[1:3]]
+        )
+        scales = (ctypes.c_float * num_levels)(*[float(s) for s in spatial_scales])
+        f0 = level_tensors[0]
+        dev = rois.device
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(
+                ctypes.addressof(ptrs), ctypes.addressof(hw),
+                ctypes.addressof(scales), num_levels, int(f0.shape[0]),
+                int(f0.shape[3]), rois.data_ptr(), levels.data_ptr(),
+                valid.data_ptr(), int(rois.shape[0]), ph, pw, sr,
+                int(bool(aligned)), _DTYPE_CODES[dtype], data.data_ptr(), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"multilevel RoIAlign {entry} launch failed: cudaError {err}")
+
+    @staticmethod
+    def _check_rois(rois, levels, valid):
+        num_rois = int(rois.shape[0])
+        dev = rois.device
+        if rois.dtype != torch.float32 or rois.shape != (num_rois, 5) or not rois.is_contiguous():
+            raise ValueError("rois must be contiguous float32 [R, 5]")
+        if levels.dtype != torch.int32 or levels.shape != (num_rois,) or levels.device != dev:
+            raise ValueError("levels must be int32 [R] on the rois' device")
+        if valid.dtype != torch.bool or valid.shape != (num_rois,) or valid.device != dev:
+            raise ValueError("valid must be bool [R] on the rois' device")
+        return levels.contiguous(), valid.contiguous()
 
     def __call__(
         self,
@@ -110,9 +173,9 @@ class MultilevelRoIAlignKernel:
         sampling_ratio: int = 0,
         aligned: bool = False,
     ) -> torch.Tensor:
-        """Launch the kernel on CUDA tensors; see `multilevel_roi_align`."""
+        """Launch the forward kernel on CUDA tensors (no autograd); see
+        `multilevel_roi_align`."""
         ph, pw = (int(s) for s in output_size)
-        sr = sampling_ratio if sampling_ratio > 0 else 2
         num_levels = len(features)
         if not 1 <= num_levels <= MAX_LEVELS:
             raise ValueError(f"1..{MAX_LEVELS} levels supported, got {num_levels}")
@@ -138,41 +201,110 @@ class MultilevelRoIAlignKernel:
                 raise ValueError("levels must be contiguous NHWC ([B, H, W, C])")
             if f.data_ptr() % 16:
                 raise ValueError("levels must be 16-byte aligned")
-        num_rois = int(rois.shape[0])
-        if rois.dtype != torch.float32 or rois.shape != (num_rois, 5) or not rois.is_contiguous():
-            raise ValueError("rois must be contiguous float32 [R, 5]")
-        if levels.dtype != torch.int32 or levels.shape != (num_rois,) or levels.device != dev:
-            raise ValueError("levels must be int32 [R] on the rois' device")
-        if valid.dtype != torch.bool or valid.shape != (num_rois,) or valid.device != dev:
-            raise ValueError("valid must be bool [R] on the rois' device")
-        levels = levels.contiguous()
-        valid = valid.contiguous()
-        out = torch.empty((num_rois, ph, pw, channels), dtype=dtype, device=dev)
-        if num_rois == 0:
+        levels, valid = self._check_rois(rois, levels, valid)
+        out = torch.empty((int(rois.shape[0]), ph, pw, channels), dtype=dtype, device=dev)
+        if rois.shape[0] == 0:
             return out
-
-        lib = self.build()
-        ptrs = (ctypes.c_void_p * num_levels)(*[f.data_ptr() for f in features])
-        hw = (ctypes.c_int * (2 * num_levels))(
-            *[int(d) for f in features for d in f.shape[1:3]]
-        )
-        scales = (ctypes.c_float * num_levels)(*[float(s) for s in spatial_scales])
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.cpm_multilevel_roi_align_fwd(
-                ctypes.addressof(ptrs), ctypes.addressof(hw),
-                ctypes.addressof(scales), num_levels, batch, channels,
-                rois.data_ptr(), levels.data_ptr(), valid.data_ptr(),
-                num_rois, ph, pw, sr, int(bool(aligned)), _DTYPE_CODES[dtype],
-                out.data_ptr(), stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"multilevel RoIAlign launch failed: cudaError {err}")
+        self._launch("fwd", features, rois, levels, valid, (ph, pw), spatial_scales,
+                     sampling_ratio, aligned, dtype, out)
         self.launches += 1
         return out
 
+    def backward(
+        self,
+        feature_shapes: Sequence[Sequence[int]],
+        rois: torch.Tensor,
+        levels: torch.Tensor,
+        valid: torch.Tensor,
+        g: torch.Tensor,
+        spatial_scales: Sequence[float],
+        sampling_ratio: int = 0,
+        aligned: bool = False,
+    ):
+        """Launch the backward kernel: `g` `[R, ph, pw, C]` (contiguous, f32
+        or bf16, on the card) -> one gradient `[B, H_l, W_l, C]` per level
+        in g's dtype. The sums are taken in float32."""
+        num_levels = len(feature_shapes)
+        if not 1 <= num_levels <= MAX_LEVELS:
+            raise ValueError(f"1..{MAX_LEVELS} levels supported, got {num_levels}")
+        if len(spatial_scales) != num_levels:
+            raise ValueError("one spatial scale per level is required")
+        dev, dtype = rois.device, g.dtype
+        if dtype not in _DTYPE_CODES:
+            raise TypeError(f"g must be float32 or bfloat16, got {dtype}")
+        shapes = [tuple(int(d) for d in s) for s in feature_shapes]
+        batch, channels = shapes[0][0], shapes[0][3]
+        if any(len(s) != 4 or s[0] != batch or s[3] != channels for s in shapes):
+            raise ValueError("level shapes must be [B, H, W, C] sharing B and C")
+        if g.device != dev or g.dim() != 4 or g.shape[0] != rois.shape[0] or g.shape[3] != channels:
+            raise ValueError("g must be [R, ph, pw, C] on the rois' device")
+        if not g.is_contiguous() or g.data_ptr() % 16:
+            raise ValueError("g must be contiguous and 16-byte aligned")
+        if channels % (16 // g.element_size()):
+            raise ValueError(f"C={channels} must fill 16-byte vectors of {dtype}")
+        levels, valid = self._check_rois(rois, levels, valid)
+        # one flat float32 accumulator for all levels: one fill, one cast
+        sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
+        acc = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
+        parts = [a.view(s) for a, s in zip(acc.split(sizes), shapes)]
+        if rois.shape[0] > 0:
+            self._launch("bwd", parts, rois, levels, valid, tuple(g.shape[1:3]),
+                         spatial_scales, sampling_ratio, aligned, dtype, g)
+            self.backward_launches += 1
+        if dtype == torch.float32:
+            return parts
+        return [a.view(s) for a, s in zip(acc.to(dtype).split(sizes), shapes)]
+
 
 KERNEL = MultilevelRoIAlignKernel()
+
+
+class _MultilevelRoIAlign(torch.autograd.Function):
+    """Forward kernel and backward kernel as one differentiable op over the
+    level maps; rois, level ids and the mask get no gradient."""
+
+    @staticmethod
+    def forward(ctx, rois, levels, valid, output_size, spatial_scales,
+                sampling_ratio, aligned, *features):
+        ctx.save_for_backward(rois, levels, valid)
+        ctx.feature_shapes = [tuple(f.shape) for f in features]
+        ctx.args = (tuple(spatial_scales), sampling_ratio, aligned)
+        return KERNEL(features, rois, levels, valid, output_size, spatial_scales,
+                      sampling_ratio, aligned)
+
+    @staticmethod
+    def backward(ctx, g):
+        rois, levels, valid = ctx.saved_tensors
+        # the heads hand back gradients with the strides of their own views
+        # (NHWC -> NCHW permutes, reshapes); the kernel reads packed rows
+        grads = KERNEL.backward(ctx.feature_shapes, rois, levels, valid,
+                                g.contiguous(), *ctx.args)
+        return (None,) * 7 + tuple(grads)
+
+
+def plain_multilevel_roi_align_backward(
+    feature_shapes: Sequence[Sequence[int]],
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    valid: torch.Tensor,
+    g: torch.Tensor,
+    spatial_scales: Sequence[float],
+    sampling_ratio: int = 0,
+    aligned: bool = False,
+):
+    """The plain version of the backward kernel: autograd of the plain
+    forward. Returns one gradient `[B, H_l, W_l, C]` per level in g's dtype;
+    masked rois add nothing. The forward is linear in the maps, so its
+    gradient does not depend on their values and zeros stand in for them."""
+    feats = [
+        torch.zeros(tuple(s), dtype=g.dtype, device=g.device, requires_grad=True)
+        for s in feature_shapes
+    ]
+    out = plain_multilevel_roi_align(
+        feats, rois, levels, tuple(g.shape[1:3]), spatial_scales, sampling_ratio, aligned,
+    )
+    out = out * valid.to(out.dtype)[:, None, None, None]
+    return list(torch.autograd.grad(out, feats, g))
 
 
 def multilevel_roi_align(
@@ -189,7 +321,8 @@ def multilevel_roi_align(
 
     rois `[R, 5]` f32 (batch index, x1, y1, x2, y2), levels `[R]` int32
     level ids, valid `[R]` bool; rows of masked rois are zeros. CPU tensors
-    take the plain PyTorch version; CUDA tensors take the kernel.
+    take the plain PyTorch version; CUDA tensors take the kernels, the
+    backward one when a level map requires a gradient.
     """
     if rois.device.type == "cpu":
         out = plain_multilevel_roi_align(
@@ -199,6 +332,11 @@ def multilevel_roi_align(
         return out * valid.to(out.dtype)[:, None, None, None]
     if rois.device.type != "cuda":
         raise ValueError(f"no multilevel RoIAlign for device {rois.device}")
+    if torch.is_grad_enabled() and any(f.requires_grad for f in features):
+        return _MultilevelRoIAlign.apply(
+            rois, levels, valid, tuple(output_size), tuple(spatial_scales),
+            sampling_ratio, aligned, *features,
+        )
     return KERNEL(
         features, rois, levels, valid, output_size, spatial_scales,
         sampling_ratio, aligned,

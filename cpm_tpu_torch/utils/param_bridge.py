@@ -1,7 +1,11 @@
-"""Weights bridge: the JAX package's flax `params` tree -> the port's state_dict.
+"""Weights bridge between the JAX package's flax `params` tree and the
+port's parameter names, in both directions.
 
-The tree's leaves are numpy arrays (`jax.device_get` of the flax params);
-this module imports no JAX. Layouts:
+The trees' leaves are numpy arrays (`jax.device_get` of the flax params);
+this module imports no JAX. `name_map` is the map itself: flax path -> port
+parameter name. `flax_tree_to_named` applies it, with the layout transforms,
+to any tree of the params' structure (parameters, a gradient tree, a
+momentum tree); `state_dict_to_flax` goes back. Layouts:
 
 * Conv kernels HWIO -> OIHW (depthwise ones too: [5, 5, 1, C] -> [C, 1, 5, 5]).
 * Dense kernels [in, out] -> [out, in]. The flattened inputs of the dense
@@ -12,7 +16,7 @@ this module imports no JAX. Layouts:
   W[g*Cin/P + i, o, a, b] = kernel[a, b, i, g*Cout/P + o].
 * AffineChannel and GroupNorm `scale` -> `weight`.
 
-Every flax leaf must land on one torch parameter and every torch parameter
+Every flax leaf must land on one port parameter and every port parameter
 must receive one leaf, with matching shapes; anything else raises.
 """
 
@@ -74,9 +78,16 @@ def deconv_kernel_to_torch(kernel: np.ndarray, groups: int) -> np.ndarray:
     return w.transpose(3, 2, 4, 0, 1).reshape(groups * cin_g, cout // groups, kh, kw)
 
 
-def _convert(flax_path, value: np.ndarray, target_shape) -> np.ndarray:
+def deconv_kernel_to_flax(weight: np.ndarray, groups: int) -> np.ndarray:
+    """The inverse of `deconv_kernel_to_torch`."""
+    cin, cout_g, kh, kw = weight.shape
+    w = weight.reshape(groups, cin // groups, cout_g, kh, kw)
+    return w.transpose(3, 4, 1, 0, 2).reshape(kh, kw, cin // groups, groups * cout_g)
+
+
+def _to_torch(flax_path, value: np.ndarray, torch_shape) -> np.ndarray:
     if value.ndim == 4 and "deconv" in flax_path[-1]:
-        return deconv_kernel_to_torch(value, target_shape[0] // value.shape[2])
+        return deconv_kernel_to_torch(value, torch_shape[0] // value.shape[2])
     if value.ndim == 4:
         return value.transpose(3, 2, 0, 1)
     if value.ndim == 2:
@@ -84,26 +95,79 @@ def _convert(flax_path, value: np.ndarray, target_shape) -> np.ndarray:
     return value
 
 
+def _to_flax(flax_path, value: np.ndarray, flax_shape) -> np.ndarray:
+    if value.ndim == 4 and "deconv" in flax_path[-1]:
+        return deconv_kernel_to_flax(value, value.shape[0] // flax_shape[2])
+    if value.ndim == 4:
+        return value.transpose(2, 3, 1, 0)
+    if value.ndim == 2:
+        return value.T
+    return value
+
+
+def name_map(tree: Mapping) -> Dict[tuple, str]:
+    """Flax leaf path (tuple of names) -> port parameter name, for every
+    leaf of a tree of the params' structure; two leaves on one name raise."""
+    out = {}
+    for path in _flatten(tree):
+        key = torch_key(path)
+        if key in out.values():
+            raise KeyError(f"two flax leaves map to {key}")
+        out[path] = key
+    return out
+
+
+def flax_tree_to_named(tree: Mapping, shapes: Mapping[str, tuple]) -> Dict[str, np.ndarray]:
+    """Any tree of the flax params' structure -> {port parameter name:
+    numpy array in the port's layout}. `shapes` gives the port's shape for
+    every parameter name; each must receive exactly one leaf."""
+    leaves = _flatten(tree)
+    out = {}
+    for path, key in name_map(tree).items():
+        if key not in shapes:
+            raise KeyError(f"flax leaf {'/'.join(path)} -> {key}: no such port parameter")
+        want = tuple(shapes[key])
+        w = _to_torch(path, leaves[path], want)
+        if tuple(w.shape) != want:
+            raise ValueError(
+                f"{'/'.join(path)} {leaves[path].shape} -> {key}: got {w.shape}, want {want}"
+            )
+        out[key] = w
+    missing = sorted(set(shapes) - set(out))
+    if missing:
+        raise KeyError(f"port parameters without a flax leaf: {missing}")
+    return out
+
+
 def flax_to_state_dict(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """Convert a flax params tree into a state_dict for `model`."""
     targets = model.state_dict()
+    named = flax_tree_to_named(params, {k: tuple(v.shape) for k, v in targets.items()})
+    return {k: torch.tensor(w, dtype=targets[k].dtype) for k, w in named.items()}
+
+
+def state_dict_to_flax(state_dict: Mapping, like: Mapping) -> dict:
+    """The port's parameters (name -> tensor or array) as a flax tree of
+    numpy arrays with the structure and leaf shapes of `like` (any tree of
+    the flax params' structure). Every entry is used exactly once."""
+    names = name_map(like)
+    unused = set(state_dict) - set(names.values())
+    if unused:
+        raise KeyError(f"port parameters without a flax leaf: {sorted(unused)}")
     out = {}
-    for path, value in _flatten(params).items():
-        key = torch_key(path)
-        if key not in targets:
-            raise KeyError(f"flax leaf {'/'.join(path)} -> {key}: no such torch parameter")
-        if key in out:
-            raise KeyError(f"two flax leaves map to {key}")
-        w = _convert(path, value, tuple(targets[key].shape))
-        if tuple(w.shape) != tuple(targets[key].shape):
-            raise ValueError(
-                f"{'/'.join(path)} {value.shape} -> {key}: got {w.shape}, "
-                f"want {tuple(targets[key].shape)}"
-            )
-        out[key] = torch.tensor(w, dtype=targets[key].dtype)
-    missing = sorted(set(targets) - set(out))
-    if missing:
-        raise KeyError(f"torch parameters without a flax leaf: {missing}")
+    for path, leaf in _flatten(like).items():
+        key = names[path]
+        if key not in state_dict:
+            raise KeyError(f"flax leaf {'/'.join(path)} -> {key}: no such port parameter")
+        v = state_dict[key]
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        w = _to_flax(path, v, leaf.shape)
+        if w.shape != leaf.shape:
+            raise ValueError(f"{key} {v.shape} -> {'/'.join(path)}: got {w.shape}, want {leaf.shape}")
+        node = out
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = w
     return out
 
 

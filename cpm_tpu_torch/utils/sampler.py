@@ -1,0 +1,88 @@
+"""Fixed-shape balanced positive/negative sampling.
+
+Port of cpm_tpu/utils/sampler.py (`sample_k_from_mask`, `balanced_sample`):
+selection by rank over uniform priorities. The JAX package draws the
+priorities from a PRNG key inside these functions; threefry cannot be
+reproduced here, so each function takes its uniform draws as an argument
+(`noise`, of the mask's shape); left out, they are drawn from an explicit
+`torch.Generator`. `Draws` hands them out to the train forward: from a
+`torch.Generator` on the CPU, so that the CPU and the card see the same
+numbers, or from a list of arrays consumed in call order, as the tests do.
+"""
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+
+class Draws:
+    """A source of uniform [0, 1) tensors of a given shape on a device."""
+
+    def __init__(self, source: Union[torch.Generator, Sequence[np.ndarray]]):
+        self._generator = source if isinstance(source, torch.Generator) else None
+        self._arrays = None if self._generator is not None else list(source)
+        self.shapes = []  # shapes handed out, in order
+
+    def __call__(self, shape, device) -> torch.Tensor:
+        shape = tuple(int(d) for d in shape)
+        self.shapes.append(shape)
+        if self._generator is not None:
+            return torch.rand(shape, generator=self._generator).to(device)
+        if len(self.shapes) > len(self._arrays):
+            raise IndexError(f"draw {len(self.shapes)} requested of {len(self._arrays)}")
+        a = np.asarray(self._arrays[len(self.shapes) - 1], np.float32)
+        if a.shape != shape:
+            raise ValueError(f"draw {len(self.shapes)}: array {a.shape}, wanted {shape}")
+        return torch.from_numpy(a).to(device)
+
+
+def _uniform(mask, noise, generator) -> torch.Tensor:
+    if noise is not None:
+        if noise.shape != mask.shape:
+            raise ValueError(f"noise {tuple(noise.shape)} for a mask {tuple(mask.shape)}")
+        return noise
+    if generator is None:
+        raise ValueError("pass the uniform draws (noise) or a torch.Generator")
+    return torch.rand(mask.shape, generator=generator, device=generator.device).to(mask.device)
+
+
+def sample_k_from_mask(
+    mask: torch.Tensor, k, noise: Optional[torch.Tensor] = None, *,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Select exactly min(k, sum(mask)) elements of mask along the last dim:
+    those of lowest `noise`, equal values in index order. k is an int or an
+    integer tensor over the leading dims. Returns a bool mask."""
+    noise = _uniform(mask, noise, generator)
+    inf = torch.full_like(noise, float("inf"))
+    priority = torch.where(mask, noise, inf)
+    order = torch.argsort(priority, dim=-1, stable=True)
+    rank = torch.empty_like(order)
+    rank.scatter_(-1, order, torch.arange(mask.shape[-1], device=mask.device).expand_as(order))
+    if isinstance(k, torch.Tensor):
+        k = k[..., None]
+    return mask & (rank < k)
+
+
+def balanced_sample(
+    pos_mask: torch.Tensor,
+    neg_mask: torch.Tensor,
+    batch_size_per_image: int,
+    positive_fraction: float,
+    noise_pos: Optional[torch.Tensor] = None,
+    noise_neg: Optional[torch.Tensor] = None,
+    *,
+    generator: Optional[torch.Generator] = None,
+):
+    """Up to batch * positive_fraction positives, the rest negatives, as
+    binary masks over [..., N] candidates. The positives' draws come first."""
+    noise_pos = _uniform(pos_mask, noise_pos, generator)
+    noise_neg = _uniform(neg_mask, noise_neg, generator)
+    max_pos = int(batch_size_per_image * positive_fraction)
+    num_pos = torch.clamp(pos_mask.sum(dim=-1), max=max_pos)
+    num_neg = torch.minimum(neg_mask.sum(dim=-1), batch_size_per_image - num_pos)
+    return (
+        sample_k_from_mask(pos_mask, num_pos, noise_pos),
+        sample_k_from_mask(neg_mask, num_neg, noise_neg),
+    )

@@ -1,5 +1,5 @@
-"""The port stands apart from JAX, and chip_smoke.py refuses to run without
-a card.
+"""The port stands apart from JAX and from the JAX package, and chip_smoke.py
+refuses to run without a card.
 
 Each check runs in a fresh interpreter, so that modules the test process
 already imported (JAX among them) cannot hide a missing dependency.
@@ -26,7 +26,7 @@ def _python(code, cwd=REPO, timeout=300):
 def test_every_port_module_imports_without_jax():
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'cpm_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import cpm_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(cpm_tpu_torch.__path__, 'cpm_tpu_torch.')]\n"
@@ -36,22 +36,31 @@ def test_every_port_module_imports_without_jax():
     )
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20
+    assert int(proc.stdout.split()[-1]) >= 30
 
 
 def test_port_sources_import_no_jax_inside_functions_either():
-    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax)\b", re.M)
+    # `cpm_tpu` followed by a word boundary does not match `cpm_tpu_torch`
+    pattern = re.compile(
+        r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|cpm_tpu)(\s|\.|$)", re.M)
     for path in list((REPO / "cpm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
+    assert pattern.search("    from cpm_tpu.config import cfg\n")
+    assert pattern.search("import cpm_tpu\n")
+    assert not pattern.search("from cpm_tpu_torch.config import cfg\n")
 
 
 def test_config_imports_without_pyyaml_and_yaml_use_raises():
+    # PyYAML is imported inside merge_cfg_from_file, nowhere else
     code = (
         "import sys\n"
         "sys.modules['yaml'] = None\n"
-        "from cpm_tpu_torch.config import get_default_cfg, merge_cfg_from_file\n"
+        "sys.modules['cpm_tpu'] = None\n"
+        "from cpm_tpu_torch.config import get_default_cfg, merge_cfg_from_file, merge_cfg_from_list\n"
         "cfg = get_default_cfg()\n"
         "assert cfg.TPU.COMPUTE_DTYPE == 'bfloat16'\n"
+        "merge_cfg_from_list(['SOLVER.BASE_LR', '0.02'], cfg)\n"
+        "assert cfg.SOLVER.BASE_LR == 0.02\n"
         "try:\n"
         "    merge_cfg_from_file('cfgs/debug/tiny_fast_rcnn.yaml', cfg)\n"
         "except ImportError:\n"
@@ -60,6 +69,43 @@ def test_config_imports_without_pyyaml_and_yaml_use_raises():
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "refused"
+
+
+def test_port_config_schema_equals_the_jax_packages():
+    """Guards the port's copy of the schema against drift: the same keys,
+    defaults and types, the same merge and freeze behaviour."""
+    import cpm_tpu.config as jax_config
+    import cpm_tpu_torch.config as port_config
+
+    def walk(a, b, path=""):
+        assert type(a).__name__ == type(b).__name__, path
+        if isinstance(a, dict):
+            assert list(a) == list(b), path
+            for k in a:
+                walk(a[k], b[k], f"{path}.{k}")
+        else:
+            assert a == b and type(a) is type(b), path
+
+    want, got = jax_config.get_default_cfg(), port_config.get_default_cfg()
+    walk(got, want)
+    assert isinstance(got, port_config.AttrDict) and not isinstance(got, jax_config.AttrDict)
+    yaml_file = REPO / "cfgs" / "debug" / "tiny_fast_rcnn.yaml"
+    opts = ["SOLVER.BASE_LR", "0.02", "TRAIN.SCALES", "(640, 672)"]
+    for mod, c in ((jax_config, want), (port_config, got)):
+        mod.merge_cfg_from_file(str(yaml_file), c)
+        mod.merge_cfg_from_list(opts, c)
+        mod.assert_and_infer_cfg(c)
+    walk(got, want)
+    assert got.is_immutable() and got.TRAIN.SCALES == (640, 672)
+    assert vars(port_config.freeze_to_ns(got).SOLVER) == vars(jax_config.freeze_to_ns(want).SOLVER)
+    for mod in (jax_config, port_config):
+        fresh = mod.get_default_cfg()
+        try:
+            mod.merge_cfg_from_list(["SOLVER.NO_SUCH_KEY", "1"], fresh)
+        except KeyError as e:
+            assert "SOLVER.NO_SUCH_KEY" in str(e)
+        else:
+            raise AssertionError("unknown key accepted")
 
 
 def test_collecting_the_port_tests_loads_no_torch():
@@ -75,7 +121,7 @@ def test_collecting_the_port_tests_loads_no_torch():
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
     n_files, rc, torch_loaded = proc.stdout.split()[-3:]
-    assert int(n_files) >= 5 and rc == "0"
+    assert int(n_files) >= 8 and rc == "0"
     assert torch_loaded == "False"
 
 
