@@ -6,36 +6,56 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 
 0. device: requires CUDA; prints the card's name and power limit, the torch
    and CUDA versions, and whether yaml and PIL import.
-1. build: builds the multilevel RoIAlign CUDA kernels (forward and backward)
-   from cpm_tpu_torch/csrc with nvcc.
-2. kernel: the forward kernel against its plain PyTorch version at the
-   flagship's pooler shapes (B=2, P2-P5 of an 800x1344 batch, C=256), f32
-   and bf16.
-2b. backward kernel: against its plain version (autograd of the plain
-   forward) at the training shapes (R=1024 at 7x7, R=256 at 14x14, ~30%
-   masked, and a case where 512 rois share a few cells so that the atomics
-   collide): f32, bf16, masked rois add nothing, two runs on the same inputs.
-3. main path: the flagship CPM R-50-FPN config (81 classes, 3 CMM stages,
+1. build: builds the four CUDA sources of cpm_tpu_torch/csrc with nvcc, one
+   process each, all started together (six kernels: multilevel forward and
+   backward, stacked forward and backward, clustered forward, single-level
+   forward).
+2. kernels: each multilevel-pooling forward kernel (multilevel, stacked,
+   clustered) against its plain PyTorch version at the flagship's pooler
+   shapes (B=2, P2-P5 of an 800x1344 batch, C=256), f32 and bf16, on random
+   rois (~30% masked, with extreme-aspect, outside and degenerate boxes) and
+   on a dense set that forms multi-roi groups (the group-size histogram is
+   printed); the stacked and clustered kernels also against the multilevel
+   kernel on the same inputs. The single-level kernel against its plain
+   version at the C4 shape ([2, 50, 84, 1024] f32, 1024 rois, 7x7 and 14x14).
+2b. backward kernels: the multilevel and the stacked backward against their
+   plain versions (autograd of the plain forwards) at the training shapes
+   (R=1024 at 7x7, R=256 at 14x14, ~30% masked, and a case where 512 rois
+   share a few cells so that the atomics collide): f32, bf16, masked rois
+   add nothing, two runs on the same inputs; the stacked backward also
+   against the multilevel one.
+3. eval paths: the flagship CPM R-50-FPN config (81 classes, 3 CMM stages,
    ISM, RSM) with seeded random weights, bf16, uint8 images normalized on
-   the device: six batch-1 requests at 800x1344, then one batch-2 request.
-   Checks every request's detections and that it launched the kernel 5 times
-   (cls, three grid stages, rescore). Then the kernel check of phase 2 is
-   repeated on the FPN maps and rois of the five pooler calls of one batch-1
-   forward; the JSON line's `ms` and `plain_ms` are their times summed.
+   the device, under TPU.POOLER_KERNEL auto, then stacked, then clustered:
+   batch-1 requests at 800x1344 (four under auto, two under the others) and
+   one batch-2 request. Checks every request's detections and that it
+   launched its backend's forward kernel 5 times (cls, three grid stages,
+   rescore) and no other kernel; under stacked and clustered the detections
+   of two requests must equal the auto path's. Then the kernel check of
+   phase 2 is repeated on the FPN maps and rois of the five pooler calls of
+   one batch-1 forward; each kernel's `ms` and `plain_ms` in the JSON line
+   are their times summed.
 4. reference: the port on the card against the port on the CPU (plain
    pooler) at a narrow width in f32, detections compared as masked sets.
-5. training path: `create_train_state(flagship_cfg(), "cuda", seed=0)` at
+5. training paths: `create_train_state(training_cfg(), "cuda", seed=0)` at
    the operating point the JAX package trains (batch 2 at 800x1344, up to
    32 gt per image, RPN.PRE_NMS_TOP_N_TRAIN=2000, bf16 compute on f32
-   masters, uint8 images). The weights are random from the seed; the
-   trunk's frozen affines are then set from one seeded batch's statistics
-   (cpm_tpu_torch/tools/profile_train.py::fold_batch_statistics). One warm-up step, three timed steps checked for
-   losses, launches (5 forward, 5 backward), gradients, changed and frozen
-   parameters and the learning rate; then the backward-kernel check of
-   phase 2b on the gradients, rois and level shapes of the five pooler
-   sites of one more step.
+   masters, uint8 images), under auto, stacked and clustered. The weights
+   are random from the seed; the trunk's frozen affines are then set from
+   one seeded batch's statistics
+   (cpm_tpu_torch/tools/profile_train.py::fold_batch_statistics). One
+   warm-up step and two timed steps, checked for losses, launches (5 forward
+   and 5 backward of the backend's kernels, none of any other), gradients,
+   changed and frozen parameters and the learning rate; under stacked and
+   clustered the losses are held against the auto path's. Then the
+   backward-kernel check of phase 2b on the gradients, rois and level shapes
+   of the five pooler sites of one more step (auto and stacked; clustered
+   trains through the multilevel backward kernel).
 6. training reference: two steps of the port on the card against two on the
    CPU at a narrow width in f32, the same seed, batch and draws.
+7. single-level path: no model of the port has a one-level pooler yet, so a
+   `Pooler` over one C4 map is driven directly, forward and backward, and
+   held against the plain version.
 
 Then a JSON line of kernel results and, last, {"ok": true, "device": ...}.
 Random weights give softmax scores near 1/81, below the default 0.03
@@ -43,12 +63,17 @@ threshold, so GRID_RCNN.SCORE_THRESH is set to 0.0 for phase 3.
 
 Each kernel's `bound_ms` is the least time the card could take for the call:
 the larger of its bytes over 3.35 TB/s (the level cells the rois touch, the
-rois, and the output for the forward; the valid rois' gradient rows, the
-rois, and every level map written once for the backward) and its f32
-multiply-adds over 67 TFLOP/s. No single PyTorch call computes a multilevel
-RoIAlign or its transpose, so `library_ms` is null.
+rois, and the output for a forward; the valid rois' gradient rows, the
+rois, and every level map written once for a backward; for the clustered
+forward each group's rectangle counted once, not once per roi, plus the
+grouping arrays) and its f32 multiply-adds over 67 TFLOP/s. The stacked
+kernels' stack copy and the clustered kernel's grouping are torch ops
+outside the kernels; their times are printed on lines of their own. No
+single PyTorch call computes a RoIAlign or its transpose, so `library_ms`
+is null.
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -60,18 +85,79 @@ import torch
 
 SHAPES = [(200, 336), (100, 168), (50, 84), (25, 42)]
 SCALES = (0.25, 0.125, 0.0625, 0.03125)
+C4_SHAPE, C4_SCALE, C4_ROIS = (2, 50, 84, 1024), 0.0625, 1024
 BF16_RTOL, BF16_ATOL = 1.6e-2, 1e-2
 F32_ATOL = 1e-5
 BWD_F32_RTOL, BWD_F32_ATOL = 1e-4, 1e-4
-REPLACES = "cpm_tpu/ops/pallas/multilevel_pallas.py:480"
-BWD_REPLACES = "cpm_tpu/ops/pallas/multilevel_pallas.py:632"
-SOURCE = "cpm_tpu_torch/csrc/multilevel_roi_align.cu"
 POOLER_SITES = ("cls 7x7", "grid stage 1 14x14", "grid stage 2 14x14",
                 "grid stage 3 14x14", "rescore 7x7")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # f32 outside the tensor cores, same sheet
 TRAIN_LOSSES = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_grid_1",
                 "loss_grid_2", "loss_grid_3", "loss_iou_3", "loss_rescore")
+BACKENDS = ("auto", "stacked", "clustered")
+# what disagreed with the auto path: reported where it happens, so that one
+# run shows every disagreement, and raised together at the end of main
+DISAGREEMENTS = []
+# the six kernels: name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "multilevel_roi_align": (
+        "cpm_tpu_torch/csrc/multilevel_roi_align.cu", "cpm_tpu/ops/pallas/multilevel_pallas.py:480"),
+    "multilevel_roi_align_backward": (
+        "cpm_tpu_torch/csrc/multilevel_roi_align.cu", "cpm_tpu/ops/pallas/multilevel_pallas.py:632"),
+    "clustered_roi_align": (
+        "cpm_tpu_torch/csrc/clustered_roi_align.cu", "cpm_tpu/ops/pallas/clustered_pallas.py:327"),
+    "stacked_roi_align": (
+        "cpm_tpu_torch/csrc/stacked_roi_align.cu", "cpm_tpu/ops/pallas/stacked_pallas.py:296"),
+    "stacked_roi_align_backward": (
+        "cpm_tpu_torch/csrc/stacked_roi_align.cu", "cpm_tpu/ops/pallas/stacked_pallas.py:379"),
+    "roi_align": (
+        "cpm_tpu_torch/csrc/roi_align.cu", "cpm_tpu/ops/pallas/roi_align_pallas.py:49"),
+}
+# the kernels that a pooler call launches under each TPU.POOLER_KERNEL value
+FORWARD_KERNEL = {"auto": "multilevel_roi_align", "stacked": "stacked_roi_align",
+                  "clustered": "clustered_roi_align"}
+BACKWARD_KERNEL = {"auto": "multilevel_roi_align_backward",
+                   "stacked": "stacked_roi_align_backward",
+                   "clustered": "multilevel_roi_align_backward"}
+
+
+def ops():
+    """The four wrapper modules, imported when first needed."""
+    from cpm_tpu_torch.ops.cuda import (
+        clustered_roi_align,
+        multilevel_roi_align,
+        roi_align,
+        stacked_roi_align,
+    )
+
+    return dict(multilevel=multilevel_roi_align, stacked=stacked_roi_align,
+                clustered=clustered_roi_align, single=roi_align)
+
+
+def launch_counts():
+    """Launches of each of the six kernels so far, as their wrappers count them."""
+    m = ops()
+    return {
+        "multilevel_roi_align": m["multilevel"].KERNEL.launches,
+        "multilevel_roi_align_backward": m["multilevel"].KERNEL.backward_launches,
+        "clustered_roi_align": m["clustered"].KERNEL.launches,
+        "stacked_roi_align": m["stacked"].KERNEL.launches,
+        "stacked_roi_align_backward": m["stacked"].KERNEL.backward_launches,
+        "roi_align": m["single"].KERNEL.launches,
+    }
+
+
+def reset_launch_counts():
+    m = ops()
+    for mod in m.values():
+        mod.KERNEL.launches = 0
+    m["multilevel"].KERNEL.backward_launches = m["stacked"].KERNEL.backward_launches = 0
+
+
+def launched_since(before):
+    """The kernels launched since `before` (a `launch_counts()`), without zeros."""
+    return {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -89,19 +175,30 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def roi_align_bounds(shapes, rois, levels, valid, pool, elem_size):
-    """(forward bound ms, backward bound ms, 'bytes' or 'operations' each)
-    for one call on these inputs, as the module docstring sets out. The
-    cells a forward must read are those that receive a non-zero gradient
-    from an all-ones output gradient, counted with the plain backward at
-    C=1."""
+def bound_of(nbytes, flops):
+    """(bound ms, 'bytes' or 'operations') of a call that must move nbytes
+    and do flops f32 operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def touched_cells(shapes, rois, levels, valid, pool, scales):
+    """How many level cells the valid rois read: those that receive a
+    non-zero gradient from an all-ones output gradient, counted with the
+    plain backward at C=1."""
     from cpm_tpu_torch.ops.cuda.multilevel_roi_align import plain_multilevel_roi_align_backward
 
-    channels = shapes[0][3]
     ones = torch.ones((rois.shape[0], *pool, 1), device=rois.device)
     touched = plain_multilevel_roi_align_backward(
-        [(*s[:3], 1) for s in shapes], rois, levels, valid, ones, SCALES, 2)
-    cells = sum(int((t != 0).sum()) for t in touched)
+        [(*s[:3], 1) for s in shapes], rois, levels, valid, ones, scales, 2)
+    return sum(int((t != 0).sum()) for t in touched)
+
+
+def roi_align_bounds(shapes, rois, levels, valid, pool, elem_size, scales=SCALES):
+    """(forward bound ms, backward bound ms, 'bytes' or 'operations' each)
+    for one call on these inputs, as the module docstring sets out."""
+    channels = shapes[0][3]
+    cells = touched_cells(shapes, rois, levels, valid, pool, scales)
     n, n_valid = rois.shape[0], int(valid.sum())
     bins = pool[0] * pool[1]
     roi_bytes = n * (5 * 4 + 4 + 1)
@@ -110,80 +207,171 @@ def roi_align_bounds(shapes, rois, levels, valid, pool, elem_size):
     map_bytes = sum(s[0] * s[1] * s[2] for s in shapes) * channels * elem_size
     bwd_bytes = n_valid * bins * channels * elem_size + roi_bytes + map_bytes
     flops = n_valid * bins * 4 * 4 * channels * 2  # samples x cells x (mul, add)
-    out = []
-    for nbytes in (fwd_bytes, bwd_bytes):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-        out.append((max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"))
-    return out
+    return bound_of(fwd_bytes, flops), bound_of(bwd_bytes, flops)
 
 
-def check_kernel(name, features, rois, levels, valid, pool, rescale=False):
-    """Kernel vs plain version, f32 and bf16, on the same inputs. Returns
-    (f32 max error, bf16 kernel ms, bf16 plain ms, bound ms, bound_by).
+def clustered_bound(shapes, rois, levels, valid, pool, elem_size, grouping):
+    """The clustered forward's bound: every group's rectangle read once (a
+    singleton whose rectangle exceeds the tile reads the cells it touches),
+    the rois, the grouping arrays, and the output written once."""
+    from cpm_tpu_torch.ops.roi_align import TILE
+
+    channels = shapes[0][3]
+    g = grouping.groups.long()
+    fits = (g[:, 6] <= TILE) & (g[:, 7] <= TILE)
+    cells = int((g[:, 6] * g[:, 7])[fits & (g[:, 1] > 0)].sum())
+    # the members of the groups beyond the tile: all singletons
+    big = torch.zeros_like(valid)
+    big[grouping.order.long()[g[~fits & (g[:, 1] > 0), 0]]] = True
+    if big.any():
+        cells += touched_cells(shapes, rois, levels, big, pool, SCALES)
+    n, n_valid = rois.shape[0], int(valid.sum())
+    bins = pool[0] * pool[1]
+    nbytes = (cells * channels * elem_size + n * (5 * 4 + 1) + n * 4 + n * 8 * 4
+              + n * bins * channels * elem_size)
+    return bound_of(nbytes, n_valid * bins * 4 * 4 * channels * 2)
+
+
+def group_histogram(grouping):
+    """'size:count' of the groups' sizes, and the largest rectangle."""
+    g = grouping.groups.cpu().numpy()
+    sizes = g[g[:, 1] > 0, 1]
+    hist = " ".join(f"{k}:{v}" for k, v in enumerate(np.bincount(sizes)) if v)
+    return (f"{len(sizes)} groups of {int(sizes.sum())} rois, size:count {hist}, mean "
+            f"{sizes.mean():.2f}, largest rectangle {int(g[:, 6].max())}x{int(g[:, 7].max())} cells")
+
+
+def forward_impl(impl, features, rois, levels, valid, pool):
+    """(run kernel, run plain, extra) for one forward formulation on these
+    inputs. The stacked kernel runs on a stack made beforehand and the
+    clustered one on a grouping made beforehand; `extra` names what that
+    preparation (torch ops outside the kernel) costs."""
+    from cpm_tpu_torch.ops import roi_align as plain
+
+    m = ops()
+    mask = valid[:, None, None, None]
+    if impl == "multilevel":
+        return (lambda fs: m["multilevel"].KERNEL(fs, rois, levels, valid, pool, SCALES, 2),
+                lambda fs: plain.multilevel_roi_align(fs, rois, levels, pool, SCALES, 2)
+                * mask.to(fs[0].dtype), None)
+    level_hw = [tuple(f.shape[1:3]) for f in features]
+    if impl == "stacked":
+        stacks = {}
+
+        def kernel(fs):
+            key = fs[0].dtype
+            if key not in stacks:
+                stacks[key] = plain.stack_levels(fs)
+            return m["stacked"].KERNEL(stacks[key], level_hw, rois, levels, valid, pool, SCALES, 2)
+
+        def extra(fs):
+            ms = cuda_ms(lambda: plain.stack_levels(fs))
+            return f"stack copy (pad and cat, torch ops) {ms:.4f} ms"
+
+        return (kernel, lambda fs: plain.multilevel_roi_align_stacked_plain(
+            fs, rois, levels, pool, SCALES, 2) * mask.to(fs[0].dtype), extra)
+    if impl == "clustered":
+        def cluster():
+            return plain.cluster_rois(rois, levels, valid, level_hw, features[0].shape[0], pool,
+                                      SCALES, 2)
+
+        grouping = cluster()
+
+        def extra(fs):
+            return (f"grouping (cluster_rois, torch ops) {cuda_ms(cluster):.4f} ms; "
+                    f"{group_histogram(grouping)}")
+
+        return (lambda fs: m["clustered"].KERNEL(fs, rois, levels, valid, pool, SCALES, 2,
+                                                 grouping=grouping),
+                lambda fs: plain.multilevel_roi_align_clustered_plain(
+                    fs, rois, levels, valid, pool, SCALES, 2, grouping=grouping), extra)
+    raise ValueError(impl)
+
+
+def check_kernel(name, features, rois, levels, valid, pool, card, rescale=False, impl="multilevel"):
+    """One forward kernel vs its plain version, f32 and bf16, on the same
+    inputs; the stacked and clustered kernels also vs the multilevel kernel.
+    Returns a dict of the f32 max error and the bf16 times and bound.
 
     rescale: first scale the maps by the power of two that brings their
     largest magnitude to at most 1. The scaling is exact in f32 and bf16 and
     RoIAlign is linear, so atol 1e-5 then bounds the error relative to the
     maps' magnitude (random-weight FPN maps reach the thousands)."""
-    from cpm_tpu_torch.ops.cuda.multilevel_roi_align import KERNEL
-    from cpm_tpu_torch.ops.roi_align import multilevel_roi_align as plain
-
-    def run_plain(fs):
-        return plain(fs, rois, levels, pool, SCALES, 2) * valid.to(fs[0].dtype)[:, None, None, None]
-
     if rescale:
         peak = max(f.float().abs().max().item() for f in features)
         exp = max(0, math.ceil(math.log2(peak))) if peak > 0 else 0
         features = [f * 2.0 ** -exp for f in features]
         name = f"{name} (maps scaled by 2^-{exp}, max |map| {peak:.4g})"
+    name = f"{impl} {name}"
+    kernel, plain, extra = forward_impl(impl, features, rois, levels, valid, pool)
+    other = forward_impl("multilevel", features, rois, levels, valid, pool)[0]
     f32 = [f.float().contiguous() for f in features]
-    got = KERNEL(f32, rois, levels, valid, pool, SCALES, 2)
-    want = run_plain(f32)
+    got = kernel(f32)
+    want = plain(f32)
     torch.cuda.synchronize()
     err32 = (got - want).abs().max().item()
     if not torch.isfinite(got).all() or err32 > F32_ATOL:
         raise AssertionError(f"{name}: f32 kernel vs plain max |err| {err32} > {F32_ATOL}")
+    if got[~valid].any():
+        raise AssertionError(f"{name}: a masked roi's row is not zero")
+    vs_multilevel = (got - other(f32)).abs().max().item()
+    if vs_multilevel > F32_ATOL:
+        raise AssertionError(f"{name}: differs from the multilevel kernel by {vs_multilevel}")
 
     bf = [f.to(torch.bfloat16).contiguous() for f in features]
-    got = KERNEL(bf, rois, levels, valid, pool, SCALES, 2).float()
-    want = run_plain([f.float() for f in bf]).to(torch.bfloat16).float()
+    got = kernel(bf).float()
+    want = plain([f.float() for f in bf]).to(torch.bfloat16).float()
     torch.cuda.synchronize()
     err16 = (got - want).abs().max().item()
     bad = ((got - want).abs() > BF16_ATOL + BF16_RTOL * want.abs()).sum().item()
     if bad:
         raise AssertionError(f"{name}: bf16 {bad} elements beyond rtol {BF16_RTOL} atol {BF16_ATOL}")
+    del got, want
 
-    ms = cuda_ms(lambda: KERNEL(bf, rois, levels, valid, pool, SCALES, 2))
-    plain_ms = cuda_ms(lambda: run_plain(bf))
-    (bound_ms, bound_by), _ = roi_align_bounds(
-        [tuple(f.shape) for f in bf], rois, levels, valid, pool, 2)
+    ms = cuda_ms(lambda: kernel(bf))
+    plain_ms = cuda_ms(lambda: plain(bf), reps=5)
+    shapes = [tuple(f.shape) for f in bf]
+    if impl == "clustered":
+        from cpm_tpu_torch.ops.roi_align import cluster_rois
+
+        grouping = cluster_rois(rois, levels, valid, [s[1:3] for s in shapes], shapes[0][0], pool,
+                                SCALES, 2)
+        bound_ms, bound_by = clustered_bound(shapes, rois, levels, valid, pool, 2, grouping)
+    else:
+        (bound_ms, bound_by), _ = roi_align_bounds(shapes, rois, levels, valid, pool, 2)
     print(
         f"[kernel] {name}: R={rois.shape[0]} pool={pool} valid={int(valid.sum())} "
-        f"f32 max|err|={err32:.3g} (atol {F32_ATOL}) bf16 max|err|={err16:.3g} "
-        f"(rtol {BF16_RTOL}, atol {BF16_ATOL}) bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})"
+        f"f32 max|err|={err32:.3g} (atol {F32_ATOL}) vs multilevel kernel {vs_multilevel:.3g} "
+        f"bf16 max|err|={err16:.3g} (rtol {BF16_RTOL}, atol {BF16_ATOL}) bf16 kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | {card}"
     )
-    return err32, ms, plain_ms, bound_ms, bound_by
+    if extra is not None:
+        print(f"[kernel] {name}: {extra(bf)} | {card}")
+    return dict(err=err32, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def check_backward_kernel(name, shapes, rois, levels, valid, g, card, rescale=False):
-    """Backward kernel vs its plain version (autograd of the plain forward)
-    on the same inputs: f32 (TF32 plays no part: neither side multiplies
-    matrices), bf16, masked rois, two runs. Returns a dict of the f32 max
-    error and the bf16 times and bound.
+def check_backward_kernel(name, shapes, rois, levels, valid, g, card, rescale=False,
+                          impl="multilevel"):
+    """One backward kernel ('multilevel' or 'stacked') vs its plain version
+    (autograd of its plain forward) on the same inputs: f32 (TF32 plays no
+    part: neither side multiplies matrices), bf16, masked rois, two runs;
+    the stacked kernel also vs the multilevel one. Returns a dict of the f32
+    max error and the bf16 times and bound.
 
     Tolerances. f32: rtol 1e-4 / atol 1e-4, the JAX package's own for its
-    backward kernel; both sides sum each cell's terms in f32 in another
+    backward kernels; both sides sum each cell's terms in f32 in another
     order, the kernel's atomics in an order that changes from run to run.
     bf16: the kernel sums in f32 and rounds once, the plain version is the
     f32 gradient of the same bf16 `g` rounded to bf16, so they differ by at
     most one bf16 rounding: rtol 1.6e-2 / atol 1e-2.
     rescale: first scale `g` by the power of two that brings its largest
     magnitude to at most 1 (exact, and the backward is linear in `g`)."""
-    from cpm_tpu_torch.ops.cuda.multilevel_roi_align import (
-        KERNEL,
-        plain_multilevel_roi_align_backward as plain,
-    )
+    m = ops()
+    mod = m[impl]
+    kernel = mod.KERNEL.backward
+    plain = (mod.plain_multilevel_roi_align_backward if impl == "multilevel"
+             else mod.plain_stacked_roi_align_backward)
+    name = f"{impl} {name}"
 
     pool = tuple(g.shape[1:3])
     if rescale:
@@ -192,33 +380,36 @@ def check_backward_kernel(name, shapes, rois, levels, valid, g, card, rescale=Fa
         g = g * 2.0 ** -exp
         name = f"{name} (g scaled by 2^{-exp}, max |g| {peak:.4g})"
     g32 = g.float().contiguous()
-    got = KERNEL.backward(shapes, rois, levels, valid, g32, SCALES, 2)
+    got = kernel(shapes, rois, levels, valid, g32, SCALES, 2)
     want = plain(shapes, rois, levels, valid, g32, SCALES, 2)
     torch.cuda.synchronize()
-    err32 = 0.0
-    for a, b in zip(got, want):
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"{name}: non-finite f32 gradient")
-        d = (a - b).abs()
-        err32 = max(err32, d.max().item())
-        bad = (d > BWD_F32_ATOL + BWD_F32_RTOL * b.abs()).sum().item()
-        if bad:
-            raise AssertionError(
-                f"{name}: f32 backward, {bad} cells beyond rtol {BWD_F32_RTOL} "
-                f"atol {BWD_F32_ATOL}, max |err| {d.max().item()}")
 
+    def worst(a_list, b_list, what):
+        out = 0.0
+        for a, b in zip(a_list, b_list):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{name}: non-finite f32 gradient")
+            d = (a - b).abs()
+            out = max(out, d.max().item())
+            bad = (d > BWD_F32_ATOL + BWD_F32_RTOL * b.abs()).sum().item()
+            if bad:
+                raise AssertionError(
+                    f"{name}: f32 backward vs {what}, {bad} cells beyond rtol {BWD_F32_RTOL} "
+                    f"atol {BWD_F32_ATOL}, max |err| {d.max().item()}")
+        return out
+
+    err32 = worst(got, want, "plain")
+    vs_multilevel = worst(got, m["multilevel"].KERNEL.backward(
+        shapes, rois, levels, valid, g32, SCALES, 2), "the multilevel kernel")
     # masked rois add nothing: the same gradient with them removed
-    kept = KERNEL.backward(shapes, rois[valid].contiguous(), levels[valid].contiguous(),
-                           torch.ones_like(valid[valid]), g32[valid].contiguous(), SCALES, 2)
-    err_masked = max((a - b).abs().max().item() for a, b in zip(got, kept))
-    if any(((a - b).abs() > BWD_F32_ATOL + BWD_F32_RTOL * b.abs()).any() for a, b in zip(got, kept)):
-        raise AssertionError(f"{name}: masked rois changed the gradient by {err_masked}")
-
-    again = KERNEL.backward(shapes, rois, levels, valid, g32, SCALES, 2)
+    kept = kernel(shapes, rois[valid].contiguous(), levels[valid].contiguous(),
+                  torch.ones_like(valid[valid]), g32[valid].contiguous(), SCALES, 2)
+    err_masked = worst(got, kept, "the call without the masked rois")
+    again = kernel(shapes, rois, levels, valid, g32, SCALES, 2)
     rerun = max((a - b).abs().max().item() for a, b in zip(got, again))
 
     g16 = g.to(torch.bfloat16).contiguous()
-    got16 = KERNEL.backward(shapes, rois, levels, valid, g16, SCALES, 2)
+    got16 = kernel(shapes, rois, levels, valid, g16, SCALES, 2)
     want16 = plain(shapes, rois, levels, valid, g16.float(), SCALES, 2)
     torch.cuda.synchronize()
     err16 = 0.0
@@ -232,12 +423,13 @@ def check_backward_kernel(name, shapes, rois, levels, valid, g, card, rescale=Fa
                                  f"atol {BF16_ATOL}, max |err| {d.max().item()}")
     del got, want, kept, again, got16, want16
 
-    ms = cuda_ms(lambda: KERNEL.backward(shapes, rois, levels, valid, g16, SCALES, 2))
-    plain_ms = cuda_ms(lambda: plain(shapes, rois, levels, valid, g16, SCALES, 2), reps=5)
+    ms = cuda_ms(lambda: kernel(shapes, rois, levels, valid, g16, SCALES, 2))
+    plain_ms = cuda_ms(lambda: plain(shapes, rois, levels, valid, g16, SCALES, 2), reps=3)
     _, (bound_ms, bound_by) = roi_align_bounds(shapes, rois, levels, valid, pool, 2)
     print(
         f"[bwd kernel] {name}: R={rois.shape[0]} pool={pool} valid={int(valid.sum())} "
         f"f32 max|err|={err32:.3g} (rtol {BWD_F32_RTOL}, atol {BWD_F32_ATOL}) "
+        f"vs multilevel kernel {vs_multilevel:.3g} "
         f"masked-removed max|diff|={err_masked:.3g} two-runs max|diff|={rerun:.3g} "
         f"bf16 max|err|={err16:.3g} (rtol {BF16_RTOL}, atol {BF16_ATOL}) "
         f"bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -272,27 +464,52 @@ def synthetic_rois(n, rng, dev):
     return torch.from_numpy(rois).to(dev), torch.from_numpy(valid).to(dev)
 
 
-def phase_kernel(dev, rng):
+def dense_rois(n, rng, dev):
+    """[n, 5] rois that crowd around 24 objects of all sizes, as proposals
+    crowd around what an image shows: jittered copies of 24 boxes, ~30%
+    masked, so that many rois share cells and multi-roi groups form."""
+    k = 24
+    side = np.exp(rng.uniform(np.log(24), np.log(500), k))
+    aspect = np.exp(rng.uniform(np.log(0.5), np.log(2.0), k))
+    w, h = side * np.sqrt(aspect), side / np.sqrt(aspect)
+    x1, y1 = rng.uniform(0, 1344 - w), rng.uniform(0, 800 - h)
+    base = np.stack([rng.randint(0, 2, k), x1, y1, x1 + w, y1 + h], 1)
+    pick = rng.randint(0, k, n)
+    jitter = rng.uniform(-0.08, 0.08, (n, 4)) * np.stack([w, h, w, h], 1)[pick]
+    rois = base[pick]
+    rois[:, 1:] += jitter
+    valid = rng.rand(n) > 0.3
+    return torch.from_numpy(rois.astype(np.float32)).to(dev), torch.from_numpy(valid).to(dev)
+
+
+def phase_kernel(dev, rng, card):
+    """Phase 2: {impl: [result, ...]} of the synthetic forward checks."""
     from cpm_tpu_torch.ops.pooler import assign_fpn_levels
 
     feats = [torch.randn(2, h, w, 256, generator=torch.Generator().manual_seed(i)).to(dev)
              for i, (h, w) in enumerate(SHAPES)]
-    results = []
+    cases = []
     for n, pool in ((2000, (7, 7)), (600, (14, 14))):
-        rois, valid = synthetic_rois(n, rng, dev)
-        levels = assign_fpn_levels(rois[:, 1:5], 2, 5) - 2
-        results.append(check_kernel(f"synthetic {pool[0]}x{pool[1]}", feats, rois, levels, valid, pool))
-    return results
+        for kind, make in (("synthetic", synthetic_rois), ("dense", dense_rois)):
+            rois, valid = make(n, rng, dev)
+            levels = assign_fpn_levels(rois[:, 1:5], 2, 5) - 2
+            cases.append((f"{kind} {pool[0]}x{pool[1]}", rois, levels, valid, pool))
+    return {
+        impl: [check_kernel(name, feats, rois, levels, valid, pool, card, impl=impl)
+               for name, rois, levels, valid, pool in cases]
+        for impl in ("multilevel", "stacked", "clustered")
+    }
 
 
 def phase_backward_kernel(dev, rng, card):
+    """Phase 2b: {impl: [result, ...]} of the synthetic backward checks."""
     from cpm_tpu_torch.ops.pooler import assign_fpn_levels
 
     shapes = [(2, h, w, 256) for h, w in SHAPES]
-    results = []
-    cases = [("synthetic 7x7", 1024, (7, 7), False), ("synthetic 14x14", 256, (14, 14), False),
-             ("colliding 7x7", 512, (7, 7), True)]
-    for name, n, pool, collide in cases:
+    cases = []
+    for name, n, pool, collide in (("synthetic 7x7", 1024, (7, 7), False),
+                                   ("synthetic 14x14", 256, (14, 14), False),
+                                   ("colliding 7x7", 512, (7, 7), True)):
         rois, valid = synthetic_rois(n, rng, dev)
         if collide:
             # every roi a jittered copy of one small box: they share a few cells
@@ -301,8 +518,88 @@ def phase_backward_kernel(dev, rng, card):
             rois[:, 0] = 0.0
         levels = assign_fpn_levels(rois[:, 1:5], 2, 5) - 2
         g = torch.randn(n, *pool, 256, generator=torch.Generator().manual_seed(n)).to(dev)
-        results.append(check_backward_kernel(name, shapes, rois, levels, valid, g, card))
-    return results
+        cases.append((name, rois, levels, valid, g))
+    return {
+        impl: [check_backward_kernel(name, shapes, rois, levels, valid, g, card, impl=impl)
+               for name, rois, levels, valid, g in cases]
+        for impl in ("multilevel", "stacked")
+    }
+
+
+def phase_single_level(dev, rng, card):
+    """Phases 2 and 7 for the single-level kernel at the C4 shape: the kernel
+    against its plain version, then a one-level `Pooler` driven forward and
+    backward, which is the path that reaches this kernel."""
+    from cpm_tpu_torch.ops.pooler import Pooler
+    from cpm_tpu_torch.ops.roi_align import roi_align as plain
+
+    m = ops()
+    feats = torch.randn(C4_SHAPE, generator=torch.Generator().manual_seed(4)).to(dev)
+    rois, valid = synthetic_rois(C4_ROIS, rng, dev)
+    zeros = torch.zeros(C4_ROIS, dtype=torch.int32, device=dev)
+    everyone = torch.ones(C4_ROIS, dtype=torch.bool, device=dev)
+
+    def chunked_plain(pool):
+        # 256 rois at a time: one gather of the plain version holds
+        # [rois, 2*ph, 2*pw, 1024] floats
+        return torch.cat([plain(feats, r, pool, C4_SCALE, 2) for r in rois.split(256)])
+
+    results = []
+    for pool in ((7, 7), (14, 14)):
+        got = m["single"].KERNEL(feats, rois, pool, C4_SCALE, 2)
+        want = chunked_plain(pool)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.isfinite(got).all() or err > F32_ATOL:
+            raise AssertionError(f"single-level {pool}: f32 kernel vs plain max |err| {err}")
+        del got, want
+        ms = cuda_ms(lambda: m["single"].KERNEL(feats, rois, pool, C4_SCALE, 2))
+        plain_ms = cuda_ms(lambda: chunked_plain(pool), reps=3)
+        (bound_ms, bound_by), _ = roi_align_bounds(
+            [C4_SHAPE], rois, zeros, everyone, pool, 4, scales=(C4_SCALE,))
+        print(f"[kernel] single-level C4 {pool[0]}x{pool[1]}: map {C4_SHAPE} f32 R={C4_ROIS} "
+              f"max|err|={err:.3g} (atol {F32_ATOL}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(in chunks of 256 rois), bound {bound_ms:.4f} ms ({bound_by}) | {card}")
+        results.append(dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+
+    # the path: a Pooler over this one level, bf16 map as a C4 model would
+    # hand it over, forward and backward
+    pooler = Pooler((7, 7), (C4_SCALE,), 2)
+    half = feats.to(torch.bfloat16).requires_grad_()
+    reset_launch_counts()
+    before = launch_counts()
+    pooled = pooler([half], rois, valid)
+    (pooled.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    launched = launched_since(before)
+    if launched != {"roi_align": 1, "multilevel_roi_align_backward": 1}:
+        raise AssertionError(f"one-level Pooler launched {launched}")
+    want = plain(half.detach().float(), rois, (7, 7), C4_SCALE, 2).to(torch.bfloat16)
+    want = want * valid[:, None, None, None]
+    bad = ((pooled.float() - want.float()).abs() > BF16_ATOL + BF16_RTOL * want.float().abs()).sum()
+    if pooled.dtype != torch.bfloat16 or bad.item() or pooled[~valid].any():
+        raise AssertionError(f"one-level Pooler: {bad.item()} elements differ from the plain version")
+    if half.grad is None or not torch.isfinite(half.grad).all() or not half.grad.any():
+        raise AssertionError("one-level Pooler: no finite gradient reached the map")
+    # the gradient through the op (forward kernel, multilevel backward kernel
+    # at one level) against autograd of the plain version, f32, 256 rois
+    few = rois[:256].contiguous()
+    g = torch.randn(len(few), 7, 7, C4_SHAPE[3], generator=torch.Generator().manual_seed(5)).to(dev)
+    grads = []
+    for fn in (m["single"].roi_align_cuda, plain):
+        f = feats.clone().requires_grad_()
+        (fn(f, few, (7, 7), C4_SCALE, 2) * g).sum().backward()
+        grads.append(f.grad)
+    d = (grads[0] - grads[1]).abs()
+    if (d > BWD_F32_ATOL + BWD_F32_RTOL * grads[1].abs()).any():
+        raise AssertionError(f"single-level gradient differs from the plain one by {d.max().item()}")
+    print(f"[single-level path] gradient of {len(few)} rois vs autograd of the plain version: "
+          f"max |diff| {d.max().item():.3g} (rtol {BWD_F32_RTOL}, atol {BWD_F32_ATOL})")
+    print(f"[single-level path] Pooler over one C4 level, bf16 map {C4_SHAPE}, R={C4_ROIS} "
+          f"({int(valid.sum())} valid), 7x7: matches the plain version (rtol {BF16_RTOL}, atol "
+          f"{BF16_ATOL}), masked rows zero, gradient finite; launches {launched}")
+    # the JSON line's times are those of the path's shape, 7x7
+    return dict(results[0], launches=launched["roi_align"], err=max(r["err"] for r in results))
 
 
 def check_detections(dets, sizes, batch, num_classes, max_dets):
@@ -329,20 +626,73 @@ def check_detections(dets, sizes, batch, num_classes, max_dets):
     return counts
 
 
-def phase_main(dev, rng, card):
+def same_detections(got, want, what):
+    """Raise unless two `Detections` hold the same masked sets: counts and
+    labels exactly, boxes to 1e-2 px and scores to 1e-4 (the pooling kernels
+    of all backends sum in the same order, so the sets are expected equal)."""
+    for i in range(want.mask.shape[0]):
+        wm, gm = want.mask[i].cpu(), got.mask[i].cpu()
+        if wm.sum() != gm.sum():
+            raise AssertionError(f"{what} image {i}: {int(gm.sum())} vs {int(wm.sum())} detections")
+        have = list(zip(got.labels[i].cpu()[gm].tolist(), got.boxes[i].float().cpu()[gm].tolist(),
+                        got.scores[i].float().cpu()[gm].tolist()))
+        # one-to-one: each wanted detection pairs with an unused one of the
+        # same label within the tolerances
+        for lw, bw, sw in zip(want.labels[i].cpu()[wm].tolist(),
+                              want.boxes[i].float().cpu()[wm].tolist(),
+                              want.scores[i].float().cpu()[wm].tolist()):
+            for j, (lh, bh, sh) in enumerate(have):
+                if lh == lw and max(abs(a - b) for a, b in zip(bw, bh)) <= 1e-2 and abs(sw - sh) <= 1e-4:
+                    del have[j]
+                    break
+            else:
+                near = min((max(abs(a - b) for a, b in zip(bw, bh)), abs(sw - sh))
+                           for lh, bh, sh in have if lh == lw) if any(h[0] == lw for h in have) else None
+                raise AssertionError(
+                    f"{what} image {i}: no detection matches ({lw}, {bw}, {sw}); nearest of its "
+                    f"label (box diff px, score diff): {near}; {len(have)} left unmatched")
+
+
+@contextlib.contextmanager
+def capture_calls(owner, name, keep):
+    """While open, every call of `owner.name` first appends keep(*args) to
+    the list this yields."""
+    calls, real = [], getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append(keep(*args))
+        return real(*args, **kwargs)
+
+    setattr(owner, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, real)
+
+
+def phase_eval(dev, card, backend, n_batch1, reference):
+    """Phase 3 under one TPU.POOLER_KERNEL value. `reference` holds the auto
+    path's detections of the two compared requests ({} while auto itself
+    runs, which fills it). Returns the forward kernel's launches and its
+    check at the five pooler sites."""
     from cpm_tpu_torch.config import flagship_cfg
     from cpm_tpu_torch.engine.test import make_forward_fn
     from cpm_tpu_torch.modeling.model import build_model
-    from cpm_tpu_torch.ops.cuda import multilevel_roi_align as op
+    from cpm_tpu_torch.ops.pooler import get_pooler_backend
     from cpm_tpu_torch.tools.profile_eval import make_request
 
+    tag = f"[eval {backend}]"
+    rng = np.random.RandomState(0)  # the same requests under every backend
     cfg = flagship_cfg()
+    cfg.TPU.POOLER_KERNEL = backend
     cfg.GRID_RCNN.SCORE_THRESH = 0.0
-    print("[main] GRID_RCNN.SCORE_THRESH set to 0.0 (random weights score near 1/81)")
+    print(f"{tag} GRID_RCNN.SCORE_THRESH set to 0.0 (random weights score near 1/81)")
     t0 = time.perf_counter()
     model = build_model(cfg, dev, seed=0)
+    if get_pooler_backend() != backend:
+        raise AssertionError(f"build_model left the pooler backend at {get_pooler_backend()}")
     forward = make_forward_fn(cfg, model)
-    print(f"[main] model built in {time.perf_counter() - t0:.2f} s, "
+    print(f"{tag} model built in {time.perf_counter() - t0:.2f} s, "
           f"{sum(p.numel() for p in model.parameters())} parameters, {cfg.TPU.COMPUTE_DTYPE}")
     nc, max_dets = cfg.MODEL.NUM_CLASSES, cfg.GRID_RCNN.TEST_MAX_DETECTIONS
 
@@ -350,68 +700,86 @@ def phase_main(dev, rng, card):
     forward(*make_request(rng, [(800, 1333)]))
     forward(*make_request(rng, [(800, 1344), (800, 1344)]))
     torch.cuda.synchronize()
-    print("[main] warm-up: one batch-1 and one batch-2 request (untimed, uncounted)")
+    print(f"{tag} warm-up: one batch-1 and one batch-2 request (untimed, uncounted)")
 
-    batch1 = [[(800, 1333)], [(800, 1067)], [(800, 1200)], [(750, 1344)],
-              [(800, 1344)], [(608, 1344)]]
+    # all five are made under every backend, so that the compared ones (the
+    # first and the batch-2 request) hold the same images
+    batch1 = [[(800, 1333)], [(800, 1067)], [(800, 1200)], [(750, 1344)]]
     requests = [make_request(rng, hw) for hw in batch1]
-    requests.append(make_request(rng, [(800, 1333), (800, 1067)]))
+    requests = requests[:n_batch1] + [make_request(rng, [(800, 1333), (800, 1067)])]
     torch.cuda.reset_peak_memory_stats()
-    op.KERNEL.launches = 0
+    reset_launch_counts()
+    want_launches = {FORWARD_KERNEL[backend]: 5}
     latencies = []
     for i, (images, sizes) in enumerate(requests):
-        before = op.KERNEL.launches
+        before = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         dets = forward(images, sizes)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         latencies.append(dt)
-        launched = op.KERNEL.launches - before
+        launched = launched_since(before)
         counts = check_detections(dets, sizes, images.shape[0], nc, max_dets)
-        if launched != 5:
-            raise AssertionError(f"request {i}: {launched} kernel launches, want 5")
-        print(f"[main] request {i}: batch {images.shape[0]} sizes {sizes.tolist()} "
-              f"{dt * 1e3:.1f} ms, valid detections {counts}, kernel launches {launched}")
-    launches = op.KERNEL.launches
+        if launched != want_launches:
+            raise AssertionError(f"{tag} request {i}: launched {launched}, want {want_launches}")
+        compared = ""
+        if i in (0, len(requests) - 1):
+            key = "batch 1" if i == 0 else "batch 2"
+            if backend == "auto":
+                reference[key] = dets
+            else:
+                try:
+                    same_detections(dets, reference[key], f"{tag} request {i} vs auto")
+                    compared = "; detections equal the auto path's (boxes 1e-2 px, scores 1e-4)"
+                except AssertionError as e:
+                    DISAGREEMENTS.append(str(e))
+                    compared = f"; DISAGREES with the auto path: {e}"
+        print(f"{tag} request {i}: batch {images.shape[0]} sizes {sizes.tolist()} "
+              f"{dt * 1e3:.1f} ms, valid detections {counts}, launches {launched}{compared}")
+    launches = launch_counts()[FORWARD_KERNEL[backend]]
     peak = torch.cuda.max_memory_allocated()
-    lat1 = statistics.median(latencies[:6]) * 1e3
-    print(f"[main] batch-1 median latency {lat1:.2f} ms over 6 requests | {card}")
-    print(f"[main] batch-2 throughput {2 / latencies[6]:.2f} img/s ({latencies[6] * 1e3:.1f} ms) | {card}")
-    print(f"[main] peak device memory {peak / 2**20:.1f} MiB (max_memory_allocated) | {card}")
-    print(f"[main] kernel launches in the main-path run: {launches} over {len(requests)} forwards")
+    lat1 = statistics.median(latencies[:-1]) * 1e3
+    print(f"{tag} batch-1 median latency {lat1:.2f} ms over {n_batch1} requests | {card}")
+    print(f"{tag} batch-2 throughput {2 / latencies[-1]:.2f} img/s ({latencies[-1] * 1e3:.1f} ms) | {card}")
+    print(f"{tag} peak device memory {peak / 2**20:.1f} MiB (max_memory_allocated) | {card}")
+    print(f"{tag} launches of {FORWARD_KERNEL[backend]} in this run: {launches} over "
+          f"{len(requests)} forwards")
 
     # after the timed run, so that the copies do not count in its peak memory:
     # one more batch-1 request, capturing the inputs of its five pooler calls
-    captured = []
-    real = op.multilevel_roi_align
+    impl = "multilevel" if backend == "auto" else backend
+    op_name = {"multilevel": "multilevel_roi_align", "stacked": "multilevel_roi_align_stacked",
+               "clustered": "multilevel_roi_align_clustered"}[impl]
 
-    def capture(features, rois, levels, valid, output_size, *args, **kwargs):
-        captured.append(([f.clone() for f in features], rois.clone(), levels.clone(),
-                         valid.clone(), tuple(output_size)))
-        return real(features, rois, levels, valid, output_size, *args, **kwargs)
+    def keep(features, rois, levels, valid, output_size, *_):
+        return ([f.clone() for f in features], rois.clone(), levels.clone(), valid.clone(),
+                tuple(output_size))
 
-    op.multilevel_roi_align = capture
-    try:
+    with capture_calls(ops()[impl], op_name, keep) as captured:
         forward(*requests[0])
         torch.cuda.synchronize()
-    finally:
-        op.multilevel_roi_align = real
-
     if len(captured) != len(POOLER_SITES):
-        raise AssertionError(f"{len(captured)} pooler calls in one forward, want 5")
+        raise AssertionError(f"{tag} {len(captured)} pooler calls in one forward, want 5")
+    del model, forward
     results = [
-        check_kernel(f"main-path {site}", *call, rescale=True)
+        check_kernel(f"eval-path {site}", *call, card, rescale=True, impl=impl)
         for site, call in zip(POOLER_SITES, captured)
     ]
-    err = max(r[0] for r in results)
-    ms, plain_ms, bound_ms = (sum(r[i] for r in results) for i in (1, 2, 3))
-    bound_by = max(results, key=lambda r: r[3])[4]
-    print(f"[kernel] the 5 pooler calls of one batch-1 forward: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
-          f"(bf16, median CUDA-event times summed) | {card}")
-    return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    return summed(results, launches, f"[kernel] {impl}: the 5 pooler calls of one batch-1 forward", card)
+
+
+def summed(results, launches, what, card):
+    """The five sites' results as one: times and bounds summed, the largest error."""
+    out = dict(
+        launches=launches, err=max(r["err"] for r in results),
+        bound_by=max(results, key=lambda r: r["bound_ms"])["bound_by"],
+        **{k: sum(r[k] for r in results) for k in ("ms", "plain_ms", "bound_ms")},
+    )
+    print(f"{what}: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}) (bf16, median CUDA-event times summed) "
+          f"| {card}")
+    return out
 
 
 def phase_reference(dev):
@@ -462,17 +830,26 @@ TRAINED_GROUPS = (
 )
 
 
-def phase_train(dev, card):
+def phase_train(dev, card, backend, reference):
+    """Phase 5 under one TPU.POOLER_KERNEL value. `reference` holds the auto
+    path's losses per step ([] while auto itself runs, which fills it).
+    Returns the launches of the backend's forward and backward kernels and,
+    for auto and stacked, the backward kernel's check at the five sites."""
     from cpm_tpu_torch.data.synthetic import synthetic_batch
     from cpm_tpu_torch.engine.train import create_train_state, make_train_step
-    from cpm_tpu_torch.ops.cuda.multilevel_roi_align import KERNEL
+    from cpm_tpu_torch.ops.pooler import get_pooler_backend
     from cpm_tpu_torch.solver.lr_schedule import make_lr_fn
     from cpm_tpu_torch.solver.optimizer import classify_params
     from cpm_tpu_torch.tools.profile_train import fold_batch_statistics, training_cfg
 
+    tag = f"[train {backend}]"
+    fwd_kernel, bwd_kernel = FORWARD_KERNEL[backend], BACKWARD_KERNEL[backend]
     cfg = training_cfg()
+    cfg.TPU.POOLER_KERNEL = backend
     t0 = time.perf_counter()
     model, optimizer, state = create_train_state(cfg, dev, seed=0)
+    if get_pooler_backend() != backend:
+        raise AssertionError(f"build_model left the pooler backend at {get_pooler_backend()}")
     step_fn = make_train_step(cfg, model, optimizer)
     lr_fn = make_lr_fn(cfg.SOLVER)
     labels = classify_params(model, int(cfg.BACKBONE.RESNET.FREEZE_AT))
@@ -485,33 +862,59 @@ def phase_train(dev, card):
                                seed=seed, uint8=True)
 
     n_folded = fold_batch_statistics(model, batch_for(99)["images"])
-    print(f"[train] {n_folded} frozen trunk affines set from the statistics of one seeded batch "
+    print(f"{tag} {n_folded} frozen trunk affines set from the statistics of one seeded batch "
           f"(folded BatchNorm, as a pretrained trunk has; unit affines diverge in two steps)")
     start = {k: p.detach().clone() for k, p in model.named_parameters()}
-    print(f"[train] state built in {time.perf_counter() - t0:.2f} s: "
+    print(f"{tag} state built in {time.perf_counter() - t0:.2f} s: "
           f"{sum(p.numel() for p in model.parameters())} parameters, {len(frozen)} frozen tensors, "
           f"{cfg.TPU.COMPUTE_DTYPE} compute on f32 masters, SGD momentum {cfg.SOLVER.MOMENTUM} "
           f"wd {cfg.SOLVER.WEIGHT_DECAY}, groups {[g['name'] for g in optimizer.param_groups]}; "
           f"grid towers run on the valid prefix rounded up to TPU.TOWER_BUCKETS "
           f"{tuple(cfg.TPU.TOWER_BUCKETS)} or the cap")
 
-    state, _ = step_fn(state, batch_for(100))
+    def losses_of(metrics):
+        return {k: float(metrics[k]) for k in TRAIN_LOSSES}
+
+    def held_against_auto(step, losses, rel, names=TRAIN_LOSSES):
+        """The named losses of this step against the auto path's, or record them."""
+        losses = dict(losses, total_loss=sum(losses.values()))
+        if backend == "auto":
+            reference.append(losses)
+            return ""
+        want = reference[step]
+        worst = max(abs(losses[k] - want[k]) / abs(want[k]) for k in names)
+        if worst > rel:
+            DISAGREEMENTS.append(f"{tag} step {step}: losses {losses} differ from the auto "
+                                 f"path's {want} by {worst:.3g} relative, beyond {rel}")
+            return f"; DISAGREES with the auto path: {DISAGREEMENTS[-1]}"
+        return (f"; {'total_loss' if len(names) == 1 else 'each loss'} within {worst:.2g} "
+                f"relative of the auto path's (bound {rel})")
+
+    # the warm-up step starts from the same weights, batch and draws under
+    # every backend and the forward kernels sum in the same order, so each of
+    # its losses agrees to 1e-4; from then on the parameters differ by the
+    # backward atomics' changing order, which bf16 training amplifies, and the
+    # total loss is held to 0.1 relative
+    state, metrics = step_fn(state, batch_for(100))
     torch.cuda.synchronize()
-    print("[train] warm-up: one step (untimed, uncounted)")
+    note = held_against_auto(0, losses_of(metrics), 1e-4)
+    print(f"{tag} warm-up: one step (untimed, uncounted), total_loss "
+          f"{float(metrics['total_loss']):.4f}{note}")
 
     torch.cuda.reset_peak_memory_stats()
-    KERNEL.launches = KERNEL.backward_launches = 0
+    reset_launch_counts()
+    want_launches = {fwd_kernel: 5, bwd_kernel: 5}
     times = []
-    for i in range(3):
+    for i in range(2):
         batch = batch_for(101 + i)
         before = {k: p.detach().clone() for k, p in model.named_parameters()}
-        fwd0, bwd0, step0 = KERNEL.launches, KERNEL.backward_launches, state.step
+        counts0, step0 = launch_counts(), state.step
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        losses = {k: float(metrics[k]) for k in TRAIN_LOSSES}
+        losses = losses_of(metrics)
         if set(metrics) != set(TRAIN_LOSSES) | {"total_loss", "lr"}:
             raise AssertionError(f"step {i}: metrics {sorted(metrics)}")
         if not all(math.isfinite(v) for v in losses.values()):
@@ -519,7 +922,7 @@ def phase_train(dev, card):
         total = float(metrics["total_loss"])
         if abs(total - sum(losses.values())) > 1e-4 * abs(total):
             raise AssertionError(f"step {i}: total_loss {total} != sum {sum(losses.values())}")
-        launched = (KERNEL.launches - fwd0, KERNEL.backward_launches - bwd0)
+        launched = launched_since(counts0)
         if metrics["lr"] != lr_fn(step0):
             raise AssertionError(f"step {i}: lr {metrics['lr']} != schedule {lr_fn(step0)}")
         changed = set()
@@ -537,55 +940,46 @@ def phase_train(dev, card):
         still = [g for g in TRAINED_GROUPS if not any(k.startswith(g) for k in changed)]
         if still:
             raise AssertionError(f"step {i}: no parameter changed in {still}")
-        if launched != (5, 5):
-            raise AssertionError(f"step {i}: {launched} forward/backward launches, want (5, 5)")
-        print(f"[train] step {i} (update {step0}): {times[-1] * 1e3:.1f} ms, lr {metrics['lr']:.6g} "
+        if launched != want_launches:
+            raise AssertionError(f"step {i}: launched {launched}, want {want_launches}")
+        note = held_against_auto(i + 1, losses, 0.1, names=("total_loss",))
+        print(f"{tag} step {i} (update {step0}): {times[-1] * 1e3:.1f} ms, lr {metrics['lr']:.6g} "
               f"(schedule {lr_fn(step0):.6g}), total_loss {total:.4f}, "
               + ", ".join(f"{k[5:]} {v:.4f}" for k, v in losses.items())
-              + f"; launches fwd {launched[0]} bwd {launched[1]}; "
-              f"{len(changed)} tensors changed, {len(frozen)} frozen bit-equal")
+              + f"; launches {launched}; "
+              f"{len(changed)} tensors changed, {len(frozen)} frozen bit-equal{note}")
         del before
-    launches = (KERNEL.launches, KERNEL.backward_launches)
+    counts = launch_counts()
+    launches = (counts[fwd_kernel], counts[bwd_kernel])
     peak = torch.cuda.max_memory_allocated()
-    ms = sorted(t * 1e3 for t in times)
-    print(f"[train] step time median {ms[1]:.1f} ms (min {ms[0]:.1f}, max {ms[2]:.1f}) over 3 steps, "
+    print(f"{tag} step times {times[0] * 1e3:.1f} and {times[1] * 1e3:.1f} ms, "
           f"batch 2 at 800x1344 | {card}")
-    print(f"[train] peak device memory {peak / 2**20:.1f} MiB (max_memory_allocated) | {card}")
-    print(f"[train] kernel launches in the 3 steps: forward {launches[0]}, backward {launches[1]}")
+    print(f"{tag} peak device memory {peak / 2**20:.1f} MiB (max_memory_allocated) | {card}")
+    print(f"{tag} launches in the 2 steps: {fwd_kernel} {launches[0]}, {bwd_kernel} {launches[1]}")
+    if backend == "clustered":
+        # its backward is the multilevel kernel, checked under auto
+        return dict(launches=launches)
 
     # after the timed run: one more step, capturing what the five backward
     # launches were given
-    captured = []
-    real = KERNEL.backward
+    impl = "multilevel" if backend == "auto" else backend
 
-    def capture(shapes, rois, levels, valid, g, *args, **kwargs):
-        captured.append(([tuple(s) for s in shapes], rois.clone(), levels.clone(),
-                         valid.clone(), g.clone()))
-        return real(shapes, rois, levels, valid, g, *args, **kwargs)
+    def keep(shapes, rois, levels, valid, g, *_):
+        return ([tuple(s) for s in shapes], rois.clone(), levels.clone(), valid.clone(), g.clone())
 
-    KERNEL.backward = capture
-    try:
+    with capture_calls(ops()[impl].KERNEL, "backward", keep) as captured:
         state, _ = step_fn(state, batch_for(104))
         torch.cuda.synchronize()
-    finally:
-        del KERNEL.backward
     if len(captured) != len(POOLER_SITES):
         raise AssertionError(f"{len(captured)} backward launches in one step, want 5")
-    del start
-    model.zero_grad(set_to_none=True)
+    del start, model, optimizer, state, step_fn
     # autograd runs the sites backwards: rescore first, cls last
     results = [
-        check_backward_kernel(f"train-step {site}", *call, card, rescale=True)
+        check_backward_kernel(f"train-step {site}", *call, card, rescale=True, impl=impl)
         for site, call in zip(POOLER_SITES, reversed(captured))
     ]
-    ms_k, plain_ms, bound_ms = (sum(r[k] for r in results) for k in ("ms", "plain_ms", "bound_ms"))
-    print(f"[bwd kernel] the 5 backward calls of one training step: kernel {ms_k:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bf16, median CUDA-event times "
-          f"summed) | {card}")
-    return dict(
-        launches=launches, err=max(r["err"] for r in results), ms=ms_k, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=max(results, key=lambda r: r["bound_ms"])["bound_by"],
-    )
+    return summed(results, launches,
+                  f"[bwd kernel] {impl}: the 5 backward calls of one training step", card)
 
 
 def phase_train_reference(dev):
@@ -644,6 +1038,7 @@ def main():
         sys.exit(2)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    from cpm_tpu_torch.ops.cuda import _build
     from cpm_tpu_torch.tools.profile_eval import card_line
 
     dev = "cuda"
@@ -658,43 +1053,68 @@ def main():
         except ImportError:
             print(f"[device] {mod}: not installed")
 
-    from cpm_tpu_torch.ops.cuda.multilevel_roi_align import KERNEL
-
-    KERNEL.build()
-    regs = [ln.strip() for ln in KERNEL.build_log.splitlines() if "registers" in ln]
-    print(f"[build] {KERNEL.library_path} in {KERNEL.build_seconds:.2f} s; {regs}")
+    # one nvcc per source, all started together; then each wrapper loads its library
+    t0 = time.perf_counter()
+    built = _build.compile_sources([mod.SOURCE for mod in ops().values()])
+    print(f"[build] {len(built)} sources in {time.perf_counter() - t0:.2f} s (in parallel)")
+    for source, b in built.items():
+        facts = [ln.split(":", 1)[-1].strip() for ln in b.log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"[build] {source.name} -> {b.library_path.name} in {b.seconds:.2f} s; {facts}")
+    for mod in ops().values():
+        mod.KERNEL.build()
 
     rng = np.random.RandomState(0)
-    synthetic = phase_kernel(dev, rng)
+    synthetic = phase_kernel(dev, rng, card)
     synthetic_bwd = phase_backward_kernel(dev, rng, card)
-    fwd = phase_main(dev, rng, card)
+    detections, fwd = {}, {}
+    for backend, n_batch1 in (("auto", 4), ("stacked", 2), ("clustered", 2)):
+        fwd[backend] = phase_eval(dev, card, backend, n_batch1, detections)
+        torch.cuda.empty_cache()
     phase_reference(dev)
-    bwd = phase_train(dev, card)
+    losses, bwd = [], {}
+    for backend in BACKENDS:
+        bwd[backend] = phase_train(dev, card, backend, losses)
+        torch.cuda.empty_cache()
     phase_train_reference(dev)
+    single = phase_single_level(dev, rng, card)
 
-    fwd_launches = fwd["launches"] + bwd["launches"][0]
-    print(f"[kernels] forward launches: eval path {fwd['launches']}, training path "
-          f"{bwd['launches'][0]}; backward launches: training path {bwd['launches'][1]}")
-    kernels = [
-        dict(name="multilevel_roi_align", replaces=REPLACES, launches=fwd_launches,
-             max_abs_err=max([fwd["err"]] + [r[0] for r in synthetic]), stats=fwd),
-        dict(name="multilevel_roi_align_backward", replaces=BWD_REPLACES,
-             launches=bwd["launches"][1],
-             max_abs_err=max([bwd["err"]] + [r["err"] for r in synthetic_bwd]), stats=bwd),
-    ]
+    # launches on the driven paths: eval forwards plus training steps
+    launches = {
+        "multilevel_roi_align": fwd["auto"]["launches"] + bwd["auto"]["launches"][0],
+        "multilevel_roi_align_backward": bwd["auto"]["launches"][1] + bwd["clustered"]["launches"][1],
+        "clustered_roi_align": fwd["clustered"]["launches"] + bwd["clustered"]["launches"][0],
+        "stacked_roi_align": fwd["stacked"]["launches"] + bwd["stacked"]["launches"][0],
+        "stacked_roi_align_backward": bwd["stacked"]["launches"][1],
+        "roi_align": single["launches"],
+    }
+    print(f"[kernels] launches on the driven paths: {launches}")
+    stats = {
+        "multilevel_roi_align": (fwd["auto"], synthetic["multilevel"]),
+        "multilevel_roi_align_backward": (bwd["auto"], synthetic_bwd["multilevel"]),
+        "clustered_roi_align": (fwd["clustered"], synthetic["clustered"]),
+        "stacked_roi_align": (fwd["stacked"], synthetic["stacked"]),
+        "stacked_roi_align_backward": (bwd["stacked"], synthetic_bwd["stacked"]),
+        "roi_align": (single, []),
+    }
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"kernel {name} was launched on no driven path")
+    if DISAGREEMENTS:
+        raise AssertionError("paths disagree with the auto path:\n" + "\n".join(DISAGREEMENTS))
     print(json.dumps({"kernels": [{
-        "name": k["name"],
+        "name": name,
         "route": "cuda",
-        "source": SOURCE,
-        "replaces": k["replaces"],
-        "launches": k["launches"],
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["stats"]["ms"],
-        "plain_ms": k["stats"]["plain_ms"],
-        "bound_ms": k["stats"]["bound_ms"],
-        "bound_by": k["stats"]["bound_by"],
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": max([stats[name][0]["err"]] + [r["err"] for r in stats[name][1]]),
+        "ms": stats[name][0]["ms"],
+        "plain_ms": stats[name][0]["plain_ms"],
+        "bound_ms": stats[name][0]["bound_ms"],
+        "bound_by": stats[name][0]["bound_by"],
         "library_ms": None,
-    } for k in kernels]}))
+    } for name, (source, replaces) in KERNELS.items()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@
 // down, replaces its custom_vjp backward (_bwd/_bwd_kernel_body). Both take
 // their sample coordinates from the same device functions (roi_geometry,
 // sample_coord, bilinear_1d), so the backward adds into exactly the cells the
-// forward read, with the same weights. The forward computes
+// forward read, with the same weights (roi_align_common.cuh, shared with the
+// port's other RoIAlign kernels). The forward computes
 // exactly what the gather formulation cpm_tpu/ops/roi_align.py::
 // multilevel_roi_align computes: each roi reads the FPN level it was
 // assigned, takes `sampling_ratio` x `sampling_ratio` bilinear samples per
@@ -29,14 +30,11 @@
 // Plain C interface, bound from Python with ctypes
 // (cpm_tpu_torch/ops/cuda/multilevel_roi_align.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "roi_align_common.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 5;
-constexpr int kThreads = 256;
+using namespace cpm;
 
 struct LevelTable {
   const void* ptr[kMaxLevels];
@@ -45,71 +43,7 @@ struct LevelTable {
   float scale[kMaxLevels];
 };
 
-// Elements of T in one 16-byte vector.
-template <typename T>
-struct VecWidth;
-template <>
-struct VecWidth<float> {
-  static constexpr int kN = 4;
-};
-template <>
-struct VecWidth<__nv_bfloat16> {
-  static constexpr int kN = 8;
-};
-
-__device__ __forceinline__ void accumulate(const float* p, float w,
-                                           float* acc) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  acc[0] += w * v.x;
-  acc[1] += w * v.y;
-  acc[2] += w * v.z;
-  acc[3] += w * v.w;
-}
-
-__device__ __forceinline__ void accumulate(const __nv_bfloat16* p, float w,
-                                           float* acc) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(h[k]);
-    acc[2 * k] += w * f.x;
-    acc[2 * k + 1] += w * f.y;
-  }
-}
-
-__device__ __forceinline__ void store(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store(__nv_bfloat16* p, const float* v) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-  }
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-// Bilinear source cells and weights of one coordinate, as
-// cpm_tpu/ops/roi_align.py::_bilinear_weights_1d_sized computes them.
-// Returns false for an out-of-bounds sample.
-__device__ __forceinline__ bool bilinear_1d(float coord, int size, int* lo,
-                                            int* hi, float* w_lo,
-                                            float* w_hi) {
-  if (coord < -1.0f || coord > static_cast<float>(size)) return false;
-  const float c = fminf(fmaxf(coord, 0.0f), static_cast<float>(size) - 1.0f);
-  const float f = floorf(c);
-  *lo = static_cast<int>(f);
-  *hi = min(*lo + 1, size - 1);
-  *w_hi = c - f;
-  *w_lo = 1.0f - *w_hi;
-  return true;
-}
-
-// Where a roi lies on its level: the level's size, the batch image, the
-// roi's origin and its bin size in cells.
+// Where a roi lies on its level: the level's size and the roi's box there.
 struct RoiGeometry {
   int level;
   int batch;
@@ -121,12 +55,8 @@ struct RoiGeometry {
   float bin_h;
 };
 
-// Level and batch ids are clamped so that a malformed roi cannot touch
-// memory outside the maps; the model always passes ids in range.
-// Coordinates use explicitly rounded operations, which nvcc never fuses into
-// an FMA: they then round exactly as the plain version's separate tensor ops
-// do, so the kernels and the plain version touch the same cells with the
-// same weights.
+// The level id is clamped like the batch id (roi_box): a malformed roi
+// cannot touch memory outside the maps.
 __device__ __forceinline__ RoiGeometry roi_geometry(
     const LevelTable& levels, int num_levels, int batch,
     const float* __restrict__ rois, const int32_t* __restrict__ roi_levels,
@@ -135,30 +65,15 @@ __device__ __forceinline__ RoiGeometry roi_geometry(
   g.level = min(max(roi_levels[r], 0), num_levels - 1);
   g.height = levels.height[g.level];
   g.width = levels.width[g.level];
-  const float scale = levels.scale[g.level];
-  const float* roi = rois + static_cast<size_t>(r) * 5;
-  g.batch = min(max(static_cast<int>(roi[0]), 0), batch - 1);
-  const float offset = aligned ? 0.5f : 0.0f;
-  g.x1 = __fsub_rn(__fmul_rn(roi[1], scale), offset);
-  g.y1 = __fsub_rn(__fmul_rn(roi[2], scale), offset);
-  const float x2 = __fsub_rn(__fmul_rn(roi[3], scale), offset);
-  const float y2 = __fsub_rn(__fmul_rn(roi[4], scale), offset);
-  float roi_w = __fsub_rn(x2, g.x1);
-  float roi_h = __fsub_rn(y2, g.y1);
-  if (!aligned) {
-    roi_w = fmaxf(roi_w, 1.0f);
-    roi_h = fmaxf(roi_h, 1.0f);
-  }
-  g.bin_w = roi_w / static_cast<float>(pooled_w);
-  g.bin_h = roi_h / static_cast<float>(pooled_h);
+  const RoiBox box = roi_box(rois + static_cast<size_t>(r) * 5,
+                             levels.scale[g.level], batch, pooled_h, pooled_w,
+                             aligned);
+  g.batch = box.batch;
+  g.x1 = box.x1;
+  g.y1 = box.y1;
+  g.bin_w = box.bin_w;
+  g.bin_h = box.bin_h;
   return g;
-}
-
-// Coordinate of sample `index` (over bins x samples per bin) along one axis.
-__device__ __forceinline__ float sample_coord(float start, int index, int sr,
-                                              float bin) {
-  const float f = (static_cast<float>(index) + 0.5f) / static_cast<float>(sr);
-  return __fadd_rn(start, __fmul_rn(f, bin));
 }
 
 template <typename T>
@@ -212,13 +127,13 @@ __global__ void __launch_bounds__(kThreads)
         const float x = sample_coord(geo.x1, px * sr + ix, sr, geo.bin_w);
         if (!bilinear_1d(x, W, &x_lo, &x_hi, &wx_lo, &wx_hi)) continue;
         accumulate(row_lo + static_cast<size_t>(x_lo) * channels,
-                   wy_lo * wx_lo, acc);
+                   cell_weight(wy_lo, wx_lo), acc);
         accumulate(row_lo + static_cast<size_t>(x_hi) * channels,
-                   wy_lo * wx_hi, acc);
+                   cell_weight(wy_lo, wx_hi), acc);
         accumulate(row_hi + static_cast<size_t>(x_lo) * channels,
-                   wy_hi * wx_lo, acc);
+                   cell_weight(wy_hi, wx_lo), acc);
         accumulate(row_hi + static_cast<size_t>(x_hi) * channels,
-                   wy_hi * wx_hi, acc);
+                   cell_weight(wy_hi, wx_hi), acc);
       }
     }
 #pragma unroll
@@ -233,11 +148,8 @@ cudaError_t launch(const LevelTable& table, int num_levels, int batch,
                    const uint8_t* valid, int num_rois, int pooled_h,
                    int pooled_w, int sr, int aligned, T* out,
                    cudaStream_t stream) {
-  const int vecs = channels / VecWidth<T>::kN;
-  const int tx = vecs < 64 ? vecs : 64;
-  const int ty = kThreads / tx;
-  const dim3 block(tx, ty);
-  const dim3 grid(num_rois, (vecs + tx - 1) / tx);
+  dim3 grid, block;
+  roi_launch_shape<T>(channels, num_rois, &grid, &block);
   multilevel_roi_align_fwd_kernel<T><<<grid, block, 0, stream>>>(
       table, num_levels, batch, channels, rois, roi_levels, valid, pooled_h,
       pooled_w, sr, aligned, out);
@@ -259,38 +171,6 @@ cudaError_t launch(const LevelTable& table, int num_levels, int batch,
 // changes from run to run, so two runs differ in the last bits.
 // The TPU kernel's window slabs, hat-weight matmuls and read-modify-write
 // DMAs existed because its grid runs in order on one core; none carries over.
-
-__device__ __forceinline__ void load_scaled(const float* p, float s,
-                                            float* v) {
-  const float4 raw = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = raw.x * s;
-  v[1] = raw.y * s;
-  v[2] = raw.z * s;
-  v[3] = raw.w * s;
-}
-
-__device__ __forceinline__ void load_scaled(const __nv_bfloat16* p, float s,
-                                            float* v) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(h[k]);
-    v[2 * k] = f.x * s;
-    v[2 * k + 1] = f.y * s;
-  }
-}
-
-template <int kN>
-__device__ __forceinline__ void scatter(float* cell, float w,
-                                        const float* v) {
-#pragma unroll
-  for (int k = 0; k < kN; k += 4) {
-    atomicAdd(reinterpret_cast<float4*>(cell + k),
-              make_float4(w * v[k], w * v[k + 1], w * v[k + 2],
-                          w * v[k + 3]));
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -354,11 +234,8 @@ cudaError_t launch_bwd(const LevelTable& table, int num_levels, int batch,
                        const int32_t* roi_levels, const uint8_t* valid,
                        int num_rois, int pooled_h, int pooled_w, int sr,
                        int aligned, const T* g, cudaStream_t stream) {
-  const int vecs = channels / VecWidth<T>::kN;
-  const int tx = vecs < 64 ? vecs : 64;
-  const int ty = kThreads / tx;
-  const dim3 block(tx, ty);
-  const dim3 grid(num_rois, (vecs + tx - 1) / tx);
+  dim3 grid, block;
+  roi_launch_shape<T>(channels, num_rois, &grid, &block);
   multilevel_roi_align_bwd_kernel<T><<<grid, block, 0, stream>>>(
       table, num_levels, batch, channels, rois, roi_levels, valid, pooled_h,
       pooled_w, sr, aligned, g);

@@ -1,0 +1,286 @@
+// Stacked-levels multilevel RoIAlign for Hopper (sm_90a): forward and backward.
+//
+// Replaces the TPU kernels of cpm_tpu/ops/pallas/stacked_pallas.py:
+// multilevel_roi_align_stacked (_fwd/_fwd_kernel_body) and its custom_vjp
+// backward (_bwd/_bwd_kernel_body). All FPN levels lie in ONE buffer
+// [batch, total_rows, row_width, channels]: level l occupies rows
+// row_offset[l] .. row_offset[l] + height[l] and columns 0 .. width[l], the
+// rest of each row is padding. The kernel gets one base pointer and one row
+// stride, and a per-level table of (row offset, height, width, scale) by
+// value; the address of cell (b, l, y, x) is
+//   base + ((b * total_rows + row_offset[l] + y) * row_width + x) * channels
+// so no pointer is chosen per roi. Sample coordinates are clamped to the
+// level's own height and width, so no sample reads a neighbour level's rows
+// or the padding columns. It computes what the multilevel kernel
+// (multilevel_roi_align.cu) computes, with the same device functions
+// (roi_align_common.cuh): the same cells, the same weights.
+//
+// What bounds it on the H100: bytes, as for the multilevel kernel: four
+// C-vectors read per sample, one multiply-add per element. One CTA per roi
+// (and C tile), threads along C with 16-byte read-only loads, f32
+// accumulation, one store of the feature dtype per output element; masked
+// rois write zeros and read nothing. The TPU kernel's 64-cell window DMA,
+// its zero tail rows and its pad to 8 columns have no counterpart.
+//
+// The backward is the transpose: per valid roi, bin and sample, g / sr^2
+// times each bilinear weight is added by float4 atomicAdd into ONE stacked
+// float32 accumulator of the buffer's shape, zero-filled by the caller, who
+// slices it back per level. Blocks run in no order and rois overlap, hence
+// the atomics; their order changes from run to run. The TPU kernel
+// accumulates in the feature dtype (its grid runs in order); this one
+// accumulates in float32 whatever the dtype of g, and the caller casts once.
+//
+// Plain C interface, bound from Python with ctypes
+// (cpm_tpu_torch/ops/cuda/stacked_roi_align.py).
+
+#include "roi_align_common.cuh"
+
+namespace {
+
+using namespace cpm;
+
+struct StackTable {
+  int row_offset[kMaxLevels];
+  int height[kMaxLevels];
+  int width[kMaxLevels];
+  float scale[kMaxLevels];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    stacked_roi_align_fwd_kernel(const T* __restrict__ stack,
+                                 StackTable table, int num_levels, int batch,
+                                 int total_rows, int row_width, int channels,
+                                 const float* __restrict__ rois,
+                                 const int32_t* __restrict__ roi_levels,
+                                 const uint8_t* __restrict__ valid,
+                                 int pooled_h, int pooled_w, int sr,
+                                 int aligned, T* __restrict__ out) {
+  constexpr int kN = VecWidth<T>::kN;
+  const int r = blockIdx.x;
+  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * kN;
+  if (c0 >= channels) return;
+  const int bins = pooled_h * pooled_w;
+  T* out_roi = out + static_cast<size_t>(r) * bins * channels + c0;
+
+  if (!valid[r]) {
+    const float zeros[kN] = {};
+    for (int bin = threadIdx.y; bin < bins; bin += blockDim.y) {
+      store(out_roi + static_cast<size_t>(bin) * channels, zeros);
+    }
+    return;
+  }
+
+  const int level = min(max(roi_levels[r], 0), num_levels - 1);
+  const int H = table.height[level];
+  const int W = table.width[level];
+  const RoiBox box = roi_box(rois + static_cast<size_t>(r) * 5,
+                             table.scale[level], batch, pooled_h, pooled_w,
+                             aligned);
+  const float count = static_cast<float>(sr * sr);
+  const size_t row_stride = static_cast<size_t>(row_width) * channels;
+  // row 0 of the roi's level in the roi's image
+  const T* level_rows =
+      stack +
+      (static_cast<size_t>(box.batch) * total_rows + table.row_offset[level]) *
+          row_stride +
+      c0;
+
+  for (int bin = threadIdx.y; bin < bins; bin += blockDim.y) {
+    const int py = bin / pooled_w;
+    const int px = bin - py * pooled_w;
+    float acc[kN] = {};
+    for (int iy = 0; iy < sr; ++iy) {
+      int y_lo, y_hi;
+      float wy_lo, wy_hi;
+      const float y = sample_coord(box.y1, py * sr + iy, sr, box.bin_h);
+      if (!bilinear_1d(y, H, &y_lo, &y_hi, &wy_lo, &wy_hi)) continue;
+      const T* row_lo = level_rows + y_lo * row_stride;
+      const T* row_hi = level_rows + y_hi * row_stride;
+      for (int ix = 0; ix < sr; ++ix) {
+        int x_lo, x_hi;
+        float wx_lo, wx_hi;
+        const float x = sample_coord(box.x1, px * sr + ix, sr, box.bin_w);
+        if (!bilinear_1d(x, W, &x_lo, &x_hi, &wx_lo, &wx_hi)) continue;
+        const size_t lo = static_cast<size_t>(x_lo) * channels;
+        const size_t hi = static_cast<size_t>(x_hi) * channels;
+        accumulate(row_lo + lo, cell_weight(wy_lo, wx_lo), acc);
+        accumulate(row_lo + hi, cell_weight(wy_lo, wx_hi), acc);
+        accumulate(row_hi + lo, cell_weight(wy_hi, wx_lo), acc);
+        accumulate(row_hi + hi, cell_weight(wy_hi, wx_hi), acc);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kN; ++k) acc[k] /= count;
+    store(out_roi + static_cast<size_t>(bin) * channels, acc);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    stacked_roi_align_bwd_kernel(float* __restrict__ grad_stack,
+                                 StackTable table, int num_levels, int batch,
+                                 int total_rows, int row_width, int channels,
+                                 const float* __restrict__ rois,
+                                 const int32_t* __restrict__ roi_levels,
+                                 const uint8_t* __restrict__ valid,
+                                 int pooled_h, int pooled_w, int sr,
+                                 int aligned, const T* __restrict__ g) {
+  constexpr int kN = VecWidth<T>::kN;
+  const int r = blockIdx.x;
+  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * kN;
+  if (c0 >= channels || !valid[r]) return;
+  const int bins = pooled_h * pooled_w;
+  const int level = min(max(roi_levels[r], 0), num_levels - 1);
+  const int H = table.height[level];
+  const int W = table.width[level];
+  const RoiBox box = roi_box(rois + static_cast<size_t>(r) * 5,
+                             table.scale[level], batch, pooled_h, pooled_w,
+                             aligned);
+  const float inv_count = 1.0f / static_cast<float>(sr * sr);
+  const T* g_roi = g + static_cast<size_t>(r) * bins * channels + c0;
+  const size_t row_stride = static_cast<size_t>(row_width) * channels;
+  float* level_rows =
+      grad_stack +
+      (static_cast<size_t>(box.batch) * total_rows + table.row_offset[level]) *
+          row_stride +
+      c0;
+
+  for (int bin = threadIdx.y; bin < bins; bin += blockDim.y) {
+    const int py = bin / pooled_w;
+    const int px = bin - py * pooled_w;
+    float v[kN];
+    load_scaled(g_roi + static_cast<size_t>(bin) * channels, inv_count, v);
+    for (int iy = 0; iy < sr; ++iy) {
+      int y_lo, y_hi;
+      float wy_lo, wy_hi;
+      const float y = sample_coord(box.y1, py * sr + iy, sr, box.bin_h);
+      if (!bilinear_1d(y, H, &y_lo, &y_hi, &wy_lo, &wy_hi)) continue;
+      float* row_lo = level_rows + y_lo * row_stride;
+      float* row_hi = level_rows + y_hi * row_stride;
+      for (int ix = 0; ix < sr; ++ix) {
+        int x_lo, x_hi;
+        float wx_lo, wx_hi;
+        const float x = sample_coord(box.x1, px * sr + ix, sr, box.bin_w);
+        if (!bilinear_1d(x, W, &x_lo, &x_hi, &wx_lo, &wx_hi)) continue;
+        const size_t lo = static_cast<size_t>(x_lo) * channels;
+        const size_t hi = static_cast<size_t>(x_hi) * channels;
+        scatter<kN>(row_lo + lo, wy_lo * wx_lo, v);
+        scatter<kN>(row_lo + hi, wy_lo * wx_hi, v);
+        scatter<kN>(row_hi + lo, wy_hi * wx_lo, v);
+        scatter<kN>(row_hi + hi, wy_hi * wx_hi, v);
+      }
+    }
+  }
+}
+
+// Fills the table from the host arrays ([row_offset, height, width] int32
+// triples, and float scales); false when a level does not lie inside the
+// buffer.
+bool make_table(const void* level_rows_hw, const void* level_scales,
+                int num_levels, int total_rows, int row_width,
+                StackTable* table) {
+  const int* t = static_cast<const int*>(level_rows_hw);
+  const float* scales = static_cast<const float*>(level_scales);
+  for (int l = 0; l < num_levels; ++l) {
+    table->row_offset[l] = t[3 * l];
+    table->height[l] = t[3 * l + 1];
+    table->width[l] = t[3 * l + 2];
+    table->scale[l] = scales[l];
+    // every level must lie inside the buffer
+    if (t[3 * l] < 0 || t[3 * l + 1] < 1 || t[3 * l + 2] < 1 ||
+        t[3 * l] + t[3 * l + 1] > total_rows || t[3 * l + 2] > row_width) {
+      return false;
+    }
+  }
+  return true;
+}
+
+bool bad_arguments(int num_levels, int num_rois, int channels,
+                   int sampling_ratio, int dtype) {
+  return num_levels < 1 || num_levels > kMaxLevels || num_rois < 1 ||
+         channels < 1 || sampling_ratio < 1 || dtype < 0 || dtype > 1;
+}
+
+}  // namespace
+
+// stack is device memory [batch, total_rows, row_width, channels]
+// contiguous, of `dtype` (0 = float32, 1 = bfloat16). level_rows_hw
+// ([row_offset0, h0, w0, row_offset1, ...] int32) and level_scales (float)
+// are host arrays of num_levels entries. rois [num_rois, 5] f32 (batch
+// index, x1, y1, x2, y2), roi_levels [num_rois] int32 in [0, num_levels),
+// valid [num_rois] bytes, out [num_rois, pooled_h, pooled_w, channels] of
+// `dtype`: all device memory. channels must be a multiple of 16 bytes'
+// worth of elements and every pointer 16-byte aligned. Returns the
+// cudaError_t of the launch.
+extern "C" int cpm_stacked_roi_align_fwd(
+    const void* stack, const void* level_rows_hw, const void* level_scales,
+    int num_levels, int batch, int total_rows, int row_width, int channels,
+    const void* rois, const void* roi_levels, const void* valid, int num_rois,
+    int pooled_h, int pooled_w, int sampling_ratio, int aligned, int dtype,
+    void* out, void* stream) {
+  StackTable table = {};
+  if (bad_arguments(num_levels, num_rois, channels, sampling_ratio, dtype) ||
+      !make_table(level_rows_hw, level_scales, num_levels, total_rows,
+                  row_width, &table)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* r = static_cast<const float*>(rois);
+  const int32_t* lv = static_cast<const int32_t*>(roi_levels);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid, block;
+  if (dtype == 0) {
+    roi_launch_shape<float>(channels, num_rois, &grid, &block);
+    stacked_roi_align_fwd_kernel<float><<<grid, block, 0, s>>>(
+        static_cast<const float*>(stack), table, num_levels, batch, total_rows,
+        row_width, channels, r, lv, v, pooled_h, pooled_w, sampling_ratio,
+        aligned, static_cast<float*>(out));
+  } else {
+    roi_launch_shape<__nv_bfloat16>(channels, num_rois, &grid, &block);
+    stacked_roi_align_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(stack), table, num_levels, batch,
+        total_rows, row_width, channels, r, lv, v, pooled_h, pooled_w,
+        sampling_ratio, aligned, static_cast<__nv_bfloat16*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward. grad_stack is the float32 accumulator
+// [batch, total_rows, row_width, channels], zero-filled by the caller, into
+// which the kernel adds; g is the gradient of the forward's output,
+// [num_rois, pooled_h, pooled_w, channels] contiguous, of `dtype`.
+// Everything else is as in the forward.
+extern "C" int cpm_stacked_roi_align_bwd(
+    void* grad_stack, const void* level_rows_hw, const void* level_scales,
+    int num_levels, int batch, int total_rows, int row_width, int channels,
+    const void* rois, const void* roi_levels, const void* valid, int num_rois,
+    int pooled_h, int pooled_w, int sampling_ratio, int aligned, int dtype,
+    const void* g, void* stream) {
+  StackTable table = {};
+  if (bad_arguments(num_levels, num_rois, channels, sampling_ratio, dtype) ||
+      !make_table(level_rows_hw, level_scales, num_levels, total_rows,
+                  row_width, &table)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* r = static_cast<const float*>(rois);
+  const int32_t* lv = static_cast<const int32_t*>(roi_levels);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* acc = static_cast<float*>(grad_stack);
+  dim3 grid, block;
+  if (dtype == 0) {
+    roi_launch_shape<float>(channels, num_rois, &grid, &block);
+    stacked_roi_align_bwd_kernel<float><<<grid, block, 0, s>>>(
+        acc, table, num_levels, batch, total_rows, row_width, channels, r, lv,
+        v, pooled_h, pooled_w, sampling_ratio, aligned,
+        static_cast<const float*>(g));
+  } else {
+    roi_launch_shape<__nv_bfloat16>(channels, num_rois, &grid, &block);
+    stacked_roi_align_bwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
+        acc, table, num_levels, batch, total_rows, row_width, channels, r, lv,
+        v, pooled_h, pooled_w, sampling_ratio, aligned,
+        static_cast<const __nv_bfloat16*>(g));
+  }
+  return static_cast<int>(cudaGetLastError());
+}

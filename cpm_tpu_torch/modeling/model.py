@@ -28,13 +28,6 @@ from cpm_tpu_torch.ops.box_coder import BoxCoder
 from cpm_tpu_torch.utils.amp import compute_dtype
 from cpm_tpu_torch.utils.sampler import Draws
 
-# TPU.POOLER_KERNEL names the JAX package's TPU pooling kernels ('pallas',
-# 'stacked', 'clustered') or its XLA gather path. Every value is accepted,
-# and on CUDA every value routes to the one CUDA multilevel RoIAlign kernel
-# (on the CPU, to its plain version): the stacked variant computes the same
-# numbers, and the clustered and windowed forms were TPU memory layouts.
-POOLER_KERNELS = ("auto", "pallas", "stacked", "clustered", "gather")
-
 
 class GeneralizedRCNN(nn.Module):
     """Backbone -> FPN -> RPN -> CPM grid-cascade head."""
@@ -165,9 +158,9 @@ def build_model(cfg, device, seed: int = 0) -> GeneralizedRCNN:
     train and eval modes compute the same layers; the `train` argument of
     the forward picks the branch.
     """
-    kernel = getattr(cfg.TPU, "POOLER_KERNEL", "auto")
-    if kernel not in POOLER_KERNELS:
-        raise ValueError(f"TPU.POOLER_KERNEL invalid: {kernel}")
+    # TPU.POOLER_KERNEL selects the pooling formulation and with it the
+    # CUDA kernels that run it (ops/pooler.py); an unknown name raises
+    pooler_mod.set_pooler_backend(getattr(cfg.TPU, "POOLER_KERNEL", "auto"))
     generator = torch.Generator().manual_seed(seed)
     model = GeneralizedRCNN(cfg, generator)
     return model.to(device=device, memory_format=torch.channels_last)

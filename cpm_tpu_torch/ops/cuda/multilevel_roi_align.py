@@ -5,8 +5,7 @@ Replaces the TPU kernels of cpm_tpu/ops/pallas/multilevel_pallas.py:
 (`_bwd` / `_bwd_kernel_body`). The kernels,
 cpm_tpu_torch/csrc/multilevel_roi_align.cu, are CUDA C++ for sm_90a with
 plain C entry points, built by one nvcc call into `build/cpm_tpu_torch/` at
-first use (keyed by a hash of the source and the flags) and bound with
-ctypes. A `torch.autograd.Function` pairs them.
+first use (ops/cuda/_build.py) and bound with ctypes. A `torch.autograd.Function` pairs them.
 
 What bounds it on the H100 is the bytes its bilinear gathers read from
 L2/HBM, not FLOPs: one multiply-add per element read. The design keeps each
@@ -40,39 +39,58 @@ kernels or raises. `KERNEL.launches` counts forward launches,
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Sequence
 
 import torch
 
+from cpm_tpu_torch.ops.cuda import _build
 from cpm_tpu_torch.ops.roi_align import multilevel_roi_align as plain_multilevel_roi_align
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "multilevel_roi_align.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cpm_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = _build.CSRC / "multilevel_roi_align.cu"
 MAX_LEVELS = 5
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _find_nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [
-        os.path.join(cuda_home, "bin", "nvcc") if cuda_home else None,
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ]
-    for c in candidates:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+def check_rois(rois, levels, valid):
+    """Raise unless rois / levels / valid are what the port's RoIAlign
+    kernels take; returns contiguous levels and valid."""
+    num_rois = int(rois.shape[0])
+    dev = rois.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels take CUDA tensors, got {dev}")
+    if rois.dtype != torch.float32 or rois.shape != (num_rois, 5) or not rois.is_contiguous():
+        raise ValueError("rois must be contiguous float32 [R, 5]")
+    if levels.dtype != torch.int32 or levels.shape != (num_rois,) or levels.device != dev:
+        raise ValueError("levels must be int32 [R] on the rois' device")
+    if valid.dtype != torch.bool or valid.shape != (num_rois,) or valid.device != dev:
+        raise ValueError("valid must be bool [R] on the rois' device")
+    return levels.contiguous(), valid.contiguous()
+
+
+def check_level_maps(features, dev):
+    """Raise unless the level maps are what the kernels read: contiguous,
+    16-byte aligned `[B, H_l, W_l, C]` on `dev`, of one dtype (f32 or bf16),
+    sharing B and C, C filling 16-byte vectors. Returns (dtype, B, C)."""
+    f0 = features[0]
+    dtype = f0.dtype
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"features must be float32 or bfloat16, got {dtype}")
+    if f0.dim() != 4:
+        raise ValueError(f"levels must be [B, H, W, C], got {tuple(f0.shape)}")
+    batch, channels = int(f0.shape[0]), int(f0.shape[3])
+    vec = 16 // f0.element_size()
+    if channels % vec:
+        raise ValueError(f"C={channels} must be a multiple of {vec} for {dtype}")
+    for f in features:
+        if f.device != dev or f.dtype != dtype or f.dim() != 4:
+            raise ValueError("levels must share the rois' device and one dtype")
+        if f.shape[0] != batch or f.shape[3] != channels:
+            raise ValueError("levels must share B and C")
+        if not f.is_contiguous():
+            raise ValueError("levels must be contiguous NHWC ([B, H, W, C])")
+        if f.data_ptr() % 16:
+            raise ValueError("levels must be 16-byte aligned")
+    return dtype, batch, channels
 
 
 class MultilevelRoIAlignKernel:
@@ -81,42 +99,22 @@ class MultilevelRoIAlignKernel:
     def __init__(self):
         self.launches = 0
         self.backward_launches = 0
-        self.build_seconds = None
-        self.build_log = ""
-        self.library_path = None
+        self.built = None
         self._lib = None
 
     def build(self):
-        """Compile the source with nvcc unless a build of the same source
-        and flags exists, then load it. Returns the ctypes library."""
-        if self._lib is not None:
-            return self._lib
-        src = SOURCE.read_bytes()
-        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"multilevel_roi_align-{key}.so"
-        t0 = time.perf_counter()
-        if not lib_path.exists():
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{self.build_log}"
-                )
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.cpm_multilevel_roi_align_fwd, lib.cpm_multilevel_roi_align_bwd):
-            fn.argtypes = [
-                vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp,
-            ]
-            fn.restype = ci
-        self.build_seconds = time.perf_counter() - t0
-        self.library_path = lib_path
-        self._lib = lib
-        return lib
+        """Compile the source unless a build of the same source, header and
+        flags exists, then load it. Returns the ctypes library."""
+        if self._lib is None:
+            lib, self.built = _build.load_library(SOURCE)
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            for fn in (lib.cpm_multilevel_roi_align_fwd, lib.cpm_multilevel_roi_align_bwd):
+                fn.argtypes = [
+                    vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp,
+                ]
+                fn.restype = ci
+            self._lib = lib
+        return self._lib
 
     def _launch(self, entry, level_tensors, rois, levels, valid, output_size,
                 spatial_scales, sampling_ratio, aligned, dtype, data):
@@ -124,8 +122,6 @@ class MultilevelRoIAlignKernel:
         level_tensors: the per-level maps the kernel reads (fwd) or adds
         into (bwd); data: the output (fwd) or the incoming gradient (bwd),
         of `dtype`."""
-        if rois.device.type != "cuda":
-            raise ValueError(f"the kernels take CUDA tensors, got {rois.device}")
         ph, pw = output_size
         sr = sampling_ratio if sampling_ratio > 0 else 2
         num_levels = len(level_tensors)
@@ -145,22 +141,10 @@ class MultilevelRoIAlignKernel:
                 ctypes.addressof(scales), num_levels, int(f0.shape[0]),
                 int(f0.shape[3]), rois.data_ptr(), levels.data_ptr(),
                 valid.data_ptr(), int(rois.shape[0]), ph, pw, sr,
-                int(bool(aligned)), _DTYPE_CODES[dtype], data.data_ptr(), stream,
+                int(bool(aligned)), DTYPE_CODES[dtype], data.data_ptr(), stream,
             )
         if err != 0:
             raise RuntimeError(f"multilevel RoIAlign {entry} launch failed: cudaError {err}")
-
-    @staticmethod
-    def _check_rois(rois, levels, valid):
-        num_rois = int(rois.shape[0])
-        dev = rois.device
-        if rois.dtype != torch.float32 or rois.shape != (num_rois, 5) or not rois.is_contiguous():
-            raise ValueError("rois must be contiguous float32 [R, 5]")
-        if levels.dtype != torch.int32 or levels.shape != (num_rois,) or levels.device != dev:
-            raise ValueError("levels must be int32 [R] on the rois' device")
-        if valid.dtype != torch.bool or valid.shape != (num_rois,) or valid.device != dev:
-            raise ValueError("valid must be bool [R] on the rois' device")
-        return levels.contiguous(), valid.contiguous()
 
     def __call__(
         self,
@@ -182,26 +166,8 @@ class MultilevelRoIAlignKernel:
         if len(spatial_scales) != num_levels:
             raise ValueError("one spatial scale per level is required")
         dev = rois.device
-        f0 = features[0]
-        dtype = f0.dtype
-        if dtype not in _DTYPE_CODES:
-            raise TypeError(f"features must be float32 or bfloat16, got {dtype}")
-        if f0.dim() != 4:
-            raise ValueError(f"levels must be [B, H, W, C], got {tuple(f0.shape)}")
-        batch, channels = int(f0.shape[0]), int(f0.shape[3])
-        vec = 16 // f0.element_size()
-        if channels % vec:
-            raise ValueError(f"C={channels} must be a multiple of {vec} for {dtype}")
-        for f in features:
-            if f.device != dev or f.dtype != dtype or f.dim() != 4:
-                raise ValueError("levels must share the rois' device and one dtype")
-            if f.shape[0] != batch or f.shape[3] != channels:
-                raise ValueError("levels must share B and C")
-            if not f.is_contiguous():
-                raise ValueError("levels must be contiguous NHWC ([B, H, W, C])")
-            if f.data_ptr() % 16:
-                raise ValueError("levels must be 16-byte aligned")
-        levels, valid = self._check_rois(rois, levels, valid)
+        dtype, _, channels = check_level_maps(features, dev)
+        levels, valid = check_rois(rois, levels, valid)
         out = torch.empty((int(rois.shape[0]), ph, pw, channels), dtype=dtype, device=dev)
         if rois.shape[0] == 0:
             return out
@@ -230,7 +196,7 @@ class MultilevelRoIAlignKernel:
         if len(spatial_scales) != num_levels:
             raise ValueError("one spatial scale per level is required")
         dev, dtype = rois.device, g.dtype
-        if dtype not in _DTYPE_CODES:
+        if dtype not in DTYPE_CODES:
             raise TypeError(f"g must be float32 or bfloat16, got {dtype}")
         shapes = [tuple(int(d) for d in s) for s in feature_shapes]
         batch, channels = shapes[0][0], shapes[0][3]
@@ -242,7 +208,7 @@ class MultilevelRoIAlignKernel:
             raise ValueError("g must be contiguous and 16-byte aligned")
         if channels % (16 // g.element_size()):
             raise ValueError(f"C={channels} must fill 16-byte vectors of {dtype}")
-        levels, valid = self._check_rois(rois, levels, valid)
+        levels, valid = check_rois(rois, levels, valid)
         # one flat float32 accumulator for all levels: one fill, one cast
         sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
         acc = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)

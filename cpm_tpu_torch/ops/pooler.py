@@ -2,11 +2,29 @@
 
 Port of cpm_tpu/ops/pooler.py. Level assignment is the Detectron rule
 `k = floor(k0 + log2(sqrt(area)/s0 + eps))` clamped to [k_min, k_max],
-with the degenerate-box clamp. Every level count, one to five, goes to the
-one multilevel RoIAlign op (cpm_tpu_torch/ops/cuda/multilevel_roi_align.py):
-the CUDA kernel on the card, its plain PyTorch version on the CPU. The
-kernel reads no window, so the JAX pooler's window-overflow patch has no
-counterpart.
+with the degenerate-box clamp.
+
+The pooling backend is set from `cfg.TPU.POOLER_KERNEL` by `build_model`
+(`set_pooler_backend`), with the JAX package's five names. Each names a
+formulation of the same function, with its own hand-written CUDA kernels on
+the card and its own plain PyTorch version on the CPU:
+
+| name | on a CUDA device | on the CPU |
+| --- | --- | --- |
+| `auto`, `pallas`, `gather` | ops/cuda/multilevel_roi_align.py: forward and backward kernels | `ops/roi_align.py::multilevel_roi_align` |
+| `stacked` | ops/cuda/stacked_roi_align.py: forward and backward over one stacked buffer | `multilevel_roi_align_stacked_plain` |
+| `clustered` | ops/cuda/clustered_roi_align.py: grouped forward, multilevel backward | `multilevel_roi_align_clustered_plain` |
+
+(`pallas` is the JAX package's name for its default TPU kernel, whose
+counterpart here is the multilevel kernel; `gather` names its XLA path, which
+on the card has no kernel of its own and keeps the multilevel kernels.) A
+pooler over ONE level (`len(features) == 1`) goes to the single-level op,
+ops/cuda/roi_align.py, whatever the backend, as the JAX pooler's one-level
+branch does.
+
+None of the port's kernels reads a fixed window of cells, so they are exact
+for every roi shape: the JAX pooler's `pallas_supported` shape check,
+`window_overflow_mask` and tiered overflow patch have no counterpart.
 """
 
 import contextlib
@@ -16,8 +34,34 @@ from typing import Sequence
 
 import torch
 
+from cpm_tpu_torch.ops.cuda import clustered_roi_align as clustered_op
 from cpm_tpu_torch.ops.cuda import multilevel_roi_align as roi_align_op
+from cpm_tpu_torch.ops.cuda import roi_align as single_level_op
+from cpm_tpu_torch.ops.cuda import stacked_roi_align as stacked_op
 from cpm_tpu_torch.structures.boxes import box_area
+
+POOLER_BACKENDS = ("auto", "pallas", "stacked", "clustered", "gather")
+_BACKEND = "auto"
+
+
+def set_pooler_backend(name: str):
+    """Select the pooling formulation for every Pooler of the process, as
+    cpm_tpu/ops/pooler.py::set_pooler_backend does."""
+    global _BACKEND
+    if name not in POOLER_BACKENDS:
+        raise ValueError(f"pooler backend must be one of {POOLER_BACKENDS}, got {name!r}")
+    _BACKEND = name
+
+
+def get_pooler_backend() -> str:
+    return _BACKEND
+
+
+def _resolve_backend() -> str:
+    """The formulation that pools under the current backend: 'stacked',
+    'clustered' or, for auto, pallas and gather, 'multilevel'."""
+    return _BACKEND if _BACKEND in ("stacked", "clustered") else "multilevel"
+
 
 # When True (scoped by GeneralizedRCNN.forward under
 # TPU.EVAL_POOLER_DTYPE='float32'), pooling runs in f32 whatever the
@@ -103,14 +147,26 @@ class Pooler:
             features = [f.float() for f in features]
             return self(features, rois, roi_mask).to(out_dtype)
         rois = rois.float().contiguous()
-        # one level: k_min == k_max, so every roi is assigned level 0
+        if roi_mask is None:
+            roi_mask = torch.ones(rois.shape[0], dtype=torch.bool, device=rois.device)
+        roi_mask = roi_mask.bool()
+        if len(features) == 1:
+            out = single_level_op.roi_align_cuda(
+                features[0], rois, self.output_size, self.scales[0], self.sampling_ratio,
+            ).to(out_dtype)
+            # the one-level kernel has no mask: where, not a product, so that
+            # a masked roi's garbage box cannot leave a NaN behind
+            return torch.where(roi_mask[:, None, None, None], out, torch.zeros_like(out))
         levels = assign_fpn_levels(
             rois[:, 1:5], self.k_min, self.k_max,
             self.canonical_scale, self.canonical_level,
         ) - self.k_min
-        if roi_mask is None:
-            roi_mask = torch.ones(rois.shape[0], dtype=torch.bool, device=rois.device)
-        return roi_align_op.multilevel_roi_align(
-            list(features), rois, levels, roi_mask.bool(), self.output_size,
+        op = {
+            "multilevel": roi_align_op.multilevel_roi_align,
+            "stacked": stacked_op.multilevel_roi_align_stacked,
+            "clustered": clustered_op.multilevel_roi_align_clustered,
+        }[_resolve_backend()]
+        return op(
+            list(features), rois, levels, roi_mask, self.output_size,
             self.scales, self.sampling_ratio,
         )

@@ -1,4 +1,4 @@
-"""RoIAlign in plain PyTorch: the gather formulation.
+"""RoIAlign in plain PyTorch: the plain versions of the port's CUDA kernels.
 
 Port of cpm_tpu/ops/roi_align.py (`roi_align`, `multilevel_roi_align`):
 sample-point gathers plus bilinear weights, with the reference CUDA
@@ -6,15 +6,50 @@ kernel's boundary rules (a sample with y < -1 or y > H, or x likewise,
 reads zero; otherwise its coordinate is clamped into [0, H-1]) and the
 JAX package's static 2 samples per bin for `sampling_ratio == 0`.
 
-This is the plain version of the hand-written CUDA kernel
-(cpm_tpu_torch/ops/cuda/multilevel_roi_align.py): the CPU path runs it, and
-the kernel is held against it on the card. Layouts are the JAX package's:
-features are NHWC `[B, H, W, C]`, outputs `[R, ph, pw, C]`.
+Every formulation below computes the same samples from the same
+coordinates (`_roi_samples`) and differs in where it reads the cells from,
+as the kernels do:
+
+* `multilevel_roi_align`: each roi gathers from its own level map (the
+  kernels of cpm_tpu_torch/ops/cuda/multilevel_roi_align.py);
+* `roi_align`: its one-level case (cpm_tpu_torch/ops/cuda/roi_align.py);
+* `multilevel_roi_align_stacked_plain`: all levels are first stacked into
+  one buffer (`stack_levels`, `stack_geometry`; port of
+  cpm_tpu/ops/pallas/stacked_pallas.py::_stack_levels/_stack_geometry
+  without the TPU window's tail rows and pad to 8 columns), and each roi
+  gathers through its level's row offset
+  (cpm_tpu_torch/ops/cuda/stacked_roi_align.py);
+* `multilevel_roi_align_clustered_plain`: rois are grouped by `cluster_rois`
+  (port of cpm_tpu/ops/pallas/clustered_pallas.py::_cluster), each group's
+  shared rectangle of cells is copied once into a tile, and the group's rois
+  pool from that tile (cpm_tpu_torch/ops/cuda/clustered_roi_align.py).
+
+The CPU paths run them, and each kernel is held against its plain version on
+the card. Layouts are the JAX package's: features are NHWC `[B, H, W, C]`,
+outputs `[R, ph, pw, C]`.
 """
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
+import torch.nn.functional as F
+
+# The clustered formulation's own sizes (the TPU kernel's 64-cell window,
+# 16-cell lattice and group of 8 followed from its memory; these follow from
+# the card's shared memory, see csrc/clustered_roi_align.cu). Rois whose
+# supports begin in the same LATTICE_Q x LATTICE_Q block of cells share a
+# group if they fit a TILE x TILE rectangle placed at the block's origin: a
+# support of up to TILE - LATTICE_Q + 1 = 17 cells always does, which covers
+# the level mapper's 7 to 14 cell extents plus the bilinear neighbour.
+TILE = 24
+LATTICE_Q = 8
+
+
+def group_cap(output_size) -> int:
+    """Most rois in one group: 8 at 7x7 and 4 at 14x14, so that a group
+    holds at most 784 output bins."""
+    ph, pw = output_size
+    return max(1, min(8, 784 // (ph * pw)))
 
 
 def _bilinear_weights_1d(coord: torch.Tensor, size: torch.Tensor):
@@ -27,6 +62,105 @@ def _bilinear_weights_1d(coord: torch.Tensor, size: torch.Tensor):
     w_hi = c - lo
     w_lo = 1.0 - w_hi
     return lo.long(), hi.long(), w_lo, w_hi, oob
+
+
+class _Axis(NamedTuple):
+    """One axis of every roi's samples, `[R, bins * sr]` each: the two
+    source cells, their weights, and whether the sample reads zero."""
+    lo: torch.Tensor
+    hi: torch.Tensor
+    w_lo: torch.Tensor
+    w_hi: torch.Tensor
+    oob: torch.Tensor
+
+
+def _roi_samples(rois, scale, h_l, w_l, output_size, sr, aligned):
+    """The samples of rois `[R, 5]` on maps of per-roi scale, height and
+    width (`[R]` float tensors): (y axis, x axis)."""
+    ph, pw = output_size
+    dev = rois.device
+    offset = 0.5 if aligned else 0.0
+    # coordinates always in f32: bf16 would quantize image-scale coordinates
+    rois = rois.float()
+    x1 = rois[:, 1] * scale - offset
+    y1 = rois[:, 2] * scale - offset
+    x2 = rois[:, 3] * scale - offset
+    y2 = rois[:, 4] * scale - offset
+    roi_w = x2 - x1
+    roi_h = y2 - y1
+    if not aligned:
+        roi_w = torch.clamp(roi_w, min=1.0)
+        roi_h = torch.clamp(roi_h, min=1.0)
+    # divide by tensors: CUDA turns a division by a Python number into a
+    # multiplication by its reciprocal, which rounds differently from the
+    # true division that the JAX package and the CUDA kernels take
+    bin_w = roi_w / torch.full_like(roi_w, pw)
+    bin_h = roi_h / torch.full_like(roi_h, ph)
+
+    ix = torch.arange(pw * sr, dtype=torch.float32, device=dev) + 0.5
+    iy = torch.arange(ph * sr, dtype=torch.float32, device=dev) + 0.5
+    ix = ix / torch.full_like(ix, sr)
+    iy = iy / torch.full_like(iy, sr)
+    xs = x1[:, None] + ix[None, :] * bin_w[:, None]  # [R, pw*sr]
+    ys = y1[:, None] + iy[None, :] * bin_h[:, None]  # [R, ph*sr]
+    return (_Axis(*_bilinear_weights_1d(ys, h_l[:, None])),
+            _Axis(*_bilinear_weights_1d(xs, w_l[:, None])))
+
+
+def _pool_samples(gather, ys: _Axis, xs: _Axis, output_size, sr, fd):
+    """Bilinear interpolation and bin mean. gather(yi [R, Sy], xi [R, Sx])
+    returns the cells' values `[R, Sy, Sx, C]` of dtype fd."""
+    ph, pw = output_size
+    wyl = ys.w_lo.to(fd)[:, :, None, None]
+    wyh = ys.w_hi.to(fd)[:, :, None, None]
+    wxl = xs.w_lo.to(fd)[:, None, :, None]
+    wxh = xs.w_hi.to(fd)[:, None, :, None]
+    vals = (
+        gather(ys.lo, xs.lo) * wyl * wxl
+        + gather(ys.lo, xs.hi) * wyl * wxh
+        + gather(ys.hi, xs.lo) * wyh * wxl
+        + gather(ys.hi, xs.hi) * wyh * wxh
+    )
+    oob = ys.oob[:, :, None] | xs.oob[:, None, :]
+    vals = torch.where(oob[..., None], torch.zeros((), dtype=fd, device=vals.device), vals)
+    r, c = vals.shape[0], vals.shape[-1]
+    return vals.reshape(r, ph, sr, pw, sr, c).mean(dim=(2, 4))
+
+
+class _Levels(NamedTuple):
+    """Per-roi columns of the level table (`[R]` each) and, for the flat
+    `[sum(B*H_l*W_l), C]` buffer of all maps, each roi's first row."""
+    height: torch.Tensor      # long
+    width: torch.Tensor       # long
+    scale: torch.Tensor       # float32
+    flat_offset: torch.Tensor  # long: start of the roi's level in the flat buffer
+
+
+def _level_columns(level_hw, batch, levels, spatial_scales, dev) -> _Levels:
+    if len(level_hw) != len(spatial_scales):
+        raise ValueError(
+            f"{len(level_hw)} feature levels but {len(spatial_scales)} scales"
+        )
+    offs, total = [], 0
+    for h, w in level_hw:
+        offs.append(total)
+        total += batch * h * w
+    lvl = levels.long()
+    return _Levels(
+        torch.tensor([h for h, _ in level_hw], dtype=torch.long, device=dev)[lvl],
+        torch.tensor([w for _, w in level_hw], dtype=torch.long, device=dev)[lvl],
+        torch.tensor(list(spatial_scales), dtype=torch.float32, device=dev)[lvl],
+        torch.tensor(offs, dtype=torch.long, device=dev)[lvl],
+    )
+
+
+def _hw(features):
+    return [(int(f.shape[1]), int(f.shape[2])) for f in features]
+
+
+def _flatten(features):
+    c = features[0].shape[-1]
+    return torch.cat([f.reshape(-1, c) for f in features])
 
 
 def multilevel_roi_align(
@@ -49,82 +183,21 @@ def multilevel_roi_align(
 
     Returns: `[R, ph, pw, C]` in the feature dtype.
     """
-    ph, pw = output_size
     sr = sampling_ratio if sampling_ratio > 0 else 2
-    if len(features) != len(spatial_scales):
-        raise ValueError(
-            f"{len(features)} feature levels but {len(spatial_scales)} scales"
-        )
-    dev = rois.device
-    b = features[0].shape[0]
-    c = features[0].shape[-1]
+    b, c = features[0].shape[0], features[0].shape[-1]
     r = rois.shape[0]
-
-    hs = [int(f.shape[1]) for f in features]
-    ws = [int(f.shape[2]) for f in features]
-    offs, total = [], 0
-    for h, w in zip(hs, ws):
-        offs.append(total)
-        total += b * h * w
-    flat = torch.cat([f.reshape(b * h * w, c) for f, h, w in zip(features, hs, ws)])
-
-    lvl = levels.long()
-    hi_l = torch.tensor(hs, dtype=torch.long, device=dev)[lvl]
-    wi_l = torch.tensor(ws, dtype=torch.long, device=dev)[lvl]
-    h_l = hi_l.float()
-    w_l = wi_l.float()
-    off_l = torch.tensor(offs, dtype=torch.long, device=dev)[lvl]
-    scale = torch.tensor(list(spatial_scales), dtype=torch.float32, device=dev)[lvl]
-
-    offset = 0.5 if aligned else 0.0
-    batch_idx = rois[:, 0].long()
-    # coordinates always in f32: bf16 would quantize image-scale coordinates
-    rois = rois.float()
-    x1 = rois[:, 1] * scale - offset
-    y1 = rois[:, 2] * scale - offset
-    x2 = rois[:, 3] * scale - offset
-    y2 = rois[:, 4] * scale - offset
-    roi_w = x2 - x1
-    roi_h = y2 - y1
-    if not aligned:
-        roi_w = torch.clamp(roi_w, min=1.0)
-        roi_h = torch.clamp(roi_h, min=1.0)
-    # divide by tensors: CUDA turns a division by a Python number into a
-    # multiplication by its reciprocal, which rounds differently from the
-    # true division that the JAX package and the CUDA kernel take
-    bin_w = roi_w / torch.full_like(roi_w, pw)
-    bin_h = roi_h / torch.full_like(roi_h, ph)
-
-    ix = torch.arange(pw * sr, dtype=torch.float32, device=dev) + 0.5
-    iy = torch.arange(ph * sr, dtype=torch.float32, device=dev) + 0.5
-    ix = ix / torch.full_like(ix, sr)
-    iy = iy / torch.full_like(iy, sr)
-    xs = x1[:, None] + ix[None, :] * bin_w[:, None]  # [R, pw*sr]
-    ys = y1[:, None] + iy[None, :] * bin_h[:, None]  # [R, ph*sr]
-
+    lv = _level_columns(_hw(features), b, levels, spatial_scales, rois.device)
+    flat = _flatten(features)
+    ys, xs = _roi_samples(rois, lv.scale, lv.height.float(), lv.width.float(),
+                          output_size, sr, aligned)
     # flat index of (b, y, x) at the roi's level: off + (b*H_l + y)*W_l + x
-    base = off_l + batch_idx * hi_l * wi_l
-    x_lo, x_hi, wx_lo, wx_hi, x_oob = _bilinear_weights_1d(xs, w_l[:, None])
-    y_lo, y_hi, wy_lo, wy_hi, y_oob = _bilinear_weights_1d(ys, h_l[:, None])
+    base = lv.flat_offset + rois[:, 0].long() * lv.height * lv.width
 
     def gather(yi, xi):
-        idx = base[:, None, None] + yi[:, :, None] * wi_l[:, None, None] + xi[:, None, :]
-        return flat[idx.reshape(-1)].reshape(r, ph * sr, pw * sr, c)
+        idx = base[:, None, None] + yi[:, :, None] * lv.width[:, None, None] + xi[:, None, :]
+        return flat[idx.reshape(-1)].reshape(r, yi.shape[1], xi.shape[1], c)
 
-    fd = flat.dtype
-    wyl = wy_lo.to(fd)[:, :, None, None]
-    wyh = wy_hi.to(fd)[:, :, None, None]
-    wxl = wx_lo.to(fd)[:, None, :, None]
-    wxh = wx_hi.to(fd)[:, None, :, None]
-    vals = (
-        gather(y_lo, x_lo) * wyl * wxl
-        + gather(y_lo, x_hi) * wyl * wxh
-        + gather(y_hi, x_lo) * wyh * wxl
-        + gather(y_hi, x_hi) * wyh * wxh
-    )
-    oob = y_oob[:, :, None] | x_oob[:, None, :]
-    vals = torch.where(oob[..., None], torch.zeros((), dtype=fd, device=dev), vals)
-    return vals.reshape(r, ph, sr, pw, sr, c).mean(dim=(2, 4))
+    return _pool_samples(gather, ys, xs, output_size, sr, flat.dtype)
 
 
 def roi_align(
@@ -142,3 +215,264 @@ def roi_align(
         [features], rois, levels, output_size, (spatial_scale,),
         sampling_ratio, aligned,
     )
+
+
+# --- the stacked formulation -------------------------------------------------
+
+
+def stack_geometry(level_hw):
+    """(row offset of each level, total rows, common width) of the one
+    buffer that holds all levels one below the other."""
+    offs, rows = [], 0
+    for h, _ in level_hw:
+        offs.append(rows)
+        rows += h
+    return tuple(offs), rows, max(w for _, w in level_hw)
+
+
+def stack_levels(features: Sequence[torch.Tensor]) -> torch.Tensor:
+    """`[B, H_l, W_l, C]` maps -> one contiguous `[B, sum(H_l), max(W_l), C]`
+    buffer, each level's rows zero-padded on the right."""
+    wmax = max(int(f.shape[2]) for f in features)
+    parts = [F.pad(f, (0, 0, 0, wmax - int(f.shape[2]))) for f in features]
+    return torch.cat(parts, dim=1).contiguous()
+
+
+def unstack_levels(stack: torch.Tensor, level_hw):
+    """The per-level `[B, H_l, W_l, C]` slices of a stacked buffer."""
+    offs, _, _ = stack_geometry(level_hw)
+    return [stack[:, off:off + h, :w, :] for off, (h, w) in zip(offs, level_hw)]
+
+
+def roi_align_from_stack(
+    stack: torch.Tensor,
+    level_hw,
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    output_size,
+    spatial_scales: Sequence[float],
+    sampling_ratio: int = 0,
+    aligned: bool = False,
+) -> torch.Tensor:
+    """Multilevel RoIAlign reading every level out of one stacked buffer
+    `[B, total rows, common width, C]`: row `row_offset[level] + y` of the
+    roi's image, clamped to the level's own height and width, so that no
+    sample reads a neighbour level's rows or the padding."""
+    sr = sampling_ratio if sampling_ratio > 0 else 2
+    offs, total_rows, wmax = stack_geometry(level_hw)
+    if tuple(stack.shape[1:3]) != (total_rows, wmax):
+        raise ValueError(f"stack {tuple(stack.shape)} does not hold levels {list(level_hw)}")
+    b, c = stack.shape[0], stack.shape[-1]
+    r = rois.shape[0]
+    lv = _level_columns(level_hw, b, levels, spatial_scales, rois.device)
+    ys, xs = _roi_samples(rois, lv.scale, lv.height.float(), lv.width.float(),
+                          output_size, sr, aligned)
+    flat = stack.reshape(b * total_rows * wmax, c)
+    row0 = torch.tensor(offs, dtype=torch.long, device=rois.device)[levels.long()]
+    base = rois[:, 0].long() * total_rows + row0
+
+    def gather(yi, xi):
+        idx = (base[:, None, None] + yi[:, :, None]) * wmax + xi[:, None, :]
+        return flat[idx.reshape(-1)].reshape(r, yi.shape[1], xi.shape[1], c)
+
+    return _pool_samples(gather, ys, xs, output_size, sr, flat.dtype)
+
+
+def multilevel_roi_align_stacked_plain(
+    features: Sequence[torch.Tensor],
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    output_size,
+    spatial_scales: Sequence[float],
+    sampling_ratio: int = 0,
+    aligned: bool = False,
+) -> torch.Tensor:
+    """The stacked formulation of `multilevel_roi_align`: stack the maps,
+    then gather from the one buffer. Autograd through the stack's pad and
+    cat slices the buffer's gradient back per level."""
+    return roi_align_from_stack(
+        stack_levels(features), _hw(features), rois, levels, output_size,
+        spatial_scales, sampling_ratio, aligned,
+    )
+
+
+# --- the clustered formulation -----------------------------------------------
+
+
+class Grouping(NamedTuple):
+    """What `cluster_rois` returns; R is the number of rois.
+
+    order: `[R]` int32, sorted slot -> roi: a group's members are
+      neighbours in it, masked rois come last.
+    groups: `[R, 8]` int32, row g = (first slot, size, level, batch image,
+      y0, x0, rows, cols) of group g: its members are
+      `order[first : first + size]` and `[y0, y0+rows) x [x0, x0+cols)` is
+      the union of their supports on the level. Rows beyond the last group
+      are zeros.
+    slot_group: `[R]` long, sorted slot -> its group (undefined for the
+      masked slots).
+    n_groups: 0-d long tensor.
+    """
+    order: torch.Tensor
+    groups: torch.Tensor
+    slot_group: torch.Tensor
+    n_groups: torch.Tensor
+
+
+def _support(axis: _Axis):
+    """First cell and number of cells that an axis of samples reads:
+    (origin [R], extent [R]), both long; (0, 0) where every sample is out
+    of bounds."""
+    far = torch.iinfo(torch.int64).max
+    first = torch.where(axis.oob, far, axis.lo).amin(dim=1)
+    last = torch.where(axis.oob, -1, axis.hi).amax(dim=1)
+    extent = torch.clamp(last - first + 1, min=0)
+    return torch.where(extent > 0, first, 0), extent
+
+
+def cluster_rois(
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    valid: torch.Tensor,
+    level_hw,
+    batch: int,
+    output_size,
+    spatial_scales: Sequence[float],
+    sampling_ratio: int = 0,
+    aligned: bool = False,
+    group: int = None,
+) -> Grouping:
+    """Group rois that can share one rectangle of cells.
+
+    Rois of one image and level whose supports (the cells their bilinear
+    samples read) begin in the same LATTICE_Q x LATTICE_Q lattice block, and
+    fit the TILE x TILE rectangle placed at that block's origin, get the
+    same key; every other valid roi gets a key of its own (a singleton
+    group, whatever its size), and masked rois join no group. A stable sort
+    by key makes the members of a group neighbours; runs of one key are cut
+    into groups of at most `group` rois. Fixed shapes and torch ops only:
+    nothing is read on the host.
+    """
+    sr = sampling_ratio if sampling_ratio > 0 else 2
+    group = group_cap(output_size) if group is None else int(group)
+    tile, pitch = TILE, LATTICE_Q
+    dev = rois.device
+    n = rois.shape[0]
+    lv = _level_columns(level_hw, batch, levels, spatial_scales, dev)
+    ys, xs = _roi_samples(rois, lv.scale, lv.height.float(), lv.width.float(),
+                          output_size, sr, aligned)
+    y0, need_r = _support(ys)
+    x0, need_c = _support(xs)
+    image = torch.clamp(rois[:, 0].long(), 0, batch - 1)
+    lvl = levels.long()
+    valid = valid.bool()
+
+    cy, cx = y0 // pitch, x0 // pitch
+    fits = ((y0 - cy * pitch + need_r <= tile) & (x0 - cx * pitch + need_c <= tile)
+            & (need_r > 0) & (need_c > 0))
+    eligible = fits & valid
+    ny = max(h for h, _ in level_hw) // pitch + 1
+    nx = max(w for _, w in level_hw) // pitch + 1
+    cell = ((image * len(level_hw) + lvl) * ny + cy) * nx + cx
+    arange = torch.arange(n, dtype=torch.long, device=dev)
+    beyond = batch * len(level_hw) * ny * nx
+    key = torch.where(eligible, cell, beyond + arange)
+    key = torch.where(valid, key, beyond + n + arange)
+
+    order = torch.argsort(key, stable=True)
+    key_s, valid_s = key[order], valid[order]
+    boundary = torch.ones(n, dtype=torch.bool, device=dev)
+    boundary[1:] = key_s[1:] != key_s[:-1]
+    run_start = torch.cummax(torch.where(boundary, arange, 0), dim=0).values
+    # groups open only at valid slots; the masked tail joins none
+    new_group = (boundary | ((arange - run_start) % group == 0)) & valid_s
+    slot_group = torch.cumsum(new_group.long(), dim=0) - 1
+
+    # one spare row takes what belongs to no group
+    member_of = torch.where(valid_s, slot_group, n)
+    leader_of = torch.where(new_group, slot_group, n)
+    y0_s, x0_s = y0[order], x0[order]
+    far = torch.iinfo(torch.int64).max
+
+    def reduce(values, how, start):
+        out = torch.full((n + 1,), start, dtype=torch.long, device=dev)
+        return out.scatter_reduce(0, member_of, values, how, include_self=True)
+
+    top, left = reduce(y0_s, "amin", far), reduce(x0_s, "amin", far)
+    bottom = reduce(y0_s + need_r[order], "amax", -1)
+    right = reduce(x0_s + need_c[order], "amax", -1)
+    size = reduce(valid_s.long(), "sum", 0)
+    groups = torch.zeros((n + 1, 8), dtype=torch.long, device=dev)
+    groups[leader_of, 0] = arange
+    groups[leader_of, 2] = lvl[order]
+    groups[leader_of, 3] = image[order]
+    groups[:, 1] = size
+    groups[:, 4], groups[:, 5] = top, left
+    groups[:, 6], groups[:, 7] = bottom - top, right - left
+    groups = torch.where(size[:, None] > 0, groups, 0)[:n]
+    return Grouping(order.int(), groups.int(), slot_group, new_group.sum())
+
+
+def multilevel_roi_align_clustered_plain(
+    features: Sequence[torch.Tensor],
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    valid: torch.Tensor,
+    output_size,
+    spatial_scales: Sequence[float],
+    sampling_ratio: int = 0,
+    aligned: bool = False,
+    grouping: Grouping = None,
+) -> torch.Tensor:
+    """The clustered formulation of `multilevel_roi_align`: the rois are
+    grouped (`cluster_rois`, or the given `grouping`), each group's rectangle
+    of cells is copied once from its level into a TILE x TILE tile, and
+    every roi reads the cells of its samples from its group's tile. A cell
+    outside the rectangle, or any cell of a group whose rectangle exceeds the
+    tile (a singleton), is read from the level itself. Rows of masked rois
+    are zeros."""
+    sr = sampling_ratio if sampling_ratio > 0 else 2
+    b, c = features[0].shape[0], features[0].shape[-1]
+    n = rois.shape[0]
+    dev = rois.device
+    level_hw = _hw(features)
+    if grouping is None:
+        grouping = cluster_rois(rois, levels, valid, level_hw, b, output_size,
+                                spatial_scales, sr, aligned)
+    tile = TILE
+    lv = _level_columns(level_hw, b, levels, spatial_scales, dev)
+    flat = _flatten(features)
+    ys, xs = _roi_samples(rois, lv.scale, lv.height.float(), lv.width.float(),
+                          output_size, sr, aligned)
+    base = lv.flat_offset + torch.clamp(rois[:, 0].long(), 0, b - 1) * lv.height * lv.width
+
+    # the tiles: cell (i, j) of group g's tile is cell (y0 + i, x0 + j) of
+    # its level, clamped into the map where the tile overhangs it
+    g = grouping.groups.long()
+    g_lv = _level_columns(level_hw, b, g[:, 2], spatial_scales, dev)
+    g_base = g_lv.flat_offset + g[:, 3] * g_lv.height * g_lv.width
+    step = torch.arange(tile, dtype=torch.long, device=dev)
+    ty = torch.minimum(g[:, 4, None] + step, g_lv.height[:, None] - 1)  # [R, tile]
+    tx = torch.minimum(g[:, 5, None] + step, g_lv.width[:, None] - 1)
+    tile_idx = g_base[:, None, None] + ty[:, :, None] * g_lv.width[:, None, None] + tx[:, None, :]
+    tiles = flat[tile_idx.reshape(-1)]                   # [R * tile * tile, C]
+    cells = torch.cat([flat, tiles])
+
+    # each roi's group, in roi order (masked rois: any group; zeroed below)
+    roi_group = torch.zeros(n, dtype=torch.long, device=dev)
+    roi_group[grouping.order.long()] = torch.clamp(grouping.slot_group, min=0)
+    mine = g[roi_group]                                  # [R, 8]
+    y0, x0, rows, cols = (mine[:, k, None, None] for k in (4, 5, 6, 7))
+    use_tile = (rows <= tile) & (cols <= tile)
+    tile_base = flat.shape[0] + roi_group[:, None, None] * (tile * tile)
+
+    def gather(yi, xi):
+        yy, xx = yi[:, :, None], xi[:, None, :]
+        inside = use_tile & (yy >= y0) & (yy < y0 + rows) & (xx >= x0) & (xx < x0 + cols)
+        in_tile = tile_base + (yy - y0) * tile + (xx - x0)
+        in_level = base[:, None, None] + yy * lv.width[:, None, None] + xx
+        idx = torch.where(inside, in_tile, in_level)
+        return cells[idx.reshape(-1)].reshape(n, yi.shape[1], xi.shape[1], c)
+
+    out = _pool_samples(gather, ys, xs, output_size, sr, flat.dtype)
+    return torch.where(valid.bool()[:, None, None, None], out, torch.zeros((), dtype=out.dtype, device=dev))

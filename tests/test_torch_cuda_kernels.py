@@ -1,0 +1,169 @@
+"""The port's six CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked `cuda` and skips where there is no NVIDIA GPU. The
+file imports nothing of JAX or of the JAX package (the plain versions are
+held against those by the CPU tests), so it also runs on a machine that has
+only PyTorch, nvcc and a card:
+
+    python3 -m pytest tests/test_torch_cuda_kernels.py -q
+
+Tolerances: forward f32 atol 1e-5 (TF32 off; kernel and plain version read
+the same cells with the same weights and differ in the order of a few sums),
+bf16 rtol 1.6e-2 / atol 1e-2 (one bf16 rounding of an f32 sum); backward f32
+rtol 1e-4 / atol 1e-4 (atomics sum in an order that changes from run to run),
+bf16 as the forward.
+
+torch and the port are imported inside the tests, so that collecting this
+file loads no torch into a test worker.
+"""
+
+import numpy as np
+import pytest
+
+SCALES = (0.25, 0.125, 0.0625, 0.03125)
+SHAPES = [(56, 80), (28, 40), (14, 20), (7, 10)]
+POOLS = [(7, 7), (14, 14)]
+BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+BACKENDS = ["multilevel", "stacked", "clustered"]
+
+
+def _inputs(dtype_name, seed=11, channels=256):
+    """Level maps, rois, levels and mask on the card: rois crowded around six
+    spots so that groups form, a few strips and whole-image rois whose
+    supports exceed any shared tile, and a quarter of the rois masked."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(seed)
+    n = 96
+    rois = np.zeros((n + 4, 5), np.float32)
+    rois[:, 0] = rng.randint(0, 2, n + 4)
+    x1 = rng.choice([40.0, 90.0, 150.0], n) + rng.rand(n) * 20
+    y1 = rng.choice([30.0, 80.0], n) + rng.rand(n) * 16
+    rois[:n, 1], rois[:n, 2] = x1, y1
+    rois[:n, 3] = x1 + rng.rand(n) * 130 + 4
+    rois[:n, 4] = y1 + rng.rand(n) * 90 + 4
+    rois[n:, 1:] = [[0, 100, 319, 102], [0, 0, 319, 223], [10, 5, 300, 40], [150, 0, 156, 223]]
+    levels = rng.randint(0, 4, n + 4).astype(np.int32)
+    levels[n:] = [0, 0, 1, 0]
+    valid = np.arange(n + 4) % 4 != 2
+    dtype = getattr(torch, dtype_name)
+    feats = [torch.from_numpy(rng.randn(2, h, w, channels).astype(np.float32)).cuda().to(dtype)
+             for h, w in SHAPES]
+    as_cuda = lambda x: torch.from_numpy(x).cuda()  # noqa: E731
+    return dtype, feats, as_cuda(rois), as_cuda(levels), as_cuda(valid)
+
+
+def _ops(name):
+    """(wrapper module whose KERNEL counts the forward launches, the op, its
+    plain version with the mask applied)."""
+    from cpm_tpu_torch.ops import roi_align as plain
+    from cpm_tpu_torch.ops.cuda import clustered_roi_align, multilevel_roi_align, stacked_roi_align
+
+    def masked(fn):
+        return lambda fs, rois, levels, valid, pool: fn(fs, rois, levels, pool, SCALES, 2) * valid[
+            :, None, None, None]
+
+    return dict(
+        multilevel=(multilevel_roi_align, multilevel_roi_align.multilevel_roi_align,
+                    masked(plain.multilevel_roi_align)),
+        stacked=(stacked_roi_align, stacked_roi_align.multilevel_roi_align_stacked,
+                 masked(plain.multilevel_roi_align_stacked_plain)),
+        clustered=(clustered_roi_align, clustered_roi_align.multilevel_roi_align_clustered,
+                   lambda fs, rois, levels, valid, pool: plain.multilevel_roi_align_clustered_plain(
+                       fs, rois, levels, valid, pool, SCALES, 2)),
+    )[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", BACKENDS)
+def test_cuda_forward_kernel_matches_plain(name, dtype_name):
+    import torch
+
+    dtype, fs, rois, levels, valid = _inputs(dtype_name)
+    mod, op, plain = _ops(name)
+    before = mod.KERNEL.launches
+    for pool in POOLS:
+        got = op(fs, rois, levels, valid, pool, SCALES, 2)
+        want = plain([f.float() for f in fs], rois, levels, valid, pool)
+        assert got.dtype == dtype and not got[~valid].any()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        else:
+            torch.testing.assert_close(got.float(), want.to(dtype).float(), rtol=1.6e-2, atol=1e-2)
+    assert mod.KERNEL.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["stacked", "clustered"])
+def test_cuda_forward_kernels_give_the_multilevel_kernels_bits(name):
+    import torch
+
+    _, fs, rois, levels, valid = _inputs("float32")
+    for pool in POOLS:
+        want = _ops("multilevel")[1](fs, rois, levels, valid, pool, SCALES, 2)
+        assert torch.equal(_ops(name)[1](fs, rois, levels, valid, pool, SCALES, 2), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", BACKENDS)
+def test_cuda_backward_matches_plain(name, dtype_name):
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import multilevel_roi_align, stacked_roi_align
+    from cpm_tpu_torch.ops.cuda.stacked_roi_align import plain_stacked_roi_align_backward
+
+    dtype, fs, rois, levels, valid = _inputs(dtype_name)
+    fs = [f.requires_grad_() for f in fs]
+    g = torch.randn(len(rois), 7, 7, 256, generator=torch.Generator().manual_seed(3)).cuda().to(dtype)
+    # the clustered forward trains through the multilevel backward kernel
+    counter = stacked_roi_align.KERNEL if name == "stacked" else multilevel_roi_align.KERNEL
+    before = counter.backward_launches
+    out = _ops(name)[1](fs, rois, levels, valid, (7, 7), SCALES, 2)
+    # a permuted gradient: the Function makes it contiguous
+    out.permute(0, 3, 1, 2).mul(g.permute(0, 3, 1, 2)).sum().backward()
+    assert counter.backward_launches == before + 1
+    want = plain_stacked_roi_align_backward(
+        [f.shape for f in fs], rois, levels, valid, g.float(), SCALES, 2)
+    for f, w in zip(fs, want):
+        assert f.grad.dtype == dtype and f.grad.shape == f.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(f.grad, w, **BWD_TOL)
+        else:
+            torch.testing.assert_close(f.grad.float(), w.to(dtype).float(), rtol=1.6e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", POOLS, ids=["7x7", "14x14"])
+def test_cuda_single_level_kernel_matches_plain(pool):
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import roi_align as op
+    from cpm_tpu_torch.ops.roi_align import roi_align
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.RandomState(2)
+    feats = rng.randn(2, 16, 24, 1024).astype(np.float32)
+    rois = np.zeros((64, 5), np.float32)
+    rois[:, 0] = rng.randint(0, 2, 64)
+    rois[:, 1], rois[:, 2] = rng.rand(64) * 300 - 40, rng.rand(64) * 200 - 40
+    rois[:, 3] = rois[:, 1] + rng.rand(64) * 240 + 1
+    rois[:, 4] = rois[:, 2] + rng.rand(64) * 160 + 1
+    rois[0, 1:] = [240, 160, 200, 120]    # degenerate: roi_w = roi_h = 1 cell
+    rois[1, 1:] = [800, 800, 900, 900]    # outside the map: zeros
+    f = torch.from_numpy(feats).cuda().requires_grad_()
+    r = torch.from_numpy(rois).cuda()
+    before = op.KERNEL.launches
+    got = op.roi_align_cuda(f, r, pool, 0.0625, 2)
+    assert op.KERNEL.launches == before + 1 and not got[1].any()
+    torch.testing.assert_close(got, roi_align(f.detach(), r, pool, 0.0625, 2), rtol=0, atol=1e-5)
+    (got ** 2).sum().backward()
+    f2 = torch.from_numpy(feats).cuda().requires_grad_()
+    (roi_align(f2, r, pool, 0.0625, 2) ** 2).sum().backward()
+    torch.testing.assert_close(f.grad, f2.grad, **BWD_TOL)

@@ -32,11 +32,14 @@ def test_every_port_module_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(cpm_tpu_torch.__path__, 'cpm_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "wanted = ('ops.cuda._build', 'ops.cuda.multilevel_roi_align', 'ops.cuda.stacked_roi_align',\n"
+        "          'ops.cuda.clustered_roi_align', 'ops.cuda.roi_align', 'tools.bench_roi_align')\n"
+        "assert all('cpm_tpu_torch.' + w in names for w in wanted), names\n"
         "print(len(names))\n"
     )
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 30
+    assert int(proc.stdout.split()[-1]) >= 46
 
 
 def test_port_sources_import_no_jax_inside_functions_either():
@@ -48,6 +51,14 @@ def test_port_sources_import_no_jax_inside_functions_either():
     assert pattern.search("    from cpm_tpu.config import cfg\n")
     assert pattern.search("import cpm_tpu\n")
     assert not pattern.search("from cpm_tpu_torch.config import cfg\n")
+
+
+def test_card_test_file_imports_no_jax():
+    # tests/test_torch_cuda_kernels.py runs on machines that have a card and
+    # PyTorch but not the JAX package's dependencies
+    text = (REPO / "tests" / "test_torch_cuda_kernels.py").read_text()
+    assert not re.search(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|cpm_tpu)(\s|\.|$)", text, re.M)
+    assert "pytest.mark.cuda" in text
 
 
 def test_config_imports_without_pyyaml_and_yaml_use_raises():
@@ -121,7 +132,9 @@ def test_collecting_the_port_tests_loads_no_torch():
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
     n_files, rc, torch_loaded = proc.stdout.split()[-3:]
-    assert int(n_files) >= 8 and rc == "0"
+    for name in ("test_torch_pooler_kernels.py", "test_torch_cuda_kernels.py"):
+        assert (REPO / "tests" / name).exists()
+    assert int(n_files) >= 10 and rc == "0"
     assert torch_loaded == "False"
 
 

@@ -154,16 +154,66 @@ def test_flagship_cfg_matches_graft_entry(tiny):
     assert flagship_cfg(tiny) == _flagship_cfg(tiny)
 
 
+POOLER_KERNELS = ("auto", "pallas", "stacked", "clustered", "gather")
+
+
 def test_build_model_pooler_kernel_values():
-    from cpm_tpu_torch.modeling.model import POOLER_KERNELS, build_model
+    from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.ops import pooler as pooler_mod
 
     cfg = _tiny_cfg()
-    for name in POOLER_KERNELS:
-        cfg.TPU.POOLER_KERNEL = name
-        build_model(cfg, "cpu")
-    cfg.TPU.POOLER_KERNEL = "windowed"
-    with pytest.raises(ValueError):
-        build_model(cfg, "cpu")
+    try:
+        # build_model hands TPU.POOLER_KERNEL to the pooler, as the JAX build_model does
+        for name in POOLER_KERNELS:
+            cfg.TPU.POOLER_KERNEL = name
+            build_model(cfg, "cpu")
+            assert pooler_mod.get_pooler_backend() == name
+        cfg.TPU.POOLER_KERNEL = "windowed"
+        with pytest.raises(ValueError):
+            build_model(cfg, "cpu")
+        assert pooler_mod.get_pooler_backend() == POOLER_KERNELS[-1]
+    finally:
+        pooler_mod.set_pooler_backend("auto")
+
+
+@pytest.mark.parametrize("name", POOLER_KERNELS)
+def test_whole_slice_under_each_pooler_kernel(slice_outputs, name, monkeypatch):
+    """The eval slice under every TPU.POOLER_KERNEL value: on the CPU each
+    runs the plain version of its own formulation (stacked buffer, grouped
+    tiles, gather), and all give the JAX package's detections and the
+    `auto` path's."""
+    from cpm_tpu_torch.engine.test import make_forward_fn
+    from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.ops import pooler as pooler_mod
+    from cpm_tpu_torch.ops import roi_align as plain
+    from cpm_tpu_torch.utils.param_bridge import load_flax_params
+
+    _, params, sizes, want, auto = slice_outputs
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    calls = {"stacked": 0, "clustered": 0}
+    for key, fn in (("stacked", "roi_align_from_stack"), ("clustered", "cluster_rois")):
+        real = getattr(plain, fn)
+
+        def counted(*a, _real=real, _key=key, **k):
+            calls[_key] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(plain, fn, counted)
+    cfg = _tiny_cfg()
+    cfg.TPU.POOLER_KERNEL = name
+    try:
+        model = load_flax_params(build_model(cfg, "cpu"), params)
+        got = make_forward_fn(cfg, model)(images, sizes)
+    finally:
+        pooler_mod.set_pooler_backend("auto")
+    # cls, three grid stages and rescore pool through the named formulation
+    assert calls == {"stacked": 5 * (name == "stacked"), "clustered": 5 * (name == "clustered")}
+    fields = ("boxes", "scores", "labels", "mask")
+    for i in range(sizes.shape[0]):
+        g = _rows(*(getattr(got, f)[i].numpy() for f in fields))
+        assert_same_detection_sets(g, _rows(*(np.asarray(getattr(want, f)[i]) for f in fields)))
+        assert_same_detection_sets(g, _rows(*(getattr(auto, f)[i].numpy() for f in fields)))
 
 
 def test_same_seed_same_weights():

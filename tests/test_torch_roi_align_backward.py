@@ -204,7 +204,7 @@ def test_backward_wrapper_refuses_what_the_kernel_does_not_take():
         op.KERNEL.backward(shapes, _t(rois), _t(levels).long(), _t(valid), _t(g), SCALES, 2)
     with pytest.raises(ValueError):  # CPU tensors never reach nvcc or a launch
         op.KERNEL.backward(shapes, *args, _t(g), SCALES, 2)
-    assert op.KERNEL.library_path is None or torch.cuda.is_available()
+    assert op.KERNEL.built is None or torch.cuda.is_available()
 
 
 @pytest.mark.cuda

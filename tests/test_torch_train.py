@@ -21,6 +21,7 @@ collecting this file loads no torch into a test worker.
 """
 
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -105,9 +106,25 @@ def _momentum_tree(opt_state, params):
     return out
 
 
+def _drop_stub_modules_that_answer_every_name():
+    """tests/test_weight_parity.py leaves a stub module in `sys.modules` whose
+    `__getattr__` answers every name, `__file__` included, with a function.
+    torch registers custom ops when the first optimizer of a process is made
+    and looks its caller up with `inspect.getmodule`, which walks
+    `sys.modules` and fails on such a `__file__`. Whether that file ran
+    before this one in a test worker depends on the scheduling, so the stubs
+    go before the first optimizer is built; that file installs them again
+    when it needs them."""
+    for name, mod in list(sys.modules.items()):
+        if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
+            del sys.modules[name]
+
+
 @pytest.fixture(scope="module")
 def train_outputs():
     import torch
+
+    _drop_stub_modules_that_answer_every_name()
 
     from cpm_tpu_torch.data.synthetic import synthetic_batch
     from cpm_tpu_torch.engine.train import create_train_state, make_train_step
@@ -219,6 +236,50 @@ def test_gradients_match_jax_and_frozen_have_none(train_outputs):
         np.testing.assert_allclose(g.numpy(), want[name], rtol=1e-3, atol=1e-5, err_msg=name)
         n_nonzero += int(np.abs(want[name]).max() > 0)
     assert n_nonzero > 60
+
+
+@pytest.mark.parametrize("name", ["stacked", "clustered"])
+def test_losses_and_gradients_under_pooler_kernel(train_outputs, name):
+    """The training forward and backward under TPU.POOLER_KERNEL stacked and
+    clustered: on the CPU each runs the plain version of its own formulation,
+    and losses and gradients equal the JAX package's and the `auto` path's."""
+    import torch
+
+    from cpm_tpu_torch.engine.train import create_train_state
+    from cpm_tpu_torch.ops import pooler as pooler_mod
+    from cpm_tpu_torch.utils.param_bridge import flax_tree_to_named, load_flax_params
+    from cpm_tpu_torch.utils.sampler import Draws
+
+    _, batch, jx, pt = train_outputs
+    cfg = _tiny_cfg()
+    cfg.TPU.POOLER_KERNEL = name
+    try:
+        model, _, _ = create_train_state(cfg, "cpu", seed=0)
+        assert pooler_mod.get_pooler_backend() == name
+        load_flax_params(model, jx["params"])
+        tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+        losses = model(
+            tb["images"], tb["image_sizes"], train=True, draws=Draws(jx["draws"][0]),
+            gt=dict(boxes=tb["gt_boxes"], labels=tb["gt_labels"], mask=tb["gt_mask"]),
+        )
+        sum(losses.values()).backward()
+    finally:
+        pooler_mod.set_pooler_backend("auto")
+    for k in LOSS_NAMES:
+        assert float(losses[k].detach()) == pytest.approx(float(jx["losses"][k]), rel=1e-5), k
+        assert float(losses[k].detach()) == pytest.approx(pt["losses"][k], rel=1e-5), k
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    want = flax_tree_to_named(jx["grads"], shapes)
+    n = 0
+    for k, p in model.named_parameters():
+        if pt["grads"][k] is None:
+            assert p.grad is None, k
+            continue
+        n += 1
+        np.testing.assert_allclose(p.grad.numpy(), want[k], rtol=1e-3, atol=1e-5, err_msg=k)
+        np.testing.assert_allclose(p.grad.numpy(), pt["grads"][k].numpy(), rtol=1e-3, atol=1e-5,
+                                   err_msg=k)
+    assert n > 60
 
 
 def test_two_steps_match_jax(train_outputs):
