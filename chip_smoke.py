@@ -6,10 +6,11 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 
 0. device: requires CUDA; prints the card's name and power limit, the torch
    and CUDA versions, and whether yaml and PIL import.
-1. build: builds the four CUDA sources of cpm_tpu_torch/csrc with nvcc, one
-   process each, all started together (six kernels: multilevel forward and
+1. build: builds the six CUDA sources of cpm_tpu_torch/csrc with nvcc, one
+   process each, all started together (nine kernels: multilevel forward and
    backward, stacked forward and backward, clustered forward, single-level
-   forward).
+   forward, deformable-conv sampler forward and backward, cross-roi
+   shared-window forward).
 2. kernels: each multilevel-pooling forward kernel (multilevel, stacked,
    clustered) against its plain PyTorch version at the flagship's pooler
    shapes (B=2, P2-P5 of an 800x1344 batch, C=256), f32 and bf16, on random
@@ -56,6 +57,35 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 7. single-level path: no model of the port has a one-level pooler yet, so a
    `Pooler` over one C4 map is driven directly, forward and backward, and
    held against the plain version.
+8. sampler kernels: the deformable-conv sampler's forward and backward
+   kernels against their plain versions (`deform_sample_plain` and autograd
+   of it) at the geometries of cpm_tpu_torch/tools/probe_dcn_sampler.py (res3
+   104x168x256, res4 52x84x512, res5 26x42x1024, batch 2, 9 taps, coordinates
+   over the map and past its border), f32 and bf16, with the time of one
+   `F.grid_sample` call on the same inputs as the library yardstick.
+9. cross-roi kernel: the shared-window RoIAlign at G in {1, 2, 4, 8} rois per
+   window against its plain version at the shapes of
+   cpm_tpu_torch/tools/probe_pooler_crossroi.py (one [2, 208, 336, 256] map,
+   1024 rois, 7x7; G 1 and 4 at 14x14), beside the single-level and the
+   multilevel kernel on the same inputs; no model runs this kernel, so the
+   path that is driven is the wrapper the tool calls.
+10. X-101 eval path: CPM X-101-32x4d-FPN-DCN (`x101_dcn_cfg()`: ResNeXt
+   (3, 4, 23, 3), 32 groups of width 4, 30 deformable 3x3 convs in res3 to
+   res5, the flagship's head) with seeded random weights, the offset convs
+   spread from a seed (a fresh one predicts zero offsets, which would turn the
+   sampler into a copy) and the trunk's frozen affines set from one batch's
+   statistics, bf16: batch-1 requests at 800x1344, each checked for its
+   detections and for 30 sampler launches and 5 multilevel pooler launches and
+   none of any other kernel. Then the sampler check of phase 8 on the maps and
+   coordinates of the 30 sampler calls of one forward; the sampler's `ms`,
+   `plain_ms`, `bound_ms` and `library_ms` in the JSON line are those summed.
+   And the port on the card against the port on the CPU at a tiny width.
+11. X-101 training path: the same model at the training operating point (batch
+   2 at 800x1344), a warm-up and two timed steps checked as phase 5 checks
+   them, with 30 + 30 sampler and 5 + 5 pooler launches per step, every
+   offset conv moved, and the peak memory beside the reckoned size of the
+   sampled columns kept for the backward. Then the backward check of phase 8
+   on what the 30 backward launches of one more step were given.
 
 Then a JSON line of kernel results and, last, {"ok": true, "device": ...}.
 Random weights give softmax scores near 1/81, below the default 0.03
@@ -70,7 +100,10 @@ grouping arrays) and its f32 multiply-adds over 67 TFLOP/s. The stacked
 kernels' stack copy and the clustered kernel's grouping are torch ops
 outside the kernels; their times are printed on lines of their own. No
 single PyTorch call computes a RoIAlign or its transpose, so `library_ms`
-is null.
+is null for the RoIAlign kernels. The sampler's bounds
+(cpm_tpu_torch/tools/probe_dcn_sampler.py::sampler_bounds) and the cross-roi
+kernel's (tools/probe_pooler_crossroi.py::crossroi_bound) are made the same
+way; the sampler's forward has a library call, `F.grid_sample`.
 """
 
 import contextlib
@@ -99,7 +132,7 @@ BACKENDS = ("auto", "stacked", "clustered")
 # what disagreed with the auto path: reported where it happens, so that one
 # run shows every disagreement, and raised together at the end of main
 DISAGREEMENTS = []
-# the six kernels: name -> (source, the TPU kernel it replaces)
+# the nine kernels: name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "multilevel_roi_align": (
         "cpm_tpu_torch/csrc/multilevel_roi_align.cu", "cpm_tpu/ops/pallas/multilevel_pallas.py:480"),
@@ -113,7 +146,15 @@ KERNELS = {
         "cpm_tpu_torch/csrc/stacked_roi_align.cu", "cpm_tpu/ops/pallas/stacked_pallas.py:379"),
     "roi_align": (
         "cpm_tpu_torch/csrc/roi_align.cu", "cpm_tpu/ops/pallas/roi_align_pallas.py:49"),
+    "deform_sample": (
+        "cpm_tpu_torch/csrc/deform_sample.cu", "tools/probe_dcn_pallas_sampler.py:92"),
+    # the JAX package's sampler backward is a hand-written custom_vjp of XLA ops
+    "deform_sample_backward": (
+        "cpm_tpu_torch/csrc/deform_sample.cu", "cpm_tpu/ops/deform_conv.py:132"),
+    "crossroi_roi_align": (
+        "cpm_tpu_torch/csrc/crossroi_roi_align.cu", "tools/probe_pooler_crossroi.py:37"),
 }
+X101_SAMPLER_CALLS = 30   # deformable 3x3 convs in res3 (4), res4 (23), res5 (3)
 # the kernels that a pooler call launches under each TPU.POOLER_KERNEL value
 FORWARD_KERNEL = {"auto": "multilevel_roi_align", "stacked": "stacked_roi_align",
                   "clustered": "clustered_roi_align"}
@@ -123,22 +164,28 @@ BACKWARD_KERNEL = {"auto": "multilevel_roi_align_backward",
 
 
 def ops():
-    """The four wrapper modules, imported when first needed."""
+    """The six wrapper modules, imported when first needed."""
     from cpm_tpu_torch.ops.cuda import (
         clustered_roi_align,
+        crossroi_roi_align,
+        deform_sample,
         multilevel_roi_align,
         roi_align,
         stacked_roi_align,
     )
 
     return dict(multilevel=multilevel_roi_align, stacked=stacked_roi_align,
-                clustered=clustered_roi_align, single=roi_align)
+                clustered=clustered_roi_align, single=roi_align, deform=deform_sample,
+                crossroi=crossroi_roi_align)
 
 
 def launch_counts():
-    """Launches of each of the six kernels so far, as their wrappers count them."""
+    """Launches of each of the nine kernels so far, as their wrappers count them."""
     m = ops()
     return {
+        "deform_sample": m["deform"].KERNEL.launches,
+        "deform_sample_backward": m["deform"].KERNEL.backward_launches,
+        "crossroi_roi_align": m["crossroi"].KERNEL.launches,
         "multilevel_roi_align": m["multilevel"].KERNEL.launches,
         "multilevel_roi_align_backward": m["multilevel"].KERNEL.backward_launches,
         "clustered_roi_align": m["clustered"].KERNEL.launches,
@@ -152,7 +199,8 @@ def reset_launch_counts():
     m = ops()
     for mod in m.values():
         mod.KERNEL.launches = 0
-    m["multilevel"].KERNEL.backward_launches = m["stacked"].KERNEL.backward_launches = 0
+    for name in ("multilevel", "stacked", "deform"):
+        m[name].KERNEL.backward_launches = 0
 
 
 def launched_since(before):
@@ -770,13 +818,18 @@ def phase_eval(dev, card, backend, n_batch1, reference):
 
 
 def summed(results, launches, what, card):
-    """The five sites' results as one: times and bounds summed, the largest error."""
+    """The sites' results as one: times and bounds summed (the library call's
+    too, where the sites have one), the largest error."""
     out = dict(
         launches=launches, err=max(r["err"] for r in results),
         bound_by=max(results, key=lambda r: r["bound_ms"])["bound_by"],
         **{k: sum(r[k] for r in results) for k in ("ms", "plain_ms", "bound_ms")},
     )
-    print(f"{what}: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
+    lib = ""
+    if results[0].get("library_ms") is not None:
+        out["library_ms"] = sum(r["library_ms"] for r in results)
+        lib = f", F.grid_sample {out['library_ms']:.4f} ms"
+    print(f"{what}: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms{lib}, bound "
           f"{out['bound_ms']:.4f} ms ({out['bound_by']}) (bf16, median CUDA-event times summed) "
           f"| {card}")
     return out
@@ -830,24 +883,38 @@ TRAINED_GROUPS = (
 )
 
 
-def phase_train(dev, card, backend, reference):
-    """Phase 5 under one TPU.POOLER_KERNEL value. `reference` holds the auto
-    path's losses per step ([] while auto itself runs, which fills it).
-    Returns the launches of the backend's forward and backward kernels and,
-    for auto and stacked, the backward kernel's check at the five sites."""
+def phase_train(dev, card, backend, reference, config="flagship"):
+    """Phase 5 under one TPU.POOLER_KERNEL value, and phase 11 (config
+    'x101_dcn', under auto). `reference` holds the auto path's losses per step
+    ([] while auto itself runs, which fills it; None: nothing to hold
+    against). Returns the launches of the backend's forward and backward
+    kernels and, for auto and stacked, the backward kernel's check at the five
+    sites; for x101_dcn the sampler's launches and its backward kernel's check
+    at the 30 sites instead."""
     from cpm_tpu_torch.data.synthetic import synthetic_batch
     from cpm_tpu_torch.engine.train import create_train_state, make_train_step
     from cpm_tpu_torch.ops.pooler import get_pooler_backend
     from cpm_tpu_torch.solver.lr_schedule import make_lr_fn
     from cpm_tpu_torch.solver.optimizer import classify_params
-    from cpm_tpu_torch.tools.profile_train import fold_batch_statistics, training_cfg
+    from cpm_tpu_torch.tools.profile_train import (
+        fold_batch_statistics,
+        spread_offset_convs,
+        training_cfg,
+    )
 
-    tag = f"[train {backend}]"
+    deformable = config == "x101_dcn"
+    tag = f"[train {config}]" if deformable else f"[train {backend}]"
     fwd_kernel, bwd_kernel = FORWARD_KERNEL[backend], BACKWARD_KERNEL[backend]
-    cfg = training_cfg()
+    cfg = training_cfg(config)
     cfg.TPU.POOLER_KERNEL = backend
     t0 = time.perf_counter()
     model, optimizer, state = create_train_state(cfg, dev, seed=0)
+    if deformable:
+        n_spread = spread_offset_convs(model, seed=1)
+        if n_spread != X101_SAMPLER_CALLS:
+            raise AssertionError(f"{n_spread} deformable convs, want {X101_SAMPLER_CALLS}")
+        print(f"{tag} {n_spread} offset convs drawn from a seed (offsets of about +-2 cells; "
+              f"fresh ones are zero and would turn the sampler into a copy)")
     if get_pooler_backend() != backend:
         raise AssertionError(f"build_model left the pooler backend at {get_pooler_backend()}")
     step_fn = make_train_step(cfg, model, optimizer)
@@ -878,6 +945,8 @@ def phase_train(dev, card, backend, reference):
     def held_against_auto(step, losses, rel, names=TRAIN_LOSSES):
         """The named losses of this step against the auto path's, or record them."""
         losses = dict(losses, total_loss=sum(losses.values()))
+        if reference is None:
+            return ""
         if backend == "auto":
             reference.append(losses)
             return ""
@@ -904,6 +973,10 @@ def phase_train(dev, card, backend, reference):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     want_launches = {fwd_kernel: 5, bwd_kernel: 5}
+    if deformable:
+        want_launches.update(deform_sample=X101_SAMPLER_CALLS,
+                             deform_sample_backward=X101_SAMPLER_CALLS)
+    offset_convs = {k for k in labels if ".conv_offset." in k}
     times = []
     for i in range(2):
         batch = batch_for(101 + i)
@@ -940,6 +1013,8 @@ def phase_train(dev, card, backend, reference):
         still = [g for g in TRAINED_GROUPS if not any(k.startswith(g) for k in changed)]
         if still:
             raise AssertionError(f"step {i}: no parameter changed in {still}")
+        if offset_convs - changed:
+            raise AssertionError(f"step {i}: offset convs unchanged: {sorted(offset_convs - changed)}")
         if launched != want_launches:
             raise AssertionError(f"step {i}: launched {launched}, want {want_launches}")
         note = held_against_auto(i + 1, losses, 0.1, names=("total_loss",))
@@ -959,6 +1034,13 @@ def phase_train(dev, card, backend, reference):
     if backend == "clustered":
         # its backward is the multilevel kernel, checked under auto
         return dict(launches=launches)
+    if deformable:
+        print(f"{tag} launches in the 2 steps: deform_sample {counts['deform_sample']}, "
+              f"deform_sample_backward {counts['deform_sample_backward']}; "
+              f"{len(offset_convs)} offset-conv tensors changed in every step")
+        return sampler_backward_sites(
+            tag, lambda: step_fn(state, batch_for(104)), card, pooler_launches=launches,
+            launches=(counts["deform_sample"], counts["deform_sample_backward"]))
 
     # after the timed run: one more step, capturing what the five backward
     # launches were given
@@ -1031,6 +1113,216 @@ def phase_train_reference(dev):
           f"step 1 total {got_m[1]['total_loss']:.6f} vs {ref_m[1]['total_loss']:.6f}")
 
 
+def unit_scale(t):
+    """(t scaled by the power of two that brings its largest magnitude into
+    (1/2, 1], the exponent): exact in f32 and bf16, up as well as down (the
+    gradients that reach the sampler are of the order 1e-6), and the sampler
+    is linear in the map and in `g`, so the absolute tolerances then hold
+    relative to the tensor's magnitude."""
+    peak = t.float().abs().max().item()
+    exp = math.ceil(math.log2(peak)) if peak > 0 else 0
+    return t * 2.0 ** -exp, exp
+
+
+def phase_sampler_kernels(dev, card):
+    """Phase 8: the sampler's forward and backward kernels at the probe's three
+    geometries, f32 and bf16."""
+    from cpm_tpu_torch.tools.probe_dcn_sampler import run_geometries
+
+    return run_geometries([torch.float32, torch.bfloat16], dev, card, reps=10)
+
+
+def sampler_forward_sites(tag, run_forward, card):
+    """The sampler's forward kernel against its plain version on the map and
+    coordinates of every sampler call of run_forward(): f32 (the map scaled to
+    unit magnitude) and bf16, the latter timed. Returns the sites' summed
+    result."""
+    from cpm_tpu_torch.tools.probe_dcn_sampler import check_forward
+
+    def keep(feat, ys, xs):
+        return feat.detach().clone(), ys.detach().clone(), xs.detach().clone()
+
+    with capture_calls(ops()["deform"], "deform_sample_cuda", keep) as captured:
+        run_forward()
+        torch.cuda.synchronize()
+    if len(captured) != X101_SAMPLER_CALLS:
+        raise AssertionError(f"{tag} {len(captured)} sampler calls in one forward, want "
+                             f"{X101_SAMPLER_CALLS}")
+    moved = [float(((ys - ys.round()).abs() > 1e-3).float().mean()) for _, ys, _ in captured]
+    if min(moved) < 0.5:
+        raise AssertionError(f"{tag} a sampler call has most samples on whole cells: {moved}")
+    results = []
+    for i, (feat, ys, xs) in enumerate(captured):
+        feat, exp = unit_scale(feat)
+        name = f"site {i} map {tuple(feat.shape)} x 2^{-exp}"
+        err32 = check_forward(name, feat.float().contiguous(), ys, xs, card, timed=False)["err"]
+        res = check_forward(name, feat.contiguous(), ys, xs, card, reps=10)
+        results.append(dict(res, err=err32))
+    return summed(results, None, f"[kernel] deform_sample: the {len(results)} sampler calls of one "
+                  f"batch-{captured[0][0].shape[0]} forward (f32 max|err| "
+                  f"{max(r['err'] for r in results):.3g})", card)
+
+
+def sampler_backward_sites(tag, run_step, card, **extra):
+    """The sampler's backward kernel against autograd of the plain version on
+    what every backward launch of run_step() was given: f32 (`g` scaled to
+    unit magnitude) and bf16, the latter timed. Returns the sites' summed
+    result, with `extra`."""
+    from cpm_tpu_torch.tools.probe_dcn_sampler import check_backward
+
+    def keep(feat, ys, xs, g, *_):
+        return feat.detach().clone(), ys.detach().clone(), xs.detach().clone(), g.detach().clone()
+
+    with capture_calls(ops()["deform"].KERNEL, "backward", keep) as captured:
+        run_step()
+        torch.cuda.synchronize()
+    if len(captured) != X101_SAMPLER_CALLS:
+        raise AssertionError(f"{tag} {len(captured)} sampler backward launches in one step, want "
+                             f"{X101_SAMPLER_CALLS}")
+    columns = sum(g.numel() * g.element_size() for *_, g in captured)
+    print(f"{tag} the sampled columns of the {len(captured)} deformable convs hold "
+          f"{columns / 2**20:.1f} MiB in {captured[0][3].dtype} (kept for the backward of the "
+          f"contraction; part of the peak above)")
+    results = []
+    # autograd runs the convs backwards: res5 first
+    for i, (feat, ys, xs, g) in enumerate(reversed(captured)):
+        feat, fexp = unit_scale(feat)
+        g, gexp = unit_scale(g)
+        name = f"site {i} map {tuple(feat.shape)} x 2^{-fexp}, g x 2^{-gexp}"
+        err32 = check_backward(name, feat.float().contiguous(), ys, xs, g.float().contiguous(),
+                               card, timed=False)["err"]
+        res = check_backward(name, feat.contiguous(), ys, xs, g.contiguous(), card, reps=5)
+        results.append(dict(res, err=err32))
+    out = summed(results, None, f"[bwd kernel] deform_sample: the {len(results)} backward calls "
+                 f"of one training step (f32 max|err| {max(r['err'] for r in results):.3g})", card)
+    return dict(out, **extra)
+
+
+def phase_x101_eval(dev, card, n_requests=2):
+    """Phase 10: the X-101-32x4d-FPN-DCN eval path. Returns the sampler's and
+    the pooler's launches and the sampler's check at its 30 sites."""
+    from cpm_tpu_torch.config import x101_dcn_cfg
+    from cpm_tpu_torch.engine.test import make_forward_fn
+    from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.tools.profile_eval import make_request
+    from cpm_tpu_torch.tools.profile_train import fold_batch_statistics, spread_offset_convs
+
+    tag = "[eval x101_dcn]"
+    rng = np.random.RandomState(0)
+    cfg = x101_dcn_cfg()
+    cfg.GRID_RCNN.SCORE_THRESH = 0.0
+    print(f"{tag} GRID_RCNN.SCORE_THRESH set to 0.0 (random weights score near 1/81)")
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev, seed=0)
+    n_spread = spread_offset_convs(model, seed=1)
+    if n_spread != X101_SAMPLER_CALLS:
+        raise AssertionError(f"{n_spread} deformable convs, want {X101_SAMPLER_CALLS}")
+    n_folded = fold_batch_statistics(model, make_request(np.random.RandomState(99), [(800, 1344)])[0])
+    # after the fold: the forward runs on casts of the parameters made here
+    forward = make_forward_fn(cfg, model)
+    layers = tuple(cfg.BACKBONE.RESNEXT.LAYERS)
+    print(f"{tag} model built in {time.perf_counter() - t0:.2f} s: ResNeXt {layers} C="
+          f"{cfg.BACKBONE.RESNEXT.C} WIDTH={cfg.BACKBONE.RESNEXT.WIDTH} stages "
+          f"{tuple(cfg.BACKBONE.RESNEXT.STAGE_WITH_CONV)}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, {cfg.TPU.COMPUTE_DTYPE}; "
+          f"{n_spread} offset convs drawn from a seed, {n_folded} frozen affines set from one "
+          f"batch's statistics")
+    nc, max_dets = cfg.MODEL.NUM_CLASSES, cfg.GRID_RCNN.TEST_MAX_DETECTIONS
+    forward(*make_request(rng, [(800, 1333)]))
+    torch.cuda.synchronize()
+    print(f"{tag} warm-up: one batch-1 request (untimed, uncounted)")
+
+    requests = [make_request(rng, hw) for hw in ([(800, 1333)], [(800, 1067)])[:n_requests]]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    want_launches = {"deform_sample": X101_SAMPLER_CALLS, "multilevel_roi_align": 5}
+    latencies = []
+    for i, (images, sizes) in enumerate(requests):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = forward(images, sizes)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+        launched = launched_since(before)
+        counts = check_detections(dets, sizes, images.shape[0], nc, max_dets)
+        if launched != want_launches:
+            raise AssertionError(f"{tag} request {i}: launched {launched}, want {want_launches}")
+        print(f"{tag} request {i}: batch 1 sizes {sizes.tolist()} {latencies[-1] * 1e3:.1f} ms, "
+              f"valid detections {counts}, launches {launched}")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag} batch-1 median latency {statistics.median(latencies) * 1e3:.2f} ms over "
+          f"{len(requests)} requests | {card}")
+    print(f"{tag} peak device memory {peak / 2**20:.1f} MiB (max_memory_allocated) | {card}")
+    out = sampler_forward_sites(tag, lambda: forward(*requests[0]), card)
+    return dict(out, launches=counts["deform_sample"],
+                pooler_launches=counts["multilevel_roi_align"])
+
+
+def phase_x101_reference(dev):
+    """The X-101-DCN port on the card (CUDA sampler and pooler) against the
+    same port on the CPU (plain versions) at a tiny width in f32: one set of
+    weights, made on the CPU (seeded, offset convs spread, affines folded)
+    and copied to the card."""
+    from cpm_tpu_torch.config import x101_dcn_cfg
+    from cpm_tpu_torch.engine.test import make_forward_fn
+    from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.tools.profile_eval import make_request
+    from cpm_tpu_torch.tools.profile_train import fold_batch_statistics, spread_offset_convs
+
+    cfg = x101_dcn_cfg(tiny=True)
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.GRID_RCNN.SCORE_THRESH = 0.0
+    images, sizes = make_request(np.random.RandomState(1), [(128, 160), (112, 96)],
+                                 padded_hw=(128, 160))
+    on_cpu = build_model(cfg, "cpu", seed=0)
+    spread_offset_convs(on_cpu, seed=1)
+    fold_batch_statistics(on_cpu, images)
+    on_card = build_model(cfg, dev, seed=0)
+    on_card.load_state_dict(on_cpu.state_dict())
+    want = make_forward_fn(cfg, on_cpu)(images, sizes)
+    before = launch_counts()
+    got = make_forward_fn(cfg, on_card)(images, sizes)
+    torch.cuda.synchronize()
+    launched = launched_since(before)
+    if launched != {"deform_sample": 3, "multilevel_roi_align": 5}:
+        raise AssertionError(f"[reference x101_dcn] launched {launched}")
+    if not want.mask.any():
+        raise AssertionError("[reference x101_dcn] the CPU port found no detection")
+    same_detections(got, want, "[reference x101_dcn] card vs CPU port")
+    print(f"[reference x101_dcn] tiny ResNeXt-DCN, f32: {want.mask.sum(1).tolist()} detections "
+          f"match the CPU port (labels exact, boxes 1e-2 px, scores 1e-4); launches {launched}")
+
+
+def phase_crossroi(dev, card):
+    """Phase 9: the cross-roi kernel at each group size against its plain
+    version, then the path that reaches it: the wrapper its tool calls, once
+    per group size. Returns the result the JSON line takes."""
+    from cpm_tpu_torch.tools import probe_pooler_crossroi as probe
+
+    feat, rois = probe.make_inputs(dev)
+    probe.reference_points(feat, rois, (7, 7), card)
+    results = [probe.check_group(feat, rois, g, (7, 7), card) for g in probe.GROUPS]
+    wide = [probe.check_group(feat, rois, g, (14, 14), card, reps=10) for g in (1, 4)]
+    half = feat.to(torch.bfloat16)
+    reset_launch_counts()
+    before = launch_counts()
+    for g in probe.GROUPS:
+        out = ops()["crossroi"].crossroi_roi_align(half, rois, g, (7, 7), probe.SCALE, 2)
+    torch.cuda.synchronize()
+    launched = launched_since(before)
+    if launched != {"crossroi_roi_align": len(probe.GROUPS)} or not torch.isfinite(out).all():
+        raise AssertionError(f"cross-roi path launched {launched}")
+    print(f"[cross-roi path] crossroi_roi_align over the probe's map and rois at G in "
+          f"{probe.GROUPS}: launches {launched}")
+    return dict(
+        launches=launched["crossroi_roi_align"], err=max(r["err"] for r in results + wide),
+        bound_by=results[0]["bound_by"],
+        **{k: sum(r[k] for r in results) for k in ("ms", "plain_ms", "bound_ms")},
+    )
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -1078,15 +1370,27 @@ def main():
         torch.cuda.empty_cache()
     phase_train_reference(dev)
     single = phase_single_level(dev, rng, card)
+    sampler = phase_sampler_kernels(dev, card)
+    crossroi = phase_crossroi(dev, card)
+    x101_fwd = phase_x101_eval(dev, card)
+    torch.cuda.empty_cache()
+    phase_x101_reference(dev)
+    x101_bwd = phase_train(dev, card, "auto", None, config="x101_dcn")
+    torch.cuda.empty_cache()
 
     # launches on the driven paths: eval forwards plus training steps
     launches = {
-        "multilevel_roi_align": fwd["auto"]["launches"] + bwd["auto"]["launches"][0],
-        "multilevel_roi_align_backward": bwd["auto"]["launches"][1] + bwd["clustered"]["launches"][1],
+        "multilevel_roi_align": (fwd["auto"]["launches"] + bwd["auto"]["launches"][0]
+                                 + x101_fwd["pooler_launches"] + x101_bwd["pooler_launches"][0]),
+        "multilevel_roi_align_backward": (bwd["auto"]["launches"][1] + bwd["clustered"]["launches"][1]
+                                          + x101_bwd["pooler_launches"][1]),
         "clustered_roi_align": fwd["clustered"]["launches"] + bwd["clustered"]["launches"][0],
         "stacked_roi_align": fwd["stacked"]["launches"] + bwd["stacked"]["launches"][0],
         "stacked_roi_align_backward": bwd["stacked"]["launches"][1],
         "roi_align": single["launches"],
+        "deform_sample": x101_fwd["launches"] + x101_bwd["launches"][0],
+        "deform_sample_backward": x101_bwd["launches"][1],
+        "crossroi_roi_align": crossroi["launches"],
     }
     print(f"[kernels] launches on the driven paths: {launches}")
     stats = {
@@ -1096,6 +1400,12 @@ def main():
         "stacked_roi_align": (fwd["stacked"], synthetic["stacked"]),
         "stacked_roi_align_backward": (bwd["stacked"], synthetic_bwd["stacked"]),
         "roi_align": (single, []),
+        # errors in f32, as for the other kernels (the bf16 ones are held to
+        # their own tolerance where they are checked)
+        "deform_sample": (x101_fwd, [r for r in sampler["forward"] if r["dtype"] == "float32"]),
+        "deform_sample_backward": (
+            x101_bwd, [r for r in sampler["backward"] if r["dtype"] == "float32"]),
+        "crossroi_roi_align": (crossroi, []),
     }
     for name, n in launches.items():
         if n < 1:
@@ -1113,7 +1423,7 @@ def main():
         "plain_ms": stats[name][0]["plain_ms"],
         "bound_ms": stats[name][0]["bound_ms"],
         "bound_by": stats[name][0]["bound_by"],
-        "library_ms": None,
+        "library_ms": stats[name][0].get("library_ms"),
     } for name, (source, replaces) in KERNELS.items()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

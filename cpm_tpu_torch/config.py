@@ -672,3 +672,81 @@ def flagship_cfg(tiny: bool = False):
         c.RPN.POST_NMS_TOP_N_TEST = 1000
         c.RPN.FPN_POST_NMS_TOP_N_TEST = 1000
     return c
+
+
+def x101_dcn_cfg(tiny: bool = False):
+    """CPM R-CNN X-101-32x4d-FPN-DCN, the values of
+    cfgs/rcnn/mscoco/grid_cascade/iou_helper/rescore/backbone/
+    e2e_grid_cascade@567_rcnn_X-101-32x4d-FPN-DCN_2x.yaml over the defaults
+    (a test holds the two equal key for key): a ResNeXt-101 32x4d trunk whose
+    res3, res4 and res5 run deformable 3x3 convs, FPN, and the flagship's CPM
+    head. `tiny` narrows every width for tests: one block per stage and two
+    groups in the trunk (a ResNeXt has no BASE_PLANES, so its stage outputs
+    keep their widths)."""
+    c = get_default_cfg()
+    c.PIXEL_MEANS = [102.9801, 115.9465, 122.7717]
+    c.PIXEL_STDS = [1.0, 1.0, 1.0]
+    c.CKPT = ("ckpts/rcnn/mscoco/grid_cascade/iou_helper/rescore/backbone/"
+              "e2e_grid_cascade@567_rcnn_X-101-32x4d-FPN-DCN_2x")
+    c.MODEL.FPN_ON = True
+    c.MODEL.FASTER_RCNN = False
+    c.MODEL.GRID_ON = True
+    c.MODEL.NUM_CLASSES = 81
+    c.MODEL.CONV1_RGB2BGR = False
+    c.BACKBONE.CONV_BODY = "resnext"
+    x = c.BACKBONE.RESNEXT
+    x.LAYERS = (3, 4, 23, 3)
+    x.C = 32
+    x.WIDTH = 4
+    x.STAGE_WITH_CONV = ("normal", "deform", "deform", "deform")
+    c.RPN.ANCHOR_STRIDE = (4, 8, 16, 32, 64)
+    c.RPN.PRE_NMS_TOP_N_TRAIN = 2000
+    c.RPN.PRE_NMS_TOP_N_TEST = 1000
+    c.RPN.POST_NMS_TOP_N_TEST = 1000
+    c.RPN.FPN_POST_NMS_TOP_N_TEST = 1000
+    g = c.GRID_RCNN
+    g.NMS = 0.3
+    g.SCORE_THRESH = 0.03
+    g.FUSED_ON = False
+    g.IOU_HELPER = True
+    g.IOU_HELPER_MERGE = True
+    g.RESCORE_ON = True
+    g.CASCADE_MAPPING_ON = True
+    m = g.CASCADE_MAPPING_OPTION
+    m.STAGE_NUM = 3
+    m.TEST_STAGE = 3
+    m.TEST_ENSEMBLE = False
+    m.FG_IOU_THRESHOLD = [0.5, 0.6, 0.7]
+    m.BG_IOU_THRESHOLD = [0.5, 0.6, 0.7]
+    s = c.SOLVER
+    s.WEIGHT_DECAY = 0.0001
+    s.BASE_LR = 0.02
+    s.GAMMA = 0.1
+    s.WARM_UP_ITERS = 500
+    s.MAX_ITER = 180000
+    s.STEPS = [120000, 160000]
+    c.TRAIN.WEIGHTS = "weights/resnext101_32x4d.pth"
+    c.TRAIN.DATASETS = ("coco_2017_train",)
+    c.TRAIN.SCALES = (800,)
+    c.TRAIN.MAX_SIZE = 1333
+    c.TEST.DATASETS = ("coco_2017_val",)
+    c.TEST.SCALE = 800
+    c.TEST.MAX_SIZE = 1333
+    if tiny:
+        c.MODEL.NUM_CLASSES = 9
+        x.LAYERS = (1, 1, 1, 1)
+        x.C = 2
+        c.FPN.DIM = 32
+        g.MLP_HEAD.MLP_DIM = 64
+        c.RPN.PRE_NMS_TOP_N_TRAIN = 64
+        c.RPN.POST_NMS_TOP_N_TRAIN = 32
+        c.RPN.FPN_POST_NMS_TOP_N_TRAIN = 48
+        c.RPN.PRE_NMS_TOP_N_TEST = 32
+        c.RPN.POST_NMS_TOP_N_TEST = 16
+        c.RPN.FPN_POST_NMS_TOP_N_TEST = 24
+        g.BATCH_SIZE_PER_IMAGE = 32
+        g.MAX_SAMPLE_NUM_GRID = 8
+        g.TEST_MAX_DETECTIONS = 16
+        g.GRID_HEAD.NUM_CONVS = 2
+        g.GRID_HEAD.POINT_FEAT_CHANNELS = 8
+    return c

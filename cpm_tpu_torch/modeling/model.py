@@ -1,8 +1,9 @@
 """Generalized R-CNN for the CPM Grid-Cascade configuration.
 
 Port of cpm_tpu/modeling/model.py (`GeneralizedRCNN`, `_normalize_uint8`,
-`build_model`) for the path the flagship config takes: ResNet trunk -> FPN
-(P2..P6) -> RPN -> GridCascadeRCNNHead. The forward takes the JAX package's
+`build_model`) for the path the flagship config takes: ResNet or ResNeXt
+trunk (plain or deformable stages) -> FPN (P2..P6) -> RPN ->
+GridCascadeRCNNHead. The forward takes the JAX package's
 layouts: images `[B, H, W, 3]` (uint8 or float) and image sizes `[B, 2]`
 (h, w); the test forward returns fixed-shape `Detections`, the train
 forward the dict of losses.
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cpm_tpu_torch.modeling.backbone.resnet import build_resnet
+from cpm_tpu_torch.modeling.backbone.resnet import BACKBONES
 from cpm_tpu_torch.modeling.fpn import build_fpn
 from cpm_tpu_torch.modeling.roi_heads.box_head import Detections
 from cpm_tpu_torch.modeling.roi_heads.grid_cascade_head import GridCascadeRCNNHead
@@ -37,10 +38,11 @@ class GeneralizedRCNN(nn.Module):
         c = cfg
         if not (c.MODEL.FPN_ON and c.MODEL.GRID_ON) or c.MODEL.FASTER_RCNN or c.MODEL.RPN_ONLY:
             raise NotImplementedError("the port runs the FPN grid-cascade family only")
-        if c.BACKBONE.CONV_BODY != "resnet":
-            raise NotImplementedError("the port runs the ResNet trunk only")
+        if c.BACKBONE.CONV_BODY not in BACKBONES:
+            raise NotImplementedError(
+                f"BACKBONE.CONV_BODY {c.BACKBONE.CONV_BODY}: the port runs {sorted(BACKBONES)}")
         self.cfg = cfg
-        self.backbone = build_resnet(c, generator)
+        self.backbone = BACKBONES[c.BACKBONE.CONV_BODY](c, generator)
         self.fpn = build_fpn(c, self.backbone.dim_out, generator)
         strides = tuple(c.RPN.ANCHOR_STRIDE)
         num_cell_anchors = len(c.RPN.ASPECT_RATIOS) * (

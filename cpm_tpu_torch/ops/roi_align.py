@@ -22,7 +22,11 @@ as the kernels do:
 * `multilevel_roi_align_clustered_plain`: rois are grouped by `cluster_rois`
   (port of cpm_tpu/ops/pallas/clustered_pallas.py::_cluster), each group's
   shared rectangle of cells is copied once into a tile, and the group's rois
-  pool from that tile (cpm_tpu_torch/ops/cuda/clustered_roi_align.py).
+  pool from that tile (cpm_tpu_torch/ops/cuda/clustered_roi_align.py);
+* `crossroi_roi_align_plain`: the rois of one group all pool from the window
+  of one roi (`crossroi_prep_rois`; port of what
+  tools/probe_pooler_crossroi.py::make_probe computes;
+  cpm_tpu_torch/ops/cuda/crossroi_roi_align.py).
 
 The CPU paths run them, and each kernel is held against its plain version on
 the card. Layouts are the JAX package's: features are NHWC `[B, H, W, C]`,
@@ -476,3 +480,116 @@ def multilevel_roi_align_clustered_plain(
 
     out = _pool_samples(gather, ys, xs, output_size, sr, flat.dtype)
     return torch.where(valid.bool()[:, None, None, None], out, torch.zeros((), dtype=out.dtype, device=dev))
+
+
+# --- the cross-roi shared-window formulation ----------------------------------
+
+# The window, in cells, that the rois of one group share (the TPU pooler's WIN).
+CROSSROI_WINDOW = 64
+
+
+class WindowedRois(NamedTuple):
+    """What `crossroi_prep_rois` returns, per roi: the batch image, the window
+    origin (int32 `[R]` each) and the sample positions relative to that origin
+    (float32 `[R, ph*sr]` rows, `[R, pw*sr]` columns; -2 where the sample is
+    out of bounds and reads zero)."""
+    batch: torch.Tensor
+    y0: torch.Tensor
+    x0: torch.Tensor
+    ys: torch.Tensor
+    xs: torch.Tensor
+
+
+def crossroi_prep_rois(rois, spatial_scale: float, map_hw, output_size,
+                       sampling_ratio: int = 2) -> WindowedRois:
+    """Each roi's window origin and its sample positions relative to it, on
+    one `[B, H, W, C]` map: the one-level, not-aligned case of
+    cpm_tpu/ops/pallas/multilevel_pallas.py::_prep_rois. The origin lies one
+    cell before the roi's first sample, clamped so that the window stays
+    inside the map, its column rounded down to a multiple of 8 (the TPU's DMA
+    alignment, kept because it decides which cells a group shares)."""
+    ph, pw = output_size
+    sr = sampling_ratio
+    window = CROSSROI_WINDOW
+    h, w = (int(d) for d in map_hw)
+    if h < window or w < window:
+        raise ValueError(f"the map {h}x{w} must hold a {window}x{window} window")
+    dev = rois.device
+    r = rois.float()
+    scale = torch.full_like(r[:, 0], spatial_scale)
+    x1, y1, x2, y2 = (r[:, k] * scale for k in (1, 2, 3, 4))
+    roi_w = torch.clamp(x2 - x1, min=1.0)
+    roi_h = torch.clamp(y2 - y1, min=1.0)
+    # divisions by tensors, as in `_roi_samples`
+    bin_w = roi_w / torch.full_like(roi_w, pw)
+    bin_h = roi_h / torch.full_like(roi_h, ph)
+    ix = torch.arange(pw * sr, dtype=torch.float32, device=dev) + 0.5
+    iy = torch.arange(ph * sr, dtype=torch.float32, device=dev) + 0.5
+    ix = ix / torch.full_like(ix, sr)
+    iy = iy / torch.full_like(iy, sr)
+    xs = x1[:, None] + ix[None, :] * bin_w[:, None]
+    ys = y1[:, None] + iy[None, :] * bin_h[:, None]
+    oob_x = (xs < -1.0) | (xs > w)
+    oob_y = (ys < -1.0) | (ys > h)
+    xs_c = torch.clamp(xs, 0.0, w - 1.0)
+    ys_c = torch.clamp(ys, 0.0, h - 1.0)
+    x0 = torch.clamp(torch.floor(xs_c.amin(dim=1)) - 1.0, 0.0, float(w - window)).int()
+    x0 = (x0 // 8) * 8
+    y0 = torch.clamp(torch.floor(ys_c.amin(dim=1)) - 1.0, 0.0, float(h - window)).int()
+    xs_rel = torch.where(oob_x, -2.0, xs_c - x0.float()[:, None])
+    ys_rel = torch.where(oob_y, -2.0, ys_c - y0.float()[:, None])
+    return WindowedRois(rois[:, 0].int(), y0, x0, ys_rel, xs_rel)
+
+
+def _hat_axis(pos: torch.Tensor):
+    """The two window cells that a relative position weighs, floor(pos) and
+    the next, with the hat weight relu(1 - |pos - cell|) of each; a cell
+    outside the window weighs zero. Returns (cells long, clamped into the
+    window; weights), `[..., 2]` each."""
+    window = CROSSROI_WINDOW
+    cells = torch.floor(pos)[..., None] + torch.arange(2, dtype=pos.dtype, device=pos.device)
+    inside = (cells >= 0) & (cells <= window - 1)
+    weights = F.relu(1.0 - torch.abs(pos[..., None] - cells)) * inside
+    return torch.clamp(cells, 0, window - 1).long(), weights
+
+
+def crossroi_roi_align_plain(features: torch.Tensor, prep: WindowedRois, group: int, output_size,
+                             sampling_ratio: int = 2) -> torch.Tensor:
+    """Single-level RoIAlign in which `group` rois share one window: what
+    tools/probe_pooler_crossroi.py::make_probe computes.
+
+    Step i pools rois `i*group ... i*group + group - 1`, each at its own
+    positions relative to its own origin, from the window of roi i:
+    `features[batch[i], y0[i] : y0[i] + window, x0[i] : x0[i] + window]`. A
+    position weighs the window cells by `relu(1 - |position - cell|)`; cells
+    outside the window weigh zero. At `group == 1` this is the windowed
+    RoIAlign; at `group > 1` the numbers are those of samples shifted to
+    another roi's window, as the probe's are: it measures a bound, and this
+    states the same rule. Returns `[R, ph, pw, C]` in the features' dtype;
+    R must be a multiple of `group`."""
+    ph, pw = output_size
+    sr = sampling_ratio
+    window = CROSSROI_WINDOW
+    n = prep.batch.shape[0]
+    if n % group:
+        raise ValueError(f"{n} rois do not fill groups of {group}")
+    b, h, w, c = features.shape
+    if h < window or w < window:
+        raise ValueError(f"the map {h}x{w} must hold a {window}x{window} window")
+    step = torch.arange(n, device=features.device) // group
+    image, y0, x0 = prep.batch.long()[step], prep.y0.long()[step], prep.x0.long()[step]
+    yi, wy = _hat_axis(prep.ys.float())    # [R, Sy, 2]
+    xi, wx = _hat_axis(prep.xs.float())    # [R, Sx, 2]
+    flat = features.reshape(b * h * w, c)
+    base = image * (h * w)
+    vals = None
+    for i in (0, 1):
+        for j in (0, 1):
+            rows = (y0[:, None] + yi[..., i])[:, :, None]       # [R, Sy, 1]
+            cols = (x0[:, None] + xi[..., j])[:, None, :]       # [R, 1, Sx]
+            idx = base[:, None, None] + rows * w + cols
+            cell = flat[idx.reshape(-1)].reshape(n, yi.shape[1], xi.shape[1], c)
+            weight = wy[..., i][:, :, None] * wx[..., j][:, None, :]
+            term = cell * weight.to(cell.dtype)[..., None]
+            vals = term if vals is None else vals + term
+    return vals.reshape(n, ph, sr, pw, sr, c).mean(dim=(2, 4))

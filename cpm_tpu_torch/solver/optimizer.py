@@ -10,7 +10,11 @@ Port of cpm_tpu/solver/optimizer.py (`classify_param`, `build_optimizer`):
   at the first gradient;
 * freezing: every AffineChannel (frozen BatchNorm), the trunk's stem and
   layer1 .. layer{FREEZE_AT - 1} get `requires_grad = False` and join no
-  group.
+  group. FREEZE_AT is read from BACKBONE.RESNET whatever the trunk, a
+  ResNeXt too, as the JAX package reads it.
+
+A deformable conv's offset conv (`conv_offset.bias`) lands in the bias group
+and its main `weight` in nonbias, like any conv's.
 
 The JAX package labels parameters by their flax names; here the module
 types and the port's names decide, and a test holds the two labellings

@@ -1,9 +1,10 @@
 """Where the eval forward's time goes on one NVIDIA GPU.
 
-    python3 -m cpm_tpu_torch.tools.profile_eval
+    python3 -m cpm_tpu_torch.tools.profile_eval [--config flagship|x101_dcn]
 
-Builds the flagship CPM R-50-FPN as chip_smoke.py does (seeded random
-weights, bf16, GRID_RCNN.SCORE_THRESH 0.0 so that every stage pools a full
+Builds the flagship CPM R-50-FPN or CPM X-101-32x4d-FPN-DCN as chip_smoke.py
+does (seeded random weights, the deformable convs' offset convs spread from a
+seed, bf16, GRID_RCNN.SCORE_THRESH 0.0 so that every stage pools a full
 detection set), warms it up, and prints for batch 1 and batch 2 at 800x1344:
 
 * stage times: the forward's own stages, each timed on the host clock
@@ -18,6 +19,7 @@ The synchronises make the stage times sum to more than an unsynchronised
 forward. Every result line ends with the card's name and power limit.
 """
 
+import argparse
 import statistics
 import subprocess
 import sys
@@ -76,18 +78,27 @@ def _instrument(model, laps):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default="flagship", choices=("flagship", "x101_dcn"))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_eval: needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from cpm_tpu_torch.config import flagship_cfg
+    from cpm_tpu_torch import config
     from cpm_tpu_torch.engine.test import make_forward_fn
     from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.tools.profile_train import fold_batch_statistics, spread_offset_convs
 
     card = card_line()
-    cfg = flagship_cfg()
+    cfg = {"flagship": config.flagship_cfg, "x101_dcn": config.x101_dcn_cfg}[args.config]()
     cfg.GRID_RCNN.SCORE_THRESH = 0.0
     model = build_model(cfg, "cuda", seed=0)
+    if spread_offset_convs(model, seed=1):
+        # offsets are conv outputs: they need a trunk whose activations have
+        # unit scale, as a pretrained one's are
+        fold_batch_statistics(model, make_request(np.random.RandomState(99), [(800, 1344)])[0])
+    print(f"[profile] config {args.config}")
     forward = make_forward_fn(cfg, model)
     rng = np.random.RandomState(0)
     requests = {1: make_request(rng, [(800, 1333)]),

@@ -1,16 +1,19 @@
 """Where a training step's time goes on the card.
 
-    python3 -m cpm_tpu_torch.tools.profile_train
+    python3 -m cpm_tpu_torch.tools.profile_train [--config flagship|x101_dcn]
 
-Runs the flagship CPM R-50-FPN training step (the operating point of
-`training_cfg`, batch 2 at 800x1344, bf16 compute on f32 masters, seeded
-random weights and synthetic uint8 batches) and prints, beside the card's
+Runs the training step of the flagship CPM R-50-FPN or of CPM
+X-101-32x4d-FPN-DCN (the operating point of `training_cfg`, batch 2 at
+800x1344, bf16 compute on f32 masters, seeded random weights, the deformable
+convs' offset convs spread from a seed, synthetic uint8 batches) and prints, beside the card's
 name and power limit: the step's wall time, the CUDA kernel time per step
 and the device busy share from `torch.profiler`, the host and device time of
 the step's forward, backward and optimizer spans (`record_function` spans of
 engine/train.py), and the largest kernels by device time.
 """
 
+import argparse
+import math
 import statistics
 import sys
 import time
@@ -22,14 +25,62 @@ from cpm_tpu_torch.tools.profile_eval import card_line
 SPANS = ("train_step/forward", "train_step/backward", "train_step/optimizer")
 
 
-def training_cfg():
-    """The flagship at the operating point the JAX package trains and
-    benchmarks: 2000 pre-NMS candidates per level."""
-    from cpm_tpu_torch.config import flagship_cfg
+CONFIGS = ("flagship", "x101_dcn")
 
-    cfg = flagship_cfg()
+
+BATCH = 2   # images a step on one card
+
+
+def training_cfg(name: str = "flagship"):
+    """A config of the port at the operating point the JAX package trains and
+    benchmarks: 2000 pre-NMS candidates per level, 2 images a step. The
+    X-101-DCN YAML sets SOLVER.BASE_LR 0.02 for its 16 images a step; by the
+    linear scaling rule 2 images take 0.0025."""
+    from cpm_tpu_torch import config
+
+    cfg = {"flagship": config.flagship_cfg, "x101_dcn": config.x101_dcn_cfg}[name]()
     cfg.RPN.PRE_NMS_TOP_N_TRAIN = 2000
+    if name == "x101_dcn":
+        cfg.SOLVER.BASE_LR = cfg.SOLVER.BASE_LR * BATCH / 16
     return cfg
+
+
+OFFSET_CELLS = 2.0        # offsets spread over about +-2 cells
+OFFSET_INPUT_SHARE = 0.1  # the part of that spread that depends on the conv's input
+
+
+def spread_offset_convs(model, seed: int):
+    """Draw every deformable conv's offset conv from `seed`, in place, so that
+    its offsets spread over about +-OFFSET_CELLS cells, some samples leaving
+    the map: biases uniform in that range (one constant offset per tap and
+    axis) and weights normal with std OFFSET_INPUT_SHARE * OFFSET_CELLS *
+    sqrt(2 / fan_in), which on inputs of unit scale (a ReLU's output, whose
+    mean square is half its variance) add an input-dependent part of that
+    share. A fresh offset conv
+    is zero, as a checkpoint before training has it; then every sample sits on
+    a whole cell and the sampler only copies, which neither a trained model
+    nor a measurement should look like. The input-dependent share is kept
+    small because a random trunk's features are white noise from cell to
+    cell: the gradient that reaches a conv's input through its offsets is then
+    about sqrt(C) times the one through the sampled values, and with weights
+    of full share 30 such convs in a row multiply it beyond what SGD
+    survives (the X-101 losses reached 1e21 in three steps). Returns how many
+    convs were drawn."""
+    from cpm_tpu_torch.ops.deform_conv import _DeformPack
+
+    g = torch.Generator().manual_seed(seed)
+    n = 0
+    for mod in model.modules():
+        if isinstance(mod, _DeformPack):
+            conv = getattr(mod, mod.offset_conv_name)
+            fan_in = conv.weight[0].numel()
+            with torch.no_grad():
+                conv.weight.copy_(torch.randn(conv.weight.shape, generator=g)
+                                  * (OFFSET_INPUT_SHARE * OFFSET_CELLS * math.sqrt(2.0 / fan_in)))
+                conv.bias.copy_((torch.rand(conv.bias.shape, generator=g) * 2.0 - 1.0)
+                                * OFFSET_CELLS)
+            n += 1
+    return n
 
 
 def fold_batch_statistics(model, images):
@@ -64,6 +115,9 @@ def fold_batch_statistics(model, images):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default="flagship", choices=CONFIGS)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_train: needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
@@ -72,8 +126,9 @@ def main():
     from cpm_tpu_torch.engine.train import create_train_state, make_train_step
 
     card = card_line()
-    cfg = training_cfg()
+    cfg = training_cfg(args.config)
     model, optimizer, state = create_train_state(cfg, "cuda", seed=0)
+    spread_offset_convs(model, seed=1)
     step_fn = make_train_step(cfg, model, optimizer)
 
     def batch_for(seed):
@@ -108,7 +163,7 @@ def main():
                and not e.key.startswith(("train_step/", "Optimizer."))]
     device_ms = sum(e.self_device_time_total for e in kernels) / n / 1e3
 
-    print(f"[profile] train step, batch 2 at 800x1344: wall {wall_ms:.2f} ms/step (min "
+    print(f"[profile] {args.config} train step, batch 2 at 800x1344: wall {wall_ms:.2f} ms/step (min "
           f"{min(times):.2f}, max {max(times):.2f} over 5), CUDA kernels {device_ms:.2f} ms/step, "
           f"device busy share {device_ms / wall_ms:.3f}, total_loss "
           f"{float(metrics['total_loss']):.4f} | {card}")

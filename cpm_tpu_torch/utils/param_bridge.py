@@ -7,7 +7,13 @@ parameter name. `flax_tree_to_named` applies it, with the layout transforms,
 to any tree of the params' structure (parameters, a gradient tree, a
 momentum tree); `state_dict_to_flax` goes back. Layouts:
 
-* Conv kernels HWIO -> OIHW (depthwise ones too: [5, 5, 1, C] -> [C, 1, 5, 5]).
+* Conv kernels HWIO -> OIHW (depthwise and grouped ones too: [5, 5, 1, C] ->
+  [C, 1, 5, 5]; both packages keep a grouped conv's output channels
+  groups-major).
+* A deformable conv's main parameter is the leaf `weight` (not `kernel`) in
+  HWIO `[k, k, Cin/groups, Cout]` -> `weight` in OIHW; its offset conv
+  `conv2/conv_offset/{kernel,bias}` (`conv_offset_mask` for v2) maps like any
+  conv, to `conv2.conv_offset.{weight,bias}`.
 * Dense kernels [in, out] -> [out, in]. The flattened inputs of the dense
   layers are NHWC in both packages, so rows need no permutation.
 * The grouped deconv kernel [4, 4, Cin/P, Cout], which flax applies flipped
@@ -43,7 +49,7 @@ _RULES = [
      r"roi_head/grid_outputs/\1/\2/\3"),
     (r"^roi_head/grid_output_(\d+)/", r"roi_head/grid_outputs/\1/"),
 ]
-_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_LEAF = {"kernel": "weight", "weight": "weight", "scale": "weight", "bias": "bias"}
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:

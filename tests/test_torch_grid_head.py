@@ -9,6 +9,9 @@ torch and the port are imported inside the tests, so that collecting this
 file loads no torch into a test worker (see tests/test_torch_roi_align.py).
 """
 
+import sys
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +29,22 @@ from cpm_tpu.modeling.roi_heads.grid_ops import expand_boxes as jax_expand_boxes
 from cpm_tpu.modeling.roi_heads.grid_ops import grid_decode as jax_grid_decode
 from cpm_tpu.modeling.roi_heads.targets import compact_by_mask as jax_compact_by_mask
 from cpm_tpu.modeling.roi_heads.targets import rois_with_batch_index as jax_rois_with_batch_index
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_stub_modules_that_answer_every_name():
+    """tests/test_weight_parity.py leaves stub modules in `sys.modules` whose
+    `__getattr__` answers every name, `__file__` included, with a function.
+    torch registers custom ops at the first backward or optimizer of a process
+    and looks its caller up with `inspect.getmodule`, which walks
+    `sys.modules` and fails on such a `__file__`. Whether that file ran
+    earlier in this worker depends on the scheduling, so the stubs go before
+    this file's first torch call; that file installs them again when it needs
+    them."""
+    for name, mod in list(sys.modules.items()):
+        if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
+            del sys.modules[name]
+
 
 SCALES = (0.25, 0.125, 0.0625, 0.03125)
 P, PC, CIN = 9, 8, 32

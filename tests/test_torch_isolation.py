@@ -33,13 +33,15 @@ def test_every_port_module_imports_without_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "wanted = ('ops.cuda._build', 'ops.cuda.multilevel_roi_align', 'ops.cuda.stacked_roi_align',\n"
-        "          'ops.cuda.clustered_roi_align', 'ops.cuda.roi_align', 'tools.bench_roi_align')\n"
+        "          'ops.cuda.clustered_roi_align', 'ops.cuda.roi_align', 'tools.bench_roi_align',\n"
+        "          'ops.deform_conv', 'ops.cuda.deform_sample', 'ops.cuda.crossroi_roi_align',\n"
+        "          'tools.probe_dcn_sampler', 'tools.probe_pooler_crossroi')\n"
         "assert all('cpm_tpu_torch.' + w in names for w in wanted), names\n"
         "print(len(names))\n"
     )
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 46
+    assert int(proc.stdout.split()[-1]) >= 51
 
 
 def test_port_sources_import_no_jax_inside_functions_either():

@@ -9,6 +9,9 @@ torch and the port's model are imported inside the tests, so that collecting
 this file loads no torch into a test worker (see tests/test_torch_roi_align.py).
 """
 
+import sys
+import types
+
 import jax
 import numpy as np
 import pytest
@@ -17,6 +20,21 @@ from __graft_entry__ import _flagship_cfg
 from cpm_tpu.engine.test import detections_to_coco as jax_detections_to_coco
 from cpm_tpu.modeling.model import build_model as jax_build_model
 from cpm_tpu_torch.config import flagship_cfg
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_stub_modules_that_answer_every_name():
+    """tests/test_weight_parity.py leaves stub modules in `sys.modules` whose
+    `__getattr__` answers every name, `__file__` included, with a function.
+    torch registers custom ops at the first backward or optimizer of a process
+    and looks its caller up with `inspect.getmodule`, which walks
+    `sys.modules` and fails on such a `__file__`. Whether that file ran
+    earlier in this worker depends on the scheduling, so the stubs go before
+    this file's first torch call; that file installs them again when it needs
+    them."""
+    for name, mod in list(sys.modules.items()):
+        if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
+            del sys.modules[name]
 
 
 def _tiny_cfg():

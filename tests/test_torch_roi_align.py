@@ -11,6 +11,9 @@ with torch loaded, the 8-device XLA:CPU collectives of tests/test_multichip.py
 can deadlock in the same worker process.
 """
 
+import sys
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +23,22 @@ from cpm_tpu.ops.pooler import Pooler as JaxPooler
 from cpm_tpu.ops.pooler import assign_fpn_levels as jax_assign_fpn_levels
 from cpm_tpu.ops.roi_align import multilevel_roi_align as jax_multilevel_roi_align
 from cpm_tpu.ops.roi_align import roi_align as jax_roi_align
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_stub_modules_that_answer_every_name():
+    """tests/test_weight_parity.py leaves stub modules in `sys.modules` whose
+    `__getattr__` answers every name, `__file__` included, with a function.
+    torch registers custom ops at the first backward or optimizer of a process
+    and looks its caller up with `inspect.getmodule`, which walks
+    `sys.modules` and fails on such a `__file__`. Whether that file ran
+    earlier in this worker depends on the scheduling, so the stubs go before
+    this file's first torch call; that file installs them again when it needs
+    them."""
+    for name, mod in list(sys.modules.items()):
+        if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
+            del sys.modules[name]
+
 
 SCALES = (0.25, 0.125, 0.0625, 0.03125)
 SHAPES = [(56, 80), (28, 40), (14, 20), (7, 10)]

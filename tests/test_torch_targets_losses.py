@@ -10,6 +10,9 @@ torch and the port are imported inside the tests, so that collecting this
 file loads no torch into a test worker.
 """
 
+import sys
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +28,22 @@ from cpm_tpu.ops.box_coder import BoxCoder as JaxBoxCoder
 from cpm_tpu.structures.boxes import box_iou as jax_box_iou
 from cpm_tpu.utils import matcher as jax_matcher
 from cpm_tpu.utils import sampler as jax_sampler
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_stub_modules_that_answer_every_name():
+    """tests/test_weight_parity.py leaves stub modules in `sys.modules` whose
+    `__getattr__` answers every name, `__file__` included, with a function.
+    torch registers custom ops at the first backward or optimizer of a process
+    and looks its caller up with `inspect.getmodule`, which walks
+    `sys.modules` and fails on such a `__file__`. Whether that file ran
+    earlier in this worker depends on the scheduling, so the stubs go before
+    this file's first torch call; that file installs them again when it needs
+    them."""
+    for name, mod in list(sys.modules.items()):
+        if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
+            del sys.modules[name]
+
 
 ATOL = 1e-5
 

@@ -106,6 +106,7 @@ def _momentum_tree(opt_state, params):
     return out
 
 
+@pytest.fixture(scope="module", autouse=True)
 def _drop_stub_modules_that_answer_every_name():
     """tests/test_weight_parity.py leaves a stub module in `sys.modules` whose
     `__getattr__` answers every name, `__file__` included, with a function.
@@ -123,8 +124,6 @@ def _drop_stub_modules_that_answer_every_name():
 @pytest.fixture(scope="module")
 def train_outputs():
     import torch
-
-    _drop_stub_modules_that_answer_every_name()
 
     from cpm_tpu_torch.data.synthetic import synthetic_batch
     from cpm_tpu_torch.engine.train import create_train_state, make_train_step
