@@ -22,9 +22,11 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 2b. backward kernels: the multilevel and the stacked backward against their
    plain versions (autograd of the plain forwards) at the training shapes
    (R=1024 at 7x7, R=256 at 14x14, ~30% masked, and a case where 512 rois
-   share a few cells so that the atomics collide): f32, bf16, masked rois
-   add nothing, two runs on the same inputs; the stacked backward also
-   against the multilevel one.
+   share a few cells, so that many sums meet in one cell): f32, bf16, masked
+   rois add nothing, two runs on the same inputs (bit-equal for the
+   multilevel backward, whose blocks own tiles of the gradient maps; the
+   stacked one sums through atomics and its difference is printed); the
+   stacked backward also against the multilevel one.
 3. eval paths: the flagship CPM R-50-FPN config (81 classes, 3 CMM stages,
    ISM, RSM) with seeded random weights, bf16, uint8 images normalized on
    the device, under TPU.POOLER_KERNEL auto, then stacked, then clustered:
@@ -51,7 +53,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    clustered the losses are held against the auto path's. Then the
    backward-kernel check of phase 2b on the gradients, rois and level shapes
    of the five pooler sites of one more step (auto and stacked; clustered
-   trains through the multilevel backward kernel).
+   trains through the multilevel backward kernel), two runs bit-equal under
+   auto.
 6. training reference: two steps of the port on the card against two on the
    CPU at a narrow width in f32, the same seed, batch and draws.
 7. single-level path: no model of the port has a one-level pooler yet, so a
@@ -61,8 +64,11 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    kernels against their plain versions (`deform_sample_plain` and autograd
    of it) at the geometries of cpm_tpu_torch/tools/probe_dcn_sampler.py (res3
    104x168x256, res4 52x84x512, res5 26x42x1024, batch 2, 9 taps, coordinates
-   over the map and past its border), f32 and bf16, with the time of one
-   `F.grid_sample` call on the same inputs as the library yardstick.
+   over the map and past its border), f32 and bf16, two backward runs
+   bit-equal, with the time of one `F.grid_sample` call (forward, and its
+   backward to the map and the grid) on the same inputs as the library
+   yardstick, and the backward's binning kernels timed on a line of their
+   own.
 9. cross-roi kernel: the shared-window RoIAlign at G in {1, 2, 4, 8} rois per
    window against its plain version at the shapes of
    cpm_tpu_torch/tools/probe_pooler_crossroi.py (one [2, 208, 336, 256] map,
@@ -85,7 +91,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    them, with 30 + 30 sampler and 5 + 5 pooler launches per step, every
    offset conv moved, and the peak memory beside the reckoned size of the
    sampled columns kept for the backward. Then the backward check of phase 8
-   on what the 30 backward launches of one more step were given.
+   on what the 30 backward launches of one more step were given (two runs
+   bit-equal); the sampler backward's `ms`, `plain_ms`, `bound_ms` and
+   `library_ms` in the JSON line are those summed, the binning's time inside
+   `ms`. Last, one step at batch 4, checked for its losses and launches, and
+   the backward check on its largest site (the first res3 block's 200x336
+   map, 4200 tiles an image): the binning counts its keys per image, so the
+   batch is not bounded by them.
 
 Then a JSON line of kernel results and, last, {"ok": true, "device": ...}.
 Random weights give softmax scores near 1/81, below the default 0.03
@@ -99,11 +111,14 @@ forward each group's rectangle counted once, not once per roi, plus the
 grouping arrays) and its f32 multiply-adds over 67 TFLOP/s. The stacked
 kernels' stack copy and the clustered kernel's grouping are torch ops
 outside the kernels; their times are printed on lines of their own. No
-single PyTorch call computes a RoIAlign or its transpose, so `library_ms`
-is null for the RoIAlign kernels. The sampler's bounds
-(cpm_tpu_torch/tools/probe_dcn_sampler.py::sampler_bounds) and the cross-roi
-kernel's (tools/probe_pooler_crossroi.py::crossroi_bound) are made the same
-way; the sampler's forward has a library call, `F.grid_sample`.
+single PyTorch call computes a RoIAlign or its transpose (torchvision's is
+no dependency of the port), so `library_ms` is null for the RoIAlign kernels. The
+sampler's bounds (cpm_tpu_torch/tools/probe_dcn_sampler.py::sampler_bounds)
+and the cross-roi kernel's (tools/probe_pooler_crossroi.py::crossroi_bound)
+are made the same way; the sampler has a library call, `F.grid_sample`, and
+for its backward that call's backward to the map and the grid. The backward
+bounds count each gradient map written once: the tile-owned backward kernels
+(multilevel and sampler) write exactly that, with no float32 accumulator.
 """
 
 import contextlib
@@ -408,7 +423,8 @@ def check_backward_kernel(name, shapes, rois, levels, valid, g, card, rescale=Fa
 
     Tolerances. f32: rtol 1e-4 / atol 1e-4, the JAX package's own for its
     backward kernels; both sides sum each cell's terms in f32 in another
-    order, the kernel's atomics in an order that changes from run to run.
+    order (the stacked kernel's atomics in an order that changes from run to
+    run; the multilevel kernel's in one fixed order).
     bf16: the kernel sums in f32 and rounds once, the plain version is the
     f32 gradient of the same bf16 `g` rounded to bf16, so they differ by at
     most one bf16 rounding: rtol 1.6e-2 / atol 1e-2.
@@ -454,7 +470,13 @@ def check_backward_kernel(name, shapes, rois, levels, valid, g, card, rescale=Fa
                   torch.ones_like(valid[valid]), g32[valid].contiguous(), SCALES, 2)
     err_masked = worst(got, kept, "the call without the masked rois")
     again = kernel(shapes, rois, levels, valid, g32, SCALES, 2)
-    rerun = max((a - b).abs().max().item() for a, b in zip(got, again))
+    if impl == "multilevel":
+        # the tile-owned backward sums every cell in one fixed order
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}: two backward runs on the same inputs differ")
+        rerun = "two runs bit-equal"
+    else:
+        rerun = f"two-runs max|diff|={max((a - b).abs().max().item() for a, b in zip(got, again)):.3g}"
 
     g16 = g.to(torch.bfloat16).contiguous()
     got16 = kernel(shapes, rois, levels, valid, g16, SCALES, 2)
@@ -478,13 +500,12 @@ def check_backward_kernel(name, shapes, rois, levels, valid, g, card, rescale=Fa
         f"[bwd kernel] {name}: R={rois.shape[0]} pool={pool} valid={int(valid.sum())} "
         f"f32 max|err|={err32:.3g} (rtol {BWD_F32_RTOL}, atol {BWD_F32_ATOL}) "
         f"vs multilevel kernel {vs_multilevel:.3g} "
-        f"masked-removed max|diff|={err_masked:.3g} two-runs max|diff|={rerun:.3g} "
+        f"masked-removed max|diff|={err_masked:.3g} {rerun} "
         f"bf16 max|err|={err16:.3g} (rtol {BF16_RTOL}, atol {BF16_ATOL}) "
         f"bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}) | {card}"
     )
-    return dict(err=err32, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                rerun=rerun)
+    return dict(err=err32, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def synthetic_rois(n, rng, dev):
@@ -828,7 +849,7 @@ def summed(results, launches, what, card):
     lib = ""
     if results[0].get("library_ms") is not None:
         out["library_ms"] = sum(r["library_ms"] for r in results)
-        lib = f", F.grid_sample {out['library_ms']:.4f} ms"
+        lib = f", library call {out['library_ms']:.4f} ms"
     print(f"{what}: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms{lib}, bound "
           f"{out['bound_ms']:.4f} ms ({out['bound_by']}) (bf16, median CUDA-event times summed) "
           f"| {card}")
@@ -962,8 +983,8 @@ def phase_train(dev, card, backend, reference, config="flagship"):
     # the warm-up step starts from the same weights, batch and draws under
     # every backend and the forward kernels sum in the same order, so each of
     # its losses agrees to 1e-4; from then on the parameters differ by the
-    # backward atomics' changing order, which bf16 training amplifies, and the
-    # total loss is held to 0.1 relative
+    # stacked backward's atomics and cuDNN's sums, whose order changes, which
+    # bf16 training amplifies, and the total loss is held to 0.1 relative
     state, metrics = step_fn(state, batch_for(100))
     torch.cuda.synchronize()
     note = held_against_auto(0, losses_of(metrics), 1e-4)
@@ -1038,9 +1059,11 @@ def phase_train(dev, card, backend, reference, config="flagship"):
         print(f"{tag} launches in the 2 steps: deform_sample {counts['deform_sample']}, "
               f"deform_sample_backward {counts['deform_sample_backward']}; "
               f"{len(offset_convs)} offset-conv tensors changed in every step")
-        return sampler_backward_sites(
+        out = sampler_backward_sites(
             tag, lambda: step_fn(state, batch_for(104)), card, pooler_launches=launches,
             launches=(counts["deform_sample"], counts["deform_sample_backward"]))
+        wide_batch_step(tag, step_fn, state, cfg, want_launches, card)
+        return out
 
     # after the timed run: one more step, capturing what the five backward
     # launches were given
@@ -1194,8 +1217,51 @@ def sampler_backward_sites(tag, run_step, card, **extra):
         res = check_backward(name, feat.contiguous(), ys, xs, g.contiguous(), card, reps=5)
         results.append(dict(res, err=err32))
     out = summed(results, None, f"[bwd kernel] deform_sample: the {len(results)} backward calls "
-                 f"of one training step (f32 max|err| {max(r['err'] for r in results):.3g})", card)
+                 f"of one training step (f32 max|err| {max(r['err'] for r in results):.3g}, two "
+                 f"runs bit-equal at every site)", card)
+    print(f"[binning] deform_sample: the binning kernels of the {len(results)} backward calls "
+          f"{sum(r['binning_ms'] for r in results):.4f} ms, inside the kernel's "
+          f"{out['ms']:.4f} ms | {card}")
     return dict(out, **extra)
+
+
+def wide_batch_step(tag, step_fn, state, cfg, want_launches, card, batch=4):
+    """One X-101-DCN training step at `batch` 4: finite losses and the
+    launches of a step, then the sampler backward's check on the largest of
+    the 30 sites it captured (the first res3 block samples the 200x336 map at
+    stride 2: 4200 tiles and 151,200 samples an image), two runs bit-equal.
+    The binning's keys are counted per image, so no batch is beyond them."""
+    from cpm_tpu_torch.data.synthetic import synthetic_batch
+    from cpm_tpu_torch.tools.probe_dcn_sampler import check_backward
+
+    def keep(feat, ys, xs, g, *_):
+        return feat.detach().clone(), ys.detach().clone(), xs.detach().clone(), g.detach().clone()
+
+    data = synthetic_batch(batch, 800, 1344, max_gt=32, num_classes=cfg.MODEL.NUM_CLASSES,
+                           seed=105, uint8=True)
+    before = launch_counts()
+    with capture_calls(ops()["deform"].KERNEL, "backward", keep) as captured:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step_fn(state, data)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = launched_since(before)
+    total = float(metrics["total_loss"])
+    if not all(math.isfinite(float(metrics[k])) for k in TRAIN_LOSSES) or not math.isfinite(total):
+        raise AssertionError(f"{tag} batch {batch}: non-finite losses {metrics}")
+    if launched != want_launches:
+        raise AssertionError(f"{tag} batch {batch}: launched {launched}, want {want_launches}")
+    feat, ys, xs, g = max(captured, key=lambda site: site[0].shape[1] * site[0].shape[2])
+    del captured
+    feat, fexp = unit_scale(feat)
+    g, gexp = unit_scale(g)
+    name = f"batch-{batch} site map {tuple(feat.shape)} x 2^{-fexp}, g x 2^{-gexp}"
+    err = check_backward(name, feat.contiguous(), ys, xs, g.contiguous(), card, timed=False)["err"]
+    print(f"{tag} batch {batch}: one step {seconds * 1e3:.1f} ms (the first at this batch: cuDNN "
+          f"plans its shapes), total_loss {total:.4f}, launches {launched}; the sampler backward "
+          f"at its largest site, {name}, {ys.shape[1]} samples an image, against autograd of the "
+          f"plain version (max |err| {err:.3g}), two runs bit-equal | {card}")
 
 
 def phase_x101_eval(dev, card, n_requests=2):

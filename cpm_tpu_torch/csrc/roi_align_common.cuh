@@ -105,6 +105,69 @@ __device__ __forceinline__ void load_scaled(const __nv_bfloat16* p, float s,
   }
 }
 
+// The eight channels a lane owns in the backward kernels' shared-memory
+// tiles: v[0..8) = the eight elements at p (16-byte aligned), read-only
+// path. For float32, `full` false reads only the first four (a channel count
+// that is 4 mod 8) and zeroes the rest; bf16 channel counts are multiples of
+// eight.
+__device__ __forceinline__ void load8(const float* p, bool full, float* v) {
+  load_scaled(p, 1.0f, v);
+  if (full) {
+    load_scaled(p + 4, 1.0f, v + 4);
+  } else {
+    v[4] = v[5] = v[6] = v[7] = 0.0f;
+  }
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, bool, float* v) {
+  load_scaled(p, 1.0f, v);
+}
+
+__device__ __forceinline__ void store8(float* p, bool full, const float* v) {
+  store(p, v);
+  if (full) store(p + 4, v + 4);
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, bool, const float* v) {
+  store(p, v);
+}
+
+// One cell of a backward kernel's float32 tile in shared memory, as a lane
+// sees it: its eight channels are two float4, each half of the warp's 256
+// channels contiguous across the lanes, so that a warp's accesses do not
+// conflict. acc[k] += w * v[k].
+__device__ __forceinline__ void add8(float4* cell, int lane, float w,
+                                     const float* v) {
+  float4 a = cell[lane];
+  float4 b = cell[32 + lane];
+  a.x = __fmaf_rn(w, v[0], a.x);
+  a.y = __fmaf_rn(w, v[1], a.y);
+  a.z = __fmaf_rn(w, v[2], a.z);
+  a.w = __fmaf_rn(w, v[3], a.w);
+  b.x = __fmaf_rn(w, v[4], b.x);
+  b.y = __fmaf_rn(w, v[5], b.y);
+  b.z = __fmaf_rn(w, v[6], b.z);
+  b.w = __fmaf_rn(w, v[7], b.w);
+  cell[lane] = a;
+  cell[32 + lane] = b;
+}
+
+__device__ __forceinline__ void read8(const float4* cell, int lane, float* v) {
+  const float4 a = cell[lane];
+  const float4 b = cell[32 + lane];
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+  v[4] = b.x;
+  v[5] = b.y;
+  v[6] = b.z;
+  v[7] = b.w;
+}
+
+// The float4s of one cell of such a tile: 2 x 32.
+constexpr int kCellVecs = 64;
+
 // cell[0..kN) += w * v, four channels to one float4 atomic (sm_90).
 template <int kN>
 __device__ __forceinline__ void scatter(float* cell, float w,

@@ -11,11 +11,15 @@ them.
 What bounds both on the H100 is bytes: the forward writes K*K = 9 times the
 map's bytes and the backward reads as many, one multiply-add an element. The
 forward reads only the cells of non-zero weight, a warp per sample with
-16-byte loads along C. The backward adds into one zero-filled float32
-accumulator of the map's shape through float4 atomics, cast to the map's
-dtype once; the atomics' order changes from run to run, so two backward runs
-agree to float32 rounding of each cell's sum, not to the bit. The coordinate
-gradients come from a warp reduction over C per sample.
+16-byte loads along C. The backward's map gradient is a gather owned by tiles
+of the map: binning kernels sort the samples stably by the tile of their
+window start (a counting sort on the card with no host sync; its plain
+version is ops/deform_conv.py::window_tiles), and each block of the map
+kernel sums what falls into its tile in shared memory and writes the tile
+once in the map's dtype: no float32 map, no fill, no cast, no atomics. The
+coordinate gradients come from a warp reduction over C per sample. Every sum
+runs in a fixed order, so two backward runs on the same inputs give the same
+bits.
 
 `deform_sample_cuda` launches the kernels or raises; the CPU path and the
 plain version are cpm_tpu_torch/ops/deform_conv.py::deform_sample_plain.
@@ -64,6 +68,8 @@ class DeformSampleKernel:
         self.launches = 0
         self.backward_launches = 0
         self.built = None
+        self.tile = None
+        self.bin_chunk = None
         self._lib = None
 
     def build(self):
@@ -74,9 +80,16 @@ class DeformSampleKernel:
             vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.cpm_deform_sample_fwd.argtypes = [vp, ci, ci, ci, ci, vp, vp, cl, ci, vp, vp]
             lib.cpm_deform_sample_bwd.argtypes = [
-                vp, ci, ci, ci, ci, vp, vp, vp, cl, ci, vp, vp, vp, vp,
+                vp, ci, ci, ci, ci, vp, vp, vp, cl, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
             ]
-            lib.cpm_deform_sample_fwd.restype = lib.cpm_deform_sample_bwd.restype = ci
+            lib.cpm_deform_sample_bin.argtypes = [vp, vp, ci, ci, ci, cl, vp, vp, vp, vp, vp, vp, vp]
+            for fn in (lib.cpm_deform_sample_fwd, lib.cpm_deform_sample_bwd,
+                       lib.cpm_deform_sample_bin):
+                fn.restype = ci
+            layout = [ctypes.c_int() for _ in range(3)]
+            lib.cpm_deform_sample_layout(*[ctypes.byref(v) for v in layout])
+            self.tile = (layout[0].value, layout[1].value)
+            self.bin_chunk = layout[2].value
             self._lib = lib
         return self._lib
 
@@ -100,34 +113,73 @@ class DeformSampleKernel:
         self.launches += 1
         return out
 
+    def _bin_buffers(self, b, h, w, p, dev):
+        """One int32 buffer, split: weights [n, 4] f32 first (16-byte
+        aligned), order, starts, offsets, and the sort's scratch (per-key
+        totals, per-chunk counts), n = b * p; an image has a key per tile
+        and one more."""
+        th, tw = self.tile
+        n = b * p
+        keys = b * ((-(-h // th)) * (-(-w // tw)) + 1)
+        sizes = (4 * n, n, n, keys + 1, keys, -(-p // self.bin_chunk) * keys)
+        weights, order, starts, offsets, totals, counts = torch.empty(
+            sum(sizes), dtype=torch.int32, device=dev).split(sizes)
+        return weights.view(torch.float32).view(n, 4), order, starts, offsets, totals, counts
+
+    def bin_samples(self, feat: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor):
+        """The binning kernels alone (the backward launches them itself): the
+        samples sorted stably by the tile of their window start, for the
+        tiles the backward kernel's blocks own -> (order, offsets) as
+        `ops/deform_conv.py::window_tiles` returns them, and each sample's
+        window start (int32, row << 16 | column) and weights (f32 [N, 4]:
+        wy0, wy1, wx0, wx1) in that order."""
+        b, h, w, _, p = _check(feat, ys, xs)
+        lib = self.build()
+        dev = feat.device
+        weights, order, starts, offsets, totals, counts = self._bin_buffers(b, h, w, p, dev)
+        with torch.cuda.device(dev):
+            err = lib.cpm_deform_sample_bin(
+                ys.data_ptr(), xs.data_ptr(), b, h, w, p, counts.data_ptr(), totals.data_ptr(),
+                order.data_ptr(), starts.data_ptr(), weights.data_ptr(), offsets.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"deform sample binning launch failed: cudaError {err}")
+        return order, offsets, starts, weights
+
     def backward(self, feat: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, g: torch.Tensor,
                  need_map: bool = True, need_coords: bool = True):
-        """Launch the backward kernel: g `[B, P, C]` in feat's dtype ->
-        (gradient to feat in its dtype or None, gys, gxs `[B, P]` f32 or
-        None). The map's sums are taken in float32."""
+        """Launch the backward kernels (the binning's first when the map needs
+        a gradient): g `[B, P, C]` in feat's dtype -> (gradient to feat in
+        its dtype or None, gys, gxs `[B, P]` f32 or None). The map's sums are
+        taken in float32, in a fixed order."""
         b, h, w, c, p = _check(feat, ys, xs)
         if g.dtype != feat.dtype or g.device != feat.device or tuple(g.shape) != (b, p, c):
             raise ValueError("g must be [B, P, C] of feat's dtype on its device")
         if not g.is_contiguous() or g.data_ptr() % 16:
             raise ValueError("g must be contiguous and 16-byte aligned")
         dev = feat.device
-        acc = torch.zeros((b, h, w, c), dtype=torch.float32, device=dev) if need_map else None
-        gys = torch.zeros((b, p), dtype=torch.float32, device=dev) if need_coords else None
-        gxs = torch.zeros((b, p), dtype=torch.float32, device=dev) if need_coords else None
+        alloc = torch.empty if p > 0 else torch.zeros   # the kernels write every element
+        grad = alloc(feat.shape, dtype=feat.dtype, device=dev) if need_map else None
+        gys, gxs = alloc((2, b, p), dtype=torch.float32, device=dev) if need_coords else (None, None)
         if p > 0 and (need_map or need_coords):
             lib = self.build()
+            bins = self._bin_buffers(b, h, w, p, dev) if need_map else (None,) * 6
+            weights, order, starts, offsets, totals, counts = (
+                None if t is None else t.data_ptr() for t in bins)
             with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
                 err = lib.cpm_deform_sample_bwd(
                     feat.data_ptr(), b, h, w, c, ys.data_ptr(), xs.data_ptr(), g.data_ptr(), p,
-                    DTYPE_CODES[feat.dtype], acc.data_ptr() if need_map else None,
+                    DTYPE_CODES[feat.dtype], counts, totals, order, starts, weights, offsets,
+                    grad.data_ptr() if need_map else None,
                     gys.data_ptr() if need_coords else None,
-                    gxs.data_ptr() if need_coords else None, stream,
+                    gxs.data_ptr() if need_coords else None,
+                    torch.cuda.current_stream(dev).cuda_stream,
                 )
             if err != 0:
                 raise RuntimeError(f"deform sample backward launch failed: cudaError {err}")
             self.backward_launches += 1
-        return (acc.to(feat.dtype) if need_map else None), gys, gxs
+        return grad, gys, gxs
 
 
 KERNEL = DeformSampleKernel()

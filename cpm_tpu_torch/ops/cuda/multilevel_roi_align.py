@@ -17,17 +17,18 @@ roi aspect ratio and the JAX pooler's window-overflow patch has no
 counterpart here.
 
 The backward is the transpose of that gather: per valid roi, bin and sample,
-`g / sr^2` times each bilinear weight is added to the cell the forward read.
-What bounds it on the H100 is again bytes: `g` is read once, coalesced, and
-every sample sends four C-vectors of atomic adds to L2, one multiply per
-element; the level gradients are written once. Blocks run in no order and
-rois overlap, so the sums go through `atomicAdd` (four channels to one
-float4 atomic) into float32 accumulators that this wrapper zero-fills, one
-flat buffer for all levels, cast to the feature dtype afterwards. The TPU
-kernel accumulates in the feature dtype (bf16 in training) to halve its DMA
-traffic; float32 accumulation is closer to the true sum and within one bf16
-rounding of it. The atomics' order changes from run to run, so two backward
-runs agree to float32 rounding of each cell's sum, not to the bit.
+`g / sr^2` times each bilinear weight belongs to the cell the forward read.
+What bounds it on the H100 is again bytes: the level gradients written once
+and the valid rois' rows of `g` read. It runs as a gather owned by tiles of
+the gradient maps: one block per (level, image, tile of cells, channel
+chunk) scans the rois in index order, keeps those whose samples reach its
+tile, sums their shares in float32 in shared memory and writes the tile once,
+in `g`'s dtype, straight into the per-level gradients this wrapper returns.
+So there is no float32 accumulator of the maps' size, no fill and no cast,
+and no atomics: every cell's sum runs in one fixed order and two backward
+runs on the same inputs give the same bits. The TPU kernel accumulates in the
+feature dtype (bf16 in training) to halve its DMA traffic; float32
+accumulation is closer to the true sum and within one bf16 rounding of it.
 
 `multilevel_roi_align` dispatches on where the tensors lie: on the CPU it
 runs the plain PyTorch version (cpm_tpu_torch/ops/roi_align.py), through
@@ -189,7 +190,7 @@ class MultilevelRoIAlignKernel:
     ):
         """Launch the backward kernel: `g` `[R, ph, pw, C]` (contiguous, f32
         or bf16, on the card) -> one gradient `[B, H_l, W_l, C]` per level
-        in g's dtype. The sums are taken in float32."""
+        in g's dtype. The sums are taken in float32, in a fixed order."""
         num_levels = len(feature_shapes)
         if not 1 <= num_levels <= MAX_LEVELS:
             raise ValueError(f"1..{MAX_LEVELS} levels supported, got {num_levels}")
@@ -209,17 +210,16 @@ class MultilevelRoIAlignKernel:
         if channels % (16 // g.element_size()):
             raise ValueError(f"C={channels} must fill 16-byte vectors of {dtype}")
         levels, valid = check_rois(rois, levels, valid)
-        # one flat float32 accumulator for all levels: one fill, one cast
+        # one buffer for all levels, in g's dtype, written whole by the kernel
         sizes = [s[0] * s[1] * s[2] * s[3] for s in shapes]
-        acc = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
-        parts = [a.view(s) for a, s in zip(acc.split(sizes), shapes)]
-        if rois.shape[0] > 0:
-            self._launch("bwd", parts, rois, levels, valid, tuple(g.shape[1:3]),
-                         spatial_scales, sampling_ratio, aligned, dtype, g)
-            self.backward_launches += 1
-        if dtype == torch.float32:
-            return parts
-        return [a.view(s) for a, s in zip(acc.to(dtype).split(sizes), shapes)]
+        if rois.shape[0] == 0:
+            return [torch.zeros(s, dtype=dtype, device=dev) for s in shapes]
+        grads = [a.view(s) for a, s in zip(
+            torch.empty(sum(sizes), dtype=dtype, device=dev).split(sizes), shapes)]
+        self._launch("bwd", grads, rois, levels, valid, tuple(g.shape[1:3]),
+                     spatial_scales, sampling_ratio, aligned, dtype, g)
+        self.backward_launches += 1
+        return grads
 
 
 KERNEL = MultilevelRoIAlignKernel()

@@ -127,6 +127,52 @@ def sampling_grid(offset: torch.Tensor, kernel_hw, stride: int, padding: int, di
     return ys.reshape(b, ho * wo * k), xs.reshape(b, ho * wo * k)
 
 
+def window_tiles(ys: torch.Tensor, xs: torch.Tensor, size_hw, tile_hw):
+    """The samples binned by the tile of their window start: the plain
+    version of the binning kernels of the sampler's backward
+    (ops/cuda/deform_sample.py::DeformSampleKernel.bin_samples), whose map
+    kernel's blocks each own one tile of the map's gradient.
+
+    ys / xs `[B, P]` f32 on a map of `size_hw` = (H, W); tiles of `tile_hw` =
+    (TH, TW) cells, T = ceil(H/TH) x ceil(W/TW) of them per image, numbered
+    row-major. A sample's window starts at (clamp(floor(y), 0, H-2),
+    clamp(floor(x), 0, W-2)), as in `_tent_axis` (a NaN coordinate starts at
+    0, +-inf at the ends). A sample whose four weights are all zero (wholly
+    outside the map, or NaN) goes in no tile: key T of its image.
+
+    Returns (order int32 `[B*P]`: flat sample indices sorted stably by (image,
+    key), so image b's samples fill order[b*P : (b+1)*P] with those of no
+    tile last; offsets int32 `[B*(T+1) + 1]`: the samples of key k of image b
+    are order[offsets[b*(T+1) + k] : offsets[b*(T+1) + k + 1]]). Torch ops
+    only, with no host sync."""
+    b, p = ys.shape
+    h, w = size_hw
+    th, tw = tile_hw
+    tiles_x = -(-w // tw)
+    tiles = -(-h // th) * tiles_x
+
+    def start_and_live(coord, size):
+        last = float(max(size - 2, 0))
+        f = torch.floor(coord)
+        # written as comparisons so that NaN starts at 0 and +-inf at the ends
+        start = torch.where(f >= last, last, torch.where(f > 0, f, 0.0))
+        # a window cell weighs relu(1 - |coord - cell|), zero past the last cell
+        live = (coord - start).abs() < 1
+        if size >= 2:
+            live |= (coord - (start + 1)).abs() < 1
+        return start.long(), live
+
+    sy, live_y = start_and_live(ys.float(), h)
+    sx, live_x = start_and_live(xs.float(), w)
+    image = torch.arange(b, device=ys.device)[:, None]
+    key = torch.where(live_y & live_x, (sy // th) * tiles_x + sx // tw, tiles)
+    key = (image * (tiles + 1) + key).reshape(-1).to(torch.int32)
+    sorted_keys, order = torch.sort(key, stable=True)
+    bins = torch.arange(b * (tiles + 1) + 1, device=ys.device, dtype=torch.int32)
+    offsets = torch.searchsorted(sorted_keys, bins, out_int32=True)
+    return order.to(torch.int32), offsets
+
+
 def deform_conv2d(
     x: torch.Tensor,
     weight: torch.Tensor,

@@ -12,20 +12,25 @@ outside the map.
 For each geometry it holds the forward and the backward kernel against the
 plain version (`deform_sample_plain` and autograd of it) and prints their
 median CUDA-event times beside the plain version's, the bound (the least time
-the card could take, `sampler_bounds`) and, for the forward, the time of one
+the card could take, `sampler_bounds`) and the time of one
 `F.grid_sample(mode='bilinear', padding_mode='zeros', align_corners=True)`
-call on the same inputs: the PyTorch call that computes the same function,
-timed as a yardstick and used nowhere in the port. Every line that holds a
+call on the same inputs (for the backward, that call's backward to the map
+and the grid): the PyTorch call that computes the same function, timed as a
+yardstick and used nowhere in the port. Every line that holds a
 number ends with the card's name and power limit.
 
 Tolerances. Forward f32 atol 1e-5 at unit-scale maps (kernel and plain version
 weigh the same cells with the same weights; the kernel fuses each
 multiply-add), bf16 rtol 1.6e-2 / atol 1e-2 (one bf16 rounding of an f32
-sum). Backward f32 rtol 1e-4 / atol 1e-4 for the map (atomics sum in an order
-that changes from run to run) and rtol 1e-4 / atol 1e-3 for the coordinates
-(sums of up to 1024 products of unit-scale values in another order); bf16 map
-gradients as the forward, coordinate gradients as in f32 (both sides take
-them in f32 from the same bf16 values).
+sum). Backward f32 rtol 1e-4 / atol 1e-4 for the map (the kernel sums each
+cell's terms in another order than the plain version) and rtol 1e-4 / atol
+1e-3 for the coordinates (sums of up to 1024 products of unit-scale values in
+another order); bf16 map gradients as the forward, coordinate gradients as in
+f32 (both sides take them in f32 from the same bf16 values). Two backward runs
+on the same inputs must give the same bits. For the backward, the library call
+is one `F.grid_sample` backward to both the map and the grid, and the binning
+of the samples by tile (the binning kernels, inside the backward's time) is
+printed on a line of its own.
 """
 
 import argparse
@@ -93,22 +98,36 @@ def bound_of(nbytes, flops):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def grid_sample_call(feat, ys, xs):
+def grid_sample_call(feat, ys, xs, g=None):
     """The one PyTorch call for the same function, and its inputs prepared:
     the map as an NCHW view and the coordinates as a normalised grid.
     Returns (call, to_samples): call() runs F.grid_sample alone, to_samples
-    turns its output into `[B, P, C]`."""
+    turns its output into `[B, P, C]`. With `g` `[B, P, C]`, call() runs
+    instead the backward of that call to both the map and the grid
+    (`torch.autograd.grad`, the forward made once beforehand)."""
     b, h, w, c = feat.shape
     nchw = feat.permute(0, 3, 1, 2)
     gx = xs / max(w - 1, 1) * 2.0 - 1.0
     gy = ys / max(h - 1, 1) * 2.0 - 1.0
     grid = torch.stack([gx, gy], dim=-1)[:, :, None, :].to(feat.dtype)   # [B, P, 1, 2]
 
-    def call():
-        return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=True)
+    def to_samples(out):
+        return out[..., 0].permute(0, 2, 1)
 
-    return call, lambda out: out[..., 0].permute(0, 2, 1)
+    if g is None:
+        def call():
+            return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
+        return call, to_samples
+    nchw, grid = nchw.detach().requires_grad_(), grid.detach().requires_grad_()
+    out = F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    grad_out = g.permute(0, 2, 1)[..., None].to(out.dtype)
+
+    def backward_call():
+        return torch.autograd.grad(out, (nchw, grid), grad_out, retain_graph=True)
+
+    return backward_call, to_samples
 
 
 def beyond(got, want, rtol, atol):
@@ -176,9 +195,10 @@ def plain_backward(feat, ys, xs, g):
 
 
 def check_backward(name, feat, ys, xs, g, card, reps=20, timed=True):
-    """The backward kernel against autograd of the plain version, in the map's
+    """The backward kernels against autograd of the plain version, in the map's
     dtype: the map's gradient, the coordinates' gradients, two runs on the
-    same inputs, with times and bound (only the error unless `timed`). Raises
+    same inputs bit-equal, with times, the binning's time, the bound and one
+    `F.grid_sample` backward's time (only the error unless `timed`). Raises
     on a disagreement."""
     from cpm_tpu_torch.ops.cuda.deform_sample import KERNEL
 
@@ -203,26 +223,40 @@ def check_backward(name, feat, ys, xs, g, card, reps=20, timed=True):
     if not got[1].any() or not got[2].any():
         raise AssertionError(f"{name}: the coordinates got no gradient")
     again = KERNEL.backward(feat, ys, xs, g)
-    rerun = (got[0].float() - again[0].float()).abs().max().item()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two backward runs on the same inputs differ")
     # the flags: a map or coordinates that need no gradient get none
     only_map = KERNEL.backward(feat, ys, xs, g, need_coords=False)
     only_coords = KERNEL.backward(feat, ys, xs, g, need_map=False)
     if only_map[1] is not None or only_coords[0] is not None or not torch.equal(
-            only_coords[1], got[1]):
+            only_coords[1], got[1]) or not torch.equal(only_map[0], got[0]):
         raise AssertionError(f"{name}: the need_map / need_coords flags are not honoured")
     del got, want, want_map, again, only_map, only_coords
     if not timed:
-        return dict(err=max(errs), rerun=rerun)
+        return dict(err=max(errs))
+    library_note = ""
+    try:
+        call, _ = grid_sample_call(feat, ys, xs, g)
+        call()
+    except RuntimeError:
+        # the yardstick only: where the library has no kernel for this dtype
+        call, _ = grid_sample_call(feat.float(), ys, xs, g.float())
+        library_note = " on float32 copies"
     ms = cuda_ms(lambda: KERNEL.backward(feat, ys, xs, g), reps)
+    binning_ms = cuda_ms(lambda: KERNEL.bin_samples(feat, ys, xs), reps)
     plain_ms = cuda_ms(lambda: plain_backward(feat, ys, xs, g), 3)
+    library_ms = cuda_ms(call, 5)
+    del call
     _, (bound_ms, bound_by) = sampler_bounds(feat, ys, xs)
     print(f"[bwd kernel] deform_sample {name} {str(feat.dtype)[6:]}: N={ys.numel()} map gradient "
           f"max|err|={errs[0]:.3g} ({map_tol}), gys {errs[1]:.3g} gxs {errs[2]:.3g} ({coord_tol}), "
-          f"two-runs max|diff|={rerun:.3g}, kernel {ms:.4f} ms (fill and cast of the f32 "
-          f"accumulator included), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
-          f"| {card}")
+          f"two runs bit-equal, kernel {ms:.4f} ms (binning included), plain {plain_ms:.4f} ms, "
+          f"F.grid_sample backward to map and grid{library_note} {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}) | {card}")
+    print(f"[binning] deform_sample {name} {str(feat.dtype)[6:]}: the binning kernels "
+          f"{binning_ms:.4f} ms of the kernel's {ms:.4f} ms | {card}")
     return dict(err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, rerun=rerun)
+                library_ms=library_ms, binning_ms=binning_ms)
 
 
 def run_geometries(dtypes, dev, card, reps=20):

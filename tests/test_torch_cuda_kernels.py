@@ -10,8 +10,10 @@ only PyTorch, nvcc and a card:
 Tolerances: forward f32 atol 1e-5 (TF32 off; kernel and plain version read
 the same cells with the same weights and differ in the order of a few sums),
 bf16 rtol 1.6e-2 / atol 1e-2 (one bf16 rounding of an f32 sum); backward f32
-rtol 1e-4 / atol 1e-4 (atomics sum in an order that changes from run to run),
-bf16 as the forward.
+rtol 1e-4 / atol 1e-4 (each cell's terms summed in another order: by the
+stacked kernel's atomics in one that changes from run to run, by the
+tile-owned multilevel and sampler backwards in one fixed order, so that two
+of their runs are bit-equal), bf16 as the forward.
 
 torch and the port are imported inside the tests, so that collecting this
 file loads no torch into a test worker.
@@ -343,3 +345,147 @@ def test_cuda_crossroi_kernel_matches_plain(group, pool, dtype_name):
         torch.testing.assert_close(got.float(), want.to(dtype).float(), rtol=1.6e-2, atol=1e-2)
     with pytest.raises(ValueError):
         op.crossroi_roi_align(feat, r[:63], 2, pool, 0.25, 2)   # 63 rois do not fill groups of 2
+
+
+def _colliding_rois(n, rng):
+    """[n, 5] rois on image 0 that are jittered copies of one small box: their
+    samples share a few cells of one level."""
+    rois = np.tile(np.array([[0, 100.0, 60.0, 112.0, 70.0]], np.float32), (n, 1))
+    rois[:, 1:] += rng.uniform(-1.5, 1.5, (n, 4)).astype(np.float32)
+    return rois
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", [256, 1024])
+def test_cuda_multilevel_backward_is_exact_and_deterministic(channels, dtype_name):
+    """The tile-owned backward against autograd of the plain forward, and two
+    runs bit-equal, on rois larger than a tile (whole image), rois spanning
+    tile and level borders, 512 rois colliding on a few cells, and masked,
+    degenerate and outside rois. The reference is the plain backward in
+    float64: each of the colliding cells sums some 25,000 terms, which a
+    float32 reference would round as much as the kernel does; their `g` is
+    scaled by 2^-3 (exact) so that those sums stay of unit scale."""
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import multilevel_roi_align as op
+    from cpm_tpu_torch.ops.pooler import assign_fpn_levels
+
+    dtype, _, rois, _, valid = _inputs(dtype_name, seed=13, channels=16)
+    rng = np.random.RandomState(14)
+    extra = np.array([
+        [0, 0, 0, 319, 223],          # the whole image: every tile of its level
+        [1, 60, 28, 132, 36],         # across tile borders (x 64, 128 / 4 = 16, 32 cells)
+        [0, 30, 30, 30, 30],          # zero area
+        [1, 200, 150, 180, 120],      # degenerate: x2 < x1, y2 < y1
+        [0, 400, 300, 480, 400],      # outside the image
+        [1, -90, -60, -20, -10],      # outside, negative
+    ], np.float32)
+    rows = np.concatenate([rois.cpu().numpy(), extra, _colliding_rois(512, rng)])
+    mask = np.concatenate([valid.cpu().numpy(), np.ones(len(extra) + 512, bool)])
+    mask[len(rois) + 1] = False   # a masked roi across borders adds nothing
+    r = torch.from_numpy(rows).cuda()
+    v = torch.from_numpy(mask).cuda()
+    levels = assign_fpn_levels(r[:, 1:5], 2, 5) - 2
+    levels[len(rois):len(rois) + 2] = torch.tensor([0, 1], dtype=levels.dtype)
+    shapes = [(2, h, w, channels) for h, w in SHAPES]
+    g = rng.randn(len(rows), 7, 7, channels).astype(np.float32)
+    g[-512:] *= 0.125
+    g = torch.from_numpy(g).cuda().to(dtype)
+    before = op.KERNEL.backward_launches
+    got = op.KERNEL.backward(shapes, r, levels.int(), v, g, SCALES, 2)
+    again = op.KERNEL.backward(shapes, r, levels.int(), v, g, SCALES, 2)
+    assert op.KERNEL.backward_launches == before + 2
+    want = op.plain_multilevel_roi_align_backward(shapes, r, levels.int(), v, g.double(), SCALES, 2)
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dtype and tuple(a.shape) == tuple(w.shape)
+        assert torch.equal(a, b)
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w.float(), **BWD_TOL)
+        else:
+            torch.testing.assert_close(a.float(), w.to(dtype).float(), rtol=1.6e-2, atol=1e-2)
+    assert got[0].abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 19, 37, 256), (1, 11, 21, 512), (1, 9, 18, 1024)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_deform_sample_backward_tiles_are_exact_and_deterministic(shape, dtype_name):
+    """The tile-owned map gradient and the coordinate gradients against
+    autograd of the plain version, two runs bit-equal: samples straddling the
+    8x16 tiles' borders, beyond the map (at +-1e6 too), and 3000 samples on a
+    few cells, so that one tile's list takes several rounds of staging."""
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import deform_sample as op
+    from cpm_tpu_torch.ops.deform_conv import window_tiles
+    from cpm_tpu_torch.tools.probe_dcn_sampler import plain_backward
+
+    dtype, feat, ys, xs, _ = _sampler_inputs(dtype_name, shape, seed=8)
+    b, h, w, c = shape
+    rng = np.random.RandomState(9)
+    crowd_y = rng.uniform(6.5, 8.5, (b, 3000)).astype(np.float32)
+    crowd_x = rng.uniform(14.5, 16.5, (b, 3000)).astype(np.float32)
+    border = np.array([[7.5, 15.5], [7.0, 16.0], [8.0, 15.0], [1e6, 3.0], [2.0, -1e6],
+                       [h - 1.0, w - 1.0], [h - 0.5, 2.0], [-0.75, w - 0.25]], np.float32)
+    y = torch.cat([ys, torch.from_numpy(crowd_y).cuda()], 1)
+    x = torch.cat([xs, torch.from_numpy(crowd_x).cuda()], 1)
+    y[:, 8:16], x[:, 8:16] = torch.from_numpy(border[:, 0]).cuda(), torch.from_numpy(border[:, 1]).cuda()
+    y, x = y.contiguous(), x.contiguous()
+    g = torch.from_numpy(rng.randn(b, y.shape[1], c).astype(np.float32)).cuda().to(dtype)
+    before = op.KERNEL.backward_launches
+    got = op.KERNEL.backward(feat, y, x, g)
+    again = op.KERNEL.backward(feat, y, x, g)
+    assert op.KERNEL.backward_launches == before + 2
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+    want = plain_backward(feat.float(), y, x, g.float())
+    assert got[0].dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[0], want[0], **BWD_TOL)
+    else:
+        torch.testing.assert_close(got[0].float(), want[0].to(dtype).float(), rtol=1.6e-2, atol=1e-2)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-3)
+    assert not got[1][:, 11:13].any() and not got[2][:, 11:13].any()   # at +-1e6
+    only_map = op.KERNEL.backward(feat, y, x, g, need_coords=False)
+    assert only_map[1] is None and torch.equal(only_map[0], got[0])
+    # the binning kernels give what their plain version gives, to the bit
+    order, offsets, *_ = op.KERNEL.bin_samples(feat, y, x)
+    want_order, want_offsets = window_tiles(y, x, (h, w), op.KERNEL.tile)
+    assert torch.equal(order, want_order) and torch.equal(offsets, want_offsets)
+
+
+@pytest.mark.cuda
+def test_cuda_deform_sample_backward_at_batch_4_on_the_res3_stride_2_map():
+    """The first deformable block of res3 samples the 200x336 map of an
+    800x1344 image at stride 2: 4200 tiles and 151,200 samples an image. At a
+    batch of 4 the backward holds against autograd of the plain version,
+    reruns bit-equal, and its binning gives what `window_tiles` gives."""
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import deform_sample as op
+    from cpm_tpu_torch.ops.deform_conv import sampling_grid, window_tiles
+    from cpm_tpu_torch.tools.probe_dcn_sampler import plain_backward
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    b, h, w, c = 4, 200, 336, 256
+    gen = torch.Generator().manual_seed(10)
+    feat = torch.randn(b, h, w, c, generator=gen).cuda().to(torch.bfloat16)
+    offset = (torch.rand(b, h // 2, w // 2, 18, generator=gen) * 4 - 2).cuda()
+    ys, xs = (t.contiguous() for t in sampling_grid(offset, (3, 3), 2, 1, 1))
+    g = torch.randn(b, ys.shape[1], c, generator=gen).cuda().to(torch.bfloat16)
+    got = op.KERNEL.backward(feat, ys, xs, g)
+    again = op.KERNEL.backward(feat, ys, xs, g)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+    order, offsets, *_ = op.KERNEL.bin_samples(feat, ys, xs)
+    want_order, want_offsets = window_tiles(ys, xs, (h, w), op.KERNEL.tile)
+    assert torch.equal(order, want_order) and torch.equal(offsets, want_offsets)
+    want = plain_backward(feat.float(), ys, xs, g.float())
+    torch.testing.assert_close(got[0].float(), want[0].to(torch.bfloat16).float(),
+                               rtol=1.6e-2, atol=1e-2)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-3)
