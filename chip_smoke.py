@@ -23,10 +23,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    plain versions (autograd of the plain forwards) at the training shapes
    (R=1024 at 7x7, R=256 at 14x14, ~30% masked, and a case where 512 rois
    share a few cells, so that many sums meet in one cell): f32, bf16, masked
-   rois add nothing, two runs on the same inputs (bit-equal for the
-   multilevel backward, whose blocks own tiles of the gradient maps; the
-   stacked one sums through atomics and its difference is printed); the
-   stacked backward also against the multilevel one.
+   rois add nothing, two runs on the same inputs bit-equal (both backwards'
+   blocks own tiles of the gradient maps and sum in one fixed order); the
+   stacked backward also against the multilevel one, bit-equal (they share
+   one tile loop).
 3. eval paths: the flagship CPM R-50-FPN config (81 classes, 3 CMM stages,
    ISM, RSM) with seeded random weights, bf16, uint8 images normalized on
    the device, under TPU.POOLER_KERNEL auto, then stacked, then clustered:
@@ -53,8 +53,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    clustered the losses are held against the auto path's. Then the
    backward-kernel check of phase 2b on the gradients, rois and level shapes
    of the five pooler sites of one more step (auto and stacked; clustered
-   trains through the multilevel backward kernel), two runs bit-equal under
-   auto.
+   trains through the multilevel backward kernel), two runs bit-equal, and
+   under stacked bit-equal to the multilevel backward.
 6. training reference: two steps of the port on the card against two on the
    CPU at a narrow width in f32, the same seed, batch and draws.
 7. single-level path: no model of the port has a one-level pooler yet, so a
@@ -418,13 +418,13 @@ def check_backward_kernel(name, shapes, rois, levels, valid, g, card, rescale=Fa
     """One backward kernel ('multilevel' or 'stacked') vs its plain version
     (autograd of its plain forward) on the same inputs: f32 (TF32 plays no
     part: neither side multiplies matrices), bf16, masked rois, two runs;
-    the stacked kernel also vs the multilevel one. Returns a dict of the f32
-    max error and the bf16 times and bound.
+    the stacked kernel also vs the multilevel one, to the bit (one tile
+    loop, csrc/roi_align_tiles.cuh). Returns a dict of the f32 max error and
+    the bf16 times and bound.
 
     Tolerances. f32: rtol 1e-4 / atol 1e-4, the JAX package's own for its
     backward kernels; both sides sum each cell's terms in f32 in another
-    order (the stacked kernel's atomics in an order that changes from run to
-    run; the multilevel kernel's in one fixed order).
+    order (the kernels in one fixed order, so two runs are bit-equal).
     bf16: the kernel sums in f32 and rounds once, the plain version is the
     f32 gradient of the same bf16 `g` rounded to bf16, so they differ by at
     most one bf16 rounding: rtol 1.6e-2 / atol 1e-2.
@@ -463,24 +463,24 @@ def check_backward_kernel(name, shapes, rois, levels, valid, g, card, rescale=Fa
         return out
 
     err32 = worst(got, want, "plain")
-    vs_multilevel = worst(got, m["multilevel"].KERNEL.backward(
-        shapes, rois, levels, valid, g32, SCALES, 2), "the multilevel kernel")
     # masked rois add nothing: the same gradient with them removed
     kept = kernel(shapes, rois[valid].contiguous(), levels[valid].contiguous(),
                   torch.ones_like(valid[valid]), g32[valid].contiguous(), SCALES, 2)
     err_masked = worst(got, kept, "the call without the masked rois")
     again = kernel(shapes, rois, levels, valid, g32, SCALES, 2)
-    if impl == "multilevel":
-        # the tile-owned backward sums every cell in one fixed order
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"{name}: two backward runs on the same inputs differ")
-        rerun = "two runs bit-equal"
-    else:
-        rerun = f"two-runs max|diff|={max((a - b).abs().max().item() for a, b in zip(got, again)):.3g}"
+    # the tile-owned backwards sum every cell in one fixed order
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two backward runs on the same inputs differ")
 
     g16 = g.to(torch.bfloat16).contiguous()
     got16 = kernel(shapes, rois, levels, valid, g16, SCALES, 2)
     want16 = plain(shapes, rois, levels, valid, g16.float(), SCALES, 2)
+    if impl == "stacked":
+        # one tile loop: the multilevel kernel's bits
+        for dt, ours, gg in (("f32", got, g32), ("bf16", got16, g16)):
+            theirs = m["multilevel"].KERNEL.backward(shapes, rois, levels, valid, gg, SCALES, 2)
+            if not all(torch.equal(a, b) for a, b in zip(ours, theirs)):
+                raise AssertionError(f"{name}: {dt} backward differs from the multilevel kernel's")
     torch.cuda.synchronize()
     err16 = 0.0
     for a, b in zip(got16, want16):
@@ -499,8 +499,8 @@ def check_backward_kernel(name, shapes, rois, levels, valid, g, card, rescale=Fa
     print(
         f"[bwd kernel] {name}: R={rois.shape[0]} pool={pool} valid={int(valid.sum())} "
         f"f32 max|err|={err32:.3g} (rtol {BWD_F32_RTOL}, atol {BWD_F32_ATOL}) "
-        f"vs multilevel kernel {vs_multilevel:.3g} "
-        f"masked-removed max|diff|={err_masked:.3g} {rerun} "
+        f"{'bit-equal to the multilevel kernel (f32, bf16), ' if impl == 'stacked' else ''}"
+        f"masked-removed max|diff|={err_masked:.3g}, two runs bit-equal, "
         f"bf16 max|err|={err16:.3g} (rtol {BF16_RTOL}, atol {BF16_ATOL}) "
         f"bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}) | {card}"
@@ -982,9 +982,9 @@ def phase_train(dev, card, backend, reference, config="flagship"):
 
     # the warm-up step starts from the same weights, batch and draws under
     # every backend and the forward kernels sum in the same order, so each of
-    # its losses agrees to 1e-4; from then on the parameters differ by the
-    # stacked backward's atomics and cuDNN's sums, whose order changes, which
-    # bf16 training amplifies, and the total loss is held to 0.1 relative
+    # its losses agrees to 1e-4; from then on the parameters differ by
+    # cuDNN's sums, whose order changes, which bf16 training amplifies, and
+    # the total loss is held to 0.1 relative
     state, metrics = step_fn(state, batch_for(100))
     torch.cuda.synchronize()
     note = held_against_auto(0, losses_of(metrics), 1e-4)
@@ -1174,6 +1174,8 @@ def sampler_forward_sites(tag, run_forward, card):
     moved = [float(((ys - ys.round()).abs() > 1e-3).float().mean()) for _, ys, _ in captured]
     if min(moved) < 0.5:
         raise AssertionError(f"{tag} a sampler call has most samples on whole cells: {moved}")
+    if any(ys.dim() != 3 or ys.shape[2] % 9 for _, ys, _ in captured):
+        raise AssertionError(f"{tag} a sampler call came without its rows of output positions")
     results = []
     for i, (feat, ys, xs) in enumerate(captured):
         feat, exp = unit_scale(feat)
@@ -1260,7 +1262,7 @@ def wide_batch_step(tag, step_fn, state, cfg, want_launches, card, batch=4):
     err = check_backward(name, feat.contiguous(), ys, xs, g.contiguous(), card, timed=False)["err"]
     print(f"{tag} batch {batch}: one step {seconds * 1e3:.1f} ms (the first at this batch: cuDNN "
           f"plans its shapes), total_loss {total:.4f}, launches {launched}; the sampler backward "
-          f"at its largest site, {name}, {ys.shape[1]} samples an image, against autograd of the "
+          f"at its largest site, {name}, {ys[0].numel()} samples an image, against autograd of the "
           f"plain version (max |err| {err:.3g}), two runs bit-equal | {card}")
 
 

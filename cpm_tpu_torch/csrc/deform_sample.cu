@@ -13,15 +13,22 @@
 // zero and one on the border a partial sum, and a map of one row or one
 // column gives what the JAX package's four-corner form gives there.
 //
-// Forward: one warp per sample, lanes along C with 16-byte read-only loads
-// (a warp covers 256 bf16 or 128 f32 channels per pass), the up to four
-// cells read straight from the NHWC map, f32 accumulation in explicitly
+// Forward: what bounds it on the H100 is bytes, the column [B, P, C] written
+// once (nine times the map at stride 1) and the weighed cells read. The
+// kernel this replaced took one warp a sample, lanes along C. The forward
+// now takes one of two forms by the width of a cell (launch_fwd): for cells
+// of at most 512 bytes (res3's C = 256 in bf16) one block owns a tile of
+// output rows x positions x taps and one chunk of channels, and its samples,
+// whose windows overlap, read their cells close together; for wider cells
+// each warp takes two consecutive samples and loops over C with both
+// samples' cell loads in flight. Both accumulate in f32 in explicitly
 // rounded steps (cell_weight, __fmaf_rn: the plain PyTorch version,
 // cpm_tpu_torch/ops/deform_conv.py::deform_sample_plain, rounds at the same
-// places but for the fused multiply-add), one 16-byte store per lane. Cells
-// of zero weight are not read. The TPU kernel's 2-row x 16-column window,
-// its 8-aligned origin and the W padding serve that chip's DMA alignment
-// and have no counterpart.
+// places but for the fused multiply-add) in the same cell order, and store
+// 16 bytes a lane: both forms, and the kernel they replaced, give the same
+// bits. Cells of zero weight are not read. The TPU kernel's 2-row x
+// 16-column window, its 8-aligned origin and the W padding serve that
+// chip's DMA alignment and have no counterpart.
 //
 // Backward, the map's gradient: a gather owned by tiles of the map, not a
 // scatter. What bounds it on the H100 is bytes: g is K*K times the map and
@@ -99,38 +106,249 @@ __device__ __forceinline__ Axis tent_axis(float coord, int size) {
   return a;
 }
 
+// ---------------------------------------------------------------------------
+// Forward, by tiles of samples. The samples of an image are taken as rows of
+// `row_len` (the caller's output rows: Wo x taps samples, ordered (wo, k); a
+// flat list of samples as rows of kRowSamples), and one block owns kRows
+// rows x kRowSamples samples of them, which at stride 1 weigh overlapping
+// windows of the map, and one chunk of kVecs 16-byte vectors of every cell's
+// channels (grid y). The block first loads its samples' coordinates once and
+// keeps each one's window start and tent weights in shared memory; the warps
+// then gather each sample's cells through the read-only cache, 32 / kVecs
+// samples a warp at a time, each lane one 16-byte vector, so that the
+// samples of a tile that share a cell read it close together in time.
+
+struct FwdShape {
+  int height;
+  int width;
+  int channels;
+  int row_len;      // samples in one row of the tiling
+  long long per_image;
+  long long tiles;  // tiles per image
+  int tiles_x;      // tiles along a row
+};
+
+// acc += w * (a 16-byte vector of T, loaded as raw bits)
 template <typename T>
+__device__ __forceinline__ void accumulate16(const uint4& raw, float w,
+                                             float* acc);
+template <>
+__device__ __forceinline__ void accumulate16<float>(const uint4& raw, float w,
+                                                    float* acc) {
+  accumulate_raw(make_float4(__uint_as_float(raw.x), __uint_as_float(raw.y),
+                             __uint_as_float(raw.z), __uint_as_float(raw.w)),
+                 w, acc);
+}
+template <>
+__device__ __forceinline__ void accumulate16<__nv_bfloat16>(const uint4& raw,
+                                                            float w,
+                                                            float* acc) {
+  accumulate_raw(raw, w, acc);
+}
+
+template <typename T, int kRows, int kRowSamples, int kVecs>
 __global__ void __launch_bounds__(kThreads)
-    deform_sample_fwd_kernel(const T* __restrict__ feat, int height, int width,
-                             int channels, const float* __restrict__ ys,
-                             const float* __restrict__ xs, long long samples,
-                             long long per_image, T* __restrict__ out) {
+    deform_sample_tiles_kernel(const T* __restrict__ feat, FwdShape sh,
+                               const float* __restrict__ ys,
+                               const float* __restrict__ xs,
+                               T* __restrict__ out) {
   constexpr int kN = VecWidth<T>::kN;
+  constexpr int kSamples = kRows * kRowSamples;
+  constexpr int kGroups = 32 / kVecs;  // samples a warp takes at once
+  // each sample's window start (-1: it weighs nothing, -2: no sample) and
+  // its tent weights wy0, wy1, wx0, wx1
+  __shared__ int st_y[kSamples];
+  __shared__ int st_x[kSamples];
+  __shared__ float4 st_w[kSamples];
+
+  const long long image = blockIdx.x / sh.tiles;
+  const long long tile = blockIdx.x - image * sh.tiles;
+  const long long row0 = tile / sh.tiles_x * kRows;
+  const int col0 = static_cast<int>(tile % sh.tiles_x) * kRowSamples;
+  const T* map = feat + static_cast<size_t>(image) * sh.height * sh.width *
+                            sh.channels;
+  for (int i = threadIdx.x; i < kSamples; i += kThreads) {
+    const int r = i / kRowSamples;
+    const int k = i - r * kRowSamples;
+    const long long pos = (row0 + r) * sh.row_len + col0 + k;
+    int y0 = -2, x0 = 0;
+    float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (col0 + k < sh.row_len && pos < sh.per_image) {
+      const long long s = image * sh.per_image + pos;
+      const Axis ay = tent_axis(ys[s], sh.height);
+      const Axis ax = tent_axis(xs[s], sh.width);
+      w = make_float4(ay.w[0], ay.w[1], ax.w[0], ax.w[1]);
+      // a non-finite coordinate weighs nothing (tent_axis)
+      const bool weighs = (w.x > 0.0f || w.y > 0.0f) && (w.z > 0.0f || w.w > 0.0f);
+      y0 = weighs ? ay.cell[0] : -1;
+      x0 = ax.cell[0];
+    }
+    st_y[i] = y0;
+    st_x[i] = x0;
+    st_w[i] = w;
+  }
+  __syncthreads();
+
   const int lane = threadIdx.x & 31;
-  const long long s =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (s >= samples) return;
-  const long long image = s / per_image;
-  const Axis ay = tent_axis(ys[s], height);
-  const Axis ax = tent_axis(xs[s], width);
-  const T* map = feat + image * height * width * channels;
-  T* dst = out + s * channels;
-  for (int c0 = lane * kN; c0 < channels; c0 += 32 * kN) {
-    float acc[kN] = {};
+  const int group = lane / kVecs;
+  const int part = lane - group * kVecs;
+  const int vec = blockIdx.y * kVecs + part;
+  if (vec >= sh.channels / kN) return;  // past the last sync
+  for (int i = (threadIdx.x >> 5) * kGroups + group; i < kSamples;
+       i += kWarpsPerBlock * kGroups) {
+    const int y0 = st_y[i];
+    if (y0 == -2) continue;
+    // every weighed cell's load issued before the sums
+    uint4 raw[4];
+    float cw[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (y0 >= 0) {
+      const int x0 = st_x[i];
+      const float4 w = st_w[i];
+      const float wy[2] = {w.x, w.y};
+      const float wx[2] = {w.z, w.w};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+      for (int a = 0; a < 2; ++a) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float w = cell_weight(ay.w[i], ax.w[j]);
-        if (w != 0.0f) {
-          accumulate(map + (static_cast<size_t>(ay.cell[i]) * width +
-                            ax.cell[j]) * channels + c0,
-                     w, acc);
+        for (int b = 0; b < 2; ++b) {
+          const int c = 2 * a + b;
+          cw[c] = cell_weight(wy[a], wx[b]);
+          if (cw[c] == 0.0f) continue;
+          raw[c] = __ldg(reinterpret_cast<const uint4*>(
+              map + (static_cast<size_t>(y0 + a) * sh.width + x0 + b) *
+                        sh.channels +
+              static_cast<size_t>(vec) * kN));
         }
       }
     }
-    store(dst + c0, acc);
+    float acc[kN] = {};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (cw[c] != 0.0f) accumulate16<T>(raw[c], cw[c], acc);
+    }
+    const int r = i / kRowSamples;
+    const int k = i - r * kRowSamples;
+    const long long s = image * sh.per_image + (row0 + r) * sh.row_len + col0 + k;
+    store(out + static_cast<size_t>(s) * sh.channels +
+              static_cast<size_t>(vec) * kN,
+          acc);
   }
+}
+
+template <typename T, int kRows, int kRowSamples, int kVecs>
+cudaError_t launch_fwd_tiles(const T* feat, int batch, int height, int width,
+                             int channels, const float* ys, const float* xs,
+                             long long per_image, int row_len, T* out,
+                             cudaStream_t stream) {
+  FwdShape sh;
+  sh.height = height;
+  sh.width = width;
+  sh.channels = channels;
+  sh.per_image = per_image;
+  sh.row_len = row_len > 0 ? row_len : kRowSamples;
+  const long long rows = (per_image + sh.row_len - 1) / sh.row_len;
+  sh.tiles_x = (sh.row_len + kRowSamples - 1) / kRowSamples;
+  sh.tiles = (rows + kRows - 1) / kRows * sh.tiles_x;
+  const long long blocks = sh.tiles * batch;
+  const int chunks = (channels / VecWidth<T>::kN + kVecs - 1) / kVecs;
+  if (blocks >= (1LL << 31) || chunks > 65535) return cudaErrorInvalidValue;
+  deform_sample_tiles_kernel<T, kRows, kRowSamples, kVecs>
+      <<<dim3(static_cast<unsigned>(blocks), chunks), kThreads, 0, stream>>>(
+          feat, sh, ys, xs, out);
+  return cudaGetLastError();
+}
+
+// The flat form: no tiles and no shared memory. Each warp takes kFlatPer
+// consecutive samples and all their channels, 16 bytes a lane and pass: its
+// lanes load the samples' coordinates at once, and each pass issues the
+// cells' loads of all its samples before their sums.
+constexpr int kFlatPer = 2;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    deform_sample_flat_kernel(const T* __restrict__ feat, int height,
+                              int width, int channels,
+                              const float* __restrict__ ys,
+                              const float* __restrict__ xs, long long samples,
+                              long long per_image, T* __restrict__ out) {
+  constexpr int kN = VecWidth<T>::kN;
+  const int lane = threadIdx.x & 31;
+  const long long s0 =
+      (static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5)) *
+      kFlatPer;
+  if (s0 >= samples) return;
+  float cy = 0.0f, cx = 0.0f;
+  if (lane < kFlatPer && s0 + lane < samples) {
+    cy = ys[s0 + lane];
+    cx = xs[s0 + lane];
+  }
+  int row[kFlatPer], col[kFlatPer];
+  float cw[kFlatPer][4];
+  const T* map[kFlatPer];
+#pragma unroll
+  for (int u = 0; u < kFlatPer; ++u) {
+    const Axis ay = tent_axis(__shfl_sync(0xffffffffu, cy, u), height);
+    const Axis ax = tent_axis(__shfl_sync(0xffffffffu, cx, u), width);
+    row[u] = ay.cell[0];
+    col[u] = ax.cell[0];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b) cw[u][2 * a + b] = cell_weight(ay.w[a], ax.w[b]);
+    }
+    map[u] = feat + static_cast<size_t>(min(s0 + u, samples - 1) / per_image) *
+                        height * width * channels;
+  }
+  for (int c0 = lane * kN; c0 < channels; c0 += 32 * kN) {
+    uint4 raw[kFlatPer][4];
+#pragma unroll
+    for (int u = 0; u < kFlatPer; ++u) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (cw[u][c] == 0.0f) continue;
+        raw[u][c] = __ldg(reinterpret_cast<const uint4*>(
+            map[u] +
+            (static_cast<size_t>(row[u] + c / 2) * width + col[u] + c % 2) *
+                channels +
+            c0));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kFlatPer; ++u) {
+      if (s0 + u >= samples) break;
+      float acc[kN] = {};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (cw[u][c] != 0.0f) accumulate16<T>(raw[u][c], cw[u][c], acc);
+      }
+      store(out + static_cast<size_t>(s0 + u) * channels + c0, acc);
+    }
+  }
+}
+
+// The forward's two forms, by the width of a cell. Cells of at most 512
+// bytes (res3's C = 256 in bf16): tiles of 4 rows x 72 samples (8 output
+// positions x 9 taps) and 256-byte chunks, where the neighbouring samples of
+// a tile share cells. Wider cells (res4, res5): the flat form, which beat
+// the tiles there, whose channel-chunk blocks each pay the coordinates'
+// setup for a part of a cell (PERF.md). Both give the same bits.
+template <typename T>
+cudaError_t launch_fwd(const T* feat, int batch, int height, int width,
+                       int channels, const float* ys, const float* xs,
+                       long long per_image, int row_len, T* out,
+                       cudaStream_t stream) {
+  if (channels * sizeof(T) <= 512) {
+    return launch_fwd_tiles<T, 4, 72, 16>(feat, batch, height, width, channels,
+                                          ys, xs, per_image, row_len, out,
+                                          stream);
+  }
+  const long long samples = batch * per_image;
+  const long long per_block = static_cast<long long>(kWarpsPerBlock) * kFlatPer;
+  const long long blocks = (samples + per_block - 1) / per_block;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  deform_sample_flat_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 stream>>>(feat, height, width, channels, ys,
+                                           xs, samples, per_image, out);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -578,30 +796,34 @@ cudaError_t launch_bwd(const T* feat, int batch, int height, int width,
 // feat [batch, height, width, channels] contiguous of `dtype` (0 = float32,
 // 1 = bfloat16), ys / xs [batch, per_image] f32, out [batch, per_image,
 // channels] of `dtype`; all device memory, 16-byte aligned, channels a
-// multiple of 16 bytes' worth of elements. Returns the cudaError_t of the
-// launch.
+// multiple of 16 bytes' worth of elements. row_len: the samples of a row
+// when the caller's coordinates are [batch, rows, row_len] (a deformable
+// conv's output rows, Wo x taps), which the tiles follow; 0 for a flat list.
+// No form's result depends on it. Returns the cudaError_t of the launch.
 extern "C" int cpm_deform_sample_fwd(const void* feat, int batch, int height,
                                      int width, int channels, const void* ys,
                                      const void* xs, long long per_image,
-                                     int dtype, void* out, void* stream) {
-  if (bad_shape(batch, height, width, channels, per_image, dtype)) {
+                                     int row_len, int dtype, void* out,
+                                     void* stream) {
+  if (bad_shape(batch, height, width, channels, per_image, dtype) ||
+      row_len < 0 || (row_len > 0 && per_image % row_len != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long samples = batch * per_image;
   const float* y = static_cast<const float*>(ys);
   const float* x = static_cast<const float*>(xs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (dtype == 0) {
-    deform_sample_fwd_kernel<float><<<blocks_for(samples), kThreads, 0, s>>>(
-        static_cast<const float*>(feat), height, width, channels, y, x, samples,
-        per_image, static_cast<float*>(out));
+    err = launch_fwd<float>(static_cast<const float*>(feat), batch, height,
+                            width, channels, y, x, per_image, row_len,
+                            static_cast<float*>(out), s);
   } else {
-    deform_sample_fwd_kernel<__nv_bfloat16>
-        <<<blocks_for(samples), kThreads, 0, s>>>(
-            static_cast<const __nv_bfloat16*>(feat), height, width, channels, y,
-            x, samples, per_image, static_cast<__nv_bfloat16*>(out));
+    err = launch_fwd<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(feat), batch, height, width,
+        channels, y, x, per_image, row_len, static_cast<__nv_bfloat16*>(out),
+        s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // The binning's layout: the map tile the backward's blocks own (rows,

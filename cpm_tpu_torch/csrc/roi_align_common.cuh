@@ -1,6 +1,7 @@
 // Device functions shared by every RoIAlign kernel of the port
 // (multilevel_roi_align.cu, stacked_roi_align.cu, clustered_roi_align.cu,
-// roi_align.cu): 16-byte vector loads and stores, the roi's box on its
+// roi_align.cu, crossroi_roi_align.cu) and the deformable-conv sampler
+// (deform_sample.cu): 16-byte vector loads and stores, the roi's box on its
 // level, the sample coordinates and the bilinear cells and weights. Every
 // kernel takes them from here, so that all of them read the same cells with
 // the same weights as the plain PyTorch versions
@@ -168,18 +169,6 @@ __device__ __forceinline__ void read8(const float4* cell, int lane, float* v) {
 // The float4s of one cell of such a tile: 2 x 32.
 constexpr int kCellVecs = 64;
 
-// cell[0..kN) += w * v, four channels to one float4 atomic (sm_90).
-template <int kN>
-__device__ __forceinline__ void scatter(float* cell, float w,
-                                        const float* v) {
-#pragma unroll
-  for (int k = 0; k < kN; k += 4) {
-    atomicAdd(reinterpret_cast<float4*>(cell + k),
-              make_float4(w * v[k], w * v[k + 1], w * v[k + 2],
-                          w * v[k + 3]));
-  }
-}
-
 // Bilinear source cells and weights of one coordinate, as
 // cpm_tpu/ops/roi_align.py::_bilinear_weights_1d_sized computes them.
 // Returns false for an out-of-bounds sample.
@@ -238,6 +227,24 @@ __device__ __forceinline__ float sample_coord(float start, int index, int sr,
                                               float bin) {
   const float f = (static_cast<float>(index) + 0.5f) / static_cast<float>(sr);
   return __fadd_rn(start, __fmul_rn(f, bin));
+}
+
+// Opts `kernel` in to `bytes` of dynamic shared memory on the current
+// device unless opted[device] says it already is: the call costs the host
+// microseconds, too much to repeat at every launch. Each launch function
+// keeps its own `static int opted[kMaxDevices]`.
+constexpr int kMaxDevices = 64;
+template <typename Kernel>
+inline cudaError_t opt_in_shared(Kernel* kernel, int bytes, int* opted) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (opted[device] == bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) opted[device] = bytes;
+  return err;
 }
 
 // Threads along C (16 bytes each, at most 64 of them) by bins, and the C

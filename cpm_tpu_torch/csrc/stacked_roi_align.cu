@@ -22,20 +22,28 @@
 // rois write zeros and read nothing. The TPU kernel's 64-cell window DMA,
 // its zero tail rows and its pad to 8 columns have no counterpart.
 //
-// The backward is the transpose: per valid roi, bin and sample, g / sr^2
-// times each bilinear weight is added by float4 atomicAdd into ONE stacked
-// float32 accumulator of the buffer's shape, zero-filled by the caller, who
-// slices it back per level. Blocks run in no order and rois overlap, hence
-// the atomics; their order changes from run to run. The TPU kernel
-// accumulates in the feature dtype (its grid runs in order); this one
-// accumulates in float32 whatever the dtype of g, and the caller casts once.
+// The backward is the transpose, the gradient of the stacked buffer: the
+// tile-owned gather of roi_align_tiles.cuh, the multilevel backward's own
+// loop, over each level's valid region of ONE buffer in g's dtype
+// (StackMaps addresses a level's cells through its row offset). Its blocks
+// own tiles of each level's cells, sum in float32 in shared memory in roi
+// order and write each tile once; the padding columns are neither read nor
+// written, so the caller allocates the buffer without filling it and reads
+// the levels back as views. No float32 accumulator, fill, cast or atomic:
+// two runs give the same bits, and the same bits as the multilevel backward
+// on the same inputs (same tiles, roi order and rounding). The TPU kernel
+// accumulates in the feature dtype (its grid runs in order); this one sums in
+// float32 and rounds once. The scatter it replaces (one CTA per roi, float4
+// atomic adds into a zero-filled float32 stack that the caller then sliced
+// and cast) ran at about 21x its bound on an H100, and its sums changed from
+// run to run.
 //
 // Plain C interface, bound from Python with ctypes
 // (cpm_tpu_torch/ops/cuda/stacked_roi_align.py).
 
-#include "roi_align_common.cuh"
+#include "roi_align_tiles.cuh"
 
-namespace {
+namespace cpm_stacked {
 
 using namespace cpm;
 
@@ -45,6 +53,34 @@ struct StackTable {
   int width[kMaxLevels];
   float scale[kMaxLevels];
 };
+
+// The levels of one stacked buffer [batch, total_rows, row_width, channels]
+// as the tile-owned backward reaches them.
+struct StackMaps {
+  StackTable table;
+  void* base;
+  int total_rows;
+  int row_width;
+
+  __host__ __device__ int height(int l) const { return table.height[l]; }
+  __host__ __device__ int width(int l) const { return table.width[l]; }
+  __device__ float scale(int l) const { return table.scale[l]; }
+  // cell (y, 0) of level l in `image`
+  template <typename T>
+  __device__ T* row(int l, int image, int y, int channels) const {
+    return static_cast<T*>(base) +
+           (static_cast<size_t>(image) * total_rows + table.row_offset[l] + y) *
+               row_width * channels;
+  }
+};
+
+}  // namespace cpm_stacked
+
+namespace {
+
+using namespace cpm;
+using cpm_stacked::StackMaps;
+using cpm_stacked::StackTable;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -113,64 +149,6 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < kN; ++k) acc[k] /= count;
     store(out_roi + static_cast<size_t>(bin) * channels, acc);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    stacked_roi_align_bwd_kernel(float* __restrict__ grad_stack,
-                                 StackTable table, int num_levels, int batch,
-                                 int total_rows, int row_width, int channels,
-                                 const float* __restrict__ rois,
-                                 const int32_t* __restrict__ roi_levels,
-                                 const uint8_t* __restrict__ valid,
-                                 int pooled_h, int pooled_w, int sr,
-                                 int aligned, const T* __restrict__ g) {
-  constexpr int kN = VecWidth<T>::kN;
-  const int r = blockIdx.x;
-  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * kN;
-  if (c0 >= channels || !valid[r]) return;
-  const int bins = pooled_h * pooled_w;
-  const int level = min(max(roi_levels[r], 0), num_levels - 1);
-  const int H = table.height[level];
-  const int W = table.width[level];
-  const RoiBox box = roi_box(rois + static_cast<size_t>(r) * 5,
-                             table.scale[level], batch, pooled_h, pooled_w,
-                             aligned);
-  const float inv_count = 1.0f / static_cast<float>(sr * sr);
-  const T* g_roi = g + static_cast<size_t>(r) * bins * channels + c0;
-  const size_t row_stride = static_cast<size_t>(row_width) * channels;
-  float* level_rows =
-      grad_stack +
-      (static_cast<size_t>(box.batch) * total_rows + table.row_offset[level]) *
-          row_stride +
-      c0;
-
-  for (int bin = threadIdx.y; bin < bins; bin += blockDim.y) {
-    const int py = bin / pooled_w;
-    const int px = bin - py * pooled_w;
-    float v[kN];
-    load_scaled(g_roi + static_cast<size_t>(bin) * channels, inv_count, v);
-    for (int iy = 0; iy < sr; ++iy) {
-      int y_lo, y_hi;
-      float wy_lo, wy_hi;
-      const float y = sample_coord(box.y1, py * sr + iy, sr, box.bin_h);
-      if (!bilinear_1d(y, H, &y_lo, &y_hi, &wy_lo, &wy_hi)) continue;
-      float* row_lo = level_rows + y_lo * row_stride;
-      float* row_hi = level_rows + y_hi * row_stride;
-      for (int ix = 0; ix < sr; ++ix) {
-        int x_lo, x_hi;
-        float wx_lo, wx_hi;
-        const float x = sample_coord(box.x1, px * sr + ix, sr, box.bin_w);
-        if (!bilinear_1d(x, W, &x_lo, &x_hi, &wx_lo, &wx_hi)) continue;
-        const size_t lo = static_cast<size_t>(x_lo) * channels;
-        const size_t hi = static_cast<size_t>(x_hi) * channels;
-        scatter<kN>(row_lo + lo, wy_lo * wx_lo, v);
-        scatter<kN>(row_lo + hi, wy_lo * wx_hi, v);
-        scatter<kN>(row_hi + lo, wy_hi * wx_lo, v);
-        scatter<kN>(row_hi + hi, wy_hi * wx_hi, v);
-      }
-    }
   }
 }
 
@@ -246,41 +224,41 @@ extern "C" int cpm_stacked_roi_align_fwd(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward. grad_stack is the float32 accumulator
-// [batch, total_rows, row_width, channels], zero-filled by the caller, into
-// which the kernel adds; g is the gradient of the forward's output,
-// [num_rois, pooled_h, pooled_w, channels] contiguous, of `dtype`.
-// Everything else is as in the forward.
+// The backward. grad_stack is the gradient of the stack,
+// [batch, total_rows, row_width, channels] of `dtype`: the kernel writes
+// every level's valid region (rows row_offset .. + height, columns
+// 0 .. width) and nothing else, so it needs no fill; g is the gradient of
+// the forward's output, [num_rois, pooled_h, pooled_w, channels]
+// contiguous, of `dtype`. Everything else is as in the forward.
 extern "C" int cpm_stacked_roi_align_bwd(
     void* grad_stack, const void* level_rows_hw, const void* level_scales,
     int num_levels, int batch, int total_rows, int row_width, int channels,
     const void* rois, const void* roi_levels, const void* valid, int num_rois,
     int pooled_h, int pooled_w, int sampling_ratio, int aligned, int dtype,
     const void* g, void* stream) {
-  StackTable table = {};
+  StackMaps maps = {};
   if (bad_arguments(num_levels, num_rois, channels, sampling_ratio, dtype) ||
       !make_table(level_rows_hw, level_scales, num_levels, total_rows,
-                  row_width, &table)) {
+                  row_width, &maps.table)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  maps.base = grad_stack;
+  maps.total_rows = total_rows;
+  maps.row_width = row_width;
   const float* r = static_cast<const float*>(rois);
   const int32_t* lv = static_cast<const int32_t*>(roi_levels);
   const uint8_t* v = static_cast<const uint8_t*>(valid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* acc = static_cast<float*>(grad_stack);
-  dim3 grid, block;
+  cudaError_t err;
   if (dtype == 0) {
-    roi_launch_shape<float>(channels, num_rois, &grid, &block);
-    stacked_roi_align_bwd_kernel<float><<<grid, block, 0, s>>>(
-        acc, table, num_levels, batch, total_rows, row_width, channels, r, lv,
-        v, pooled_h, pooled_w, sampling_ratio, aligned,
-        static_cast<const float*>(g));
+    err = launch_roi_tile_backward<float>(
+        maps, num_levels, batch, channels, r, lv, v, num_rois, pooled_h,
+        pooled_w, sampling_ratio, aligned, static_cast<const float*>(g), s);
   } else {
-    roi_launch_shape<__nv_bfloat16>(channels, num_rois, &grid, &block);
-    stacked_roi_align_bwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        acc, table, num_levels, batch, total_rows, row_width, channels, r, lv,
-        v, pooled_h, pooled_w, sampling_ratio, aligned,
-        static_cast<const __nv_bfloat16*>(g));
+    err = launch_roi_tile_backward<__nv_bfloat16>(
+        maps, num_levels, batch, channels, r, lv, v, num_rois, pooled_h,
+        pooled_w, sampling_ratio, aligned,
+        static_cast<const __nv_bfloat16*>(g), s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -2,8 +2,8 @@
 
 Every kernel source under cpm_tpu_torch/csrc has a plain C interface. A
 source is compiled for sm_90a into `build/cpm_tpu_torch/` at first use; the
-library's name carries a hash of the source, of the shared header and of the
-flags, so a changed file is rebuilt and an unchanged one is found again.
+library's name carries a hash of the source, of the shared headers and of
+the flags, so a changed file is rebuilt and an unchanged one is found again.
 `compile_sources` starts one nvcc per missing library, all together, and
 waits for them: a caller that will need several kernels builds them in the
 time of the slowest.
@@ -19,7 +19,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-HEADERS = (CSRC / "roi_align_common.cuh",)
+HEADERS = (CSRC / "roi_align_common.cuh", CSRC / "roi_align_tiles.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cpm_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

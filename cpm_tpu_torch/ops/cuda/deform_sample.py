@@ -10,13 +10,18 @@ them.
 
 What bounds both on the H100 is bytes: the forward writes K*K = 9 times the
 map's bytes and the backward reads as many, one multiply-add an element. The
-forward reads only the cells of non-zero weight, a warp per sample with
-16-byte loads along C. The backward's map gradient is a gather owned by tiles
-of the map: binning kernels sort the samples stably by the tile of their
-window start (a counting sort on the card with no host sync; its plain
-version is ops/deform_conv.py::window_tiles), and each block of the map
-kernel sums what falls into its tile in shared memory and writes the tile
-once in the map's dtype: no float32 map, no fill, no cast, no atomics. The
+forward reads only the cells of non-zero weight, 16 bytes a lane along C.
+For cells of at most 512 bytes (res3) a block owns a tile of samples and a
+chunk of channels: output rows x positions x taps when the coordinates come
+as `[B, rows, row_len]` (a deformable conv's output rows), runs of a flat
+`[B, P]` list otherwise; for wider cells a warp takes two samples and loops
+over C with their loads in flight. The backward's map
+gradient is a gather owned by tiles of the map: binning kernels sort the
+samples stably by the tile of their window start (a counting sort on the
+card with no host sync; its plain version is
+ops/deform_conv.py::window_tiles), and each block of the map kernel sums
+what falls into its tile in shared memory and writes the tile once in the
+map's dtype: no float32 map, no fill, no cast, no atomics. The
 coordinate gradients come from a warp reduction over C per sample. Every sum
 runs in a fixed order, so two backward runs on the same inputs give the same
 bits.
@@ -28,6 +33,7 @@ backward ones.
 """
 
 import ctypes
+import math
 
 import torch
 
@@ -38,8 +44,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check(feat, ys, xs):
-    """Raise unless the tensors are what the kernels take. Returns
-    (B, H, W, C, P)."""
+    """Raise unless the tensors are what the kernels take: coordinates
+    `[B, P]`, or `[B, rows, row_len]` in rows of samples. Returns
+    (B, H, W, C, P, row_len), row_len 0 for a flat list."""
     dev = feat.device
     if dev.type != "cuda":
         raise ValueError(f"the kernels take CUDA tensors, got {dev}")
@@ -52,13 +59,14 @@ def _check(feat, ys, xs):
     if c % vec:
         raise ValueError(f"C={c} must be a multiple of {vec} for {feat.dtype}")
     for name, t in (("ys", ys), ("xs", xs)):
-        if t.dtype != torch.float32 or t.device != dev or t.dim() != 2 or t.shape[0] != b:
-            raise ValueError(f"{name} must be float32 [B, P] on feat's device")
+        if t.dtype != torch.float32 or t.device != dev or t.dim() not in (2, 3) or t.shape[0] != b:
+            raise ValueError(f"{name} must be float32 [B, P] or [B, rows, row_len] on feat's device")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if ys.shape != xs.shape:
         raise ValueError("ys and xs must have one shape")
-    return b, h, w, c, int(ys.shape[1])
+    row_len = int(ys.shape[2]) if ys.dim() == 3 else 0
+    return b, h, w, c, math.prod(ys.shape[1:]), row_len
 
 
 class DeformSampleKernel:
@@ -78,7 +86,8 @@ class DeformSampleKernel:
         if self._lib is None:
             lib, self.built = _build.load_library(SOURCE)
             vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.cpm_deform_sample_fwd.argtypes = [vp, ci, ci, ci, ci, vp, vp, cl, ci, vp, vp]
+            lib.cpm_deform_sample_fwd.argtypes = [
+                vp, ci, ci, ci, ci, vp, vp, cl, ci, ci, vp, vp]
             lib.cpm_deform_sample_bwd.argtypes = [
                 vp, ci, ci, ci, ci, vp, vp, vp, cl, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
             ]
@@ -95,18 +104,18 @@ class DeformSampleKernel:
 
     def __call__(self, feat: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
         """Launch the forward kernel: feat `[B, H, W, C]` (f32 or bf16), ys /
-        xs `[B, P]` f32, all on the card -> `[B, P, C]` in feat's dtype (no
-        autograd)."""
-        b, h, w, c, p = _check(feat, ys, xs)
-        out = torch.empty((b, p, c), dtype=feat.dtype, device=feat.device)
+        xs `[B, P]` or `[B, rows, row_len]` f32, all on the card -> the
+        coordinates' shape + `[C]` in feat's dtype (no autograd)."""
+        b, h, w, c, p, row_len = _check(feat, ys, xs)
+        out = torch.empty((*ys.shape, c), dtype=feat.dtype, device=feat.device)
         if p == 0:
             return out
         lib = self.build()
         with torch.cuda.device(feat.device):
-            stream = torch.cuda.current_stream(feat.device).cuda_stream
             err = lib.cpm_deform_sample_fwd(
-                feat.data_ptr(), b, h, w, c, ys.data_ptr(), xs.data_ptr(), p,
-                DTYPE_CODES[feat.dtype], out.data_ptr(), stream,
+                feat.data_ptr(), b, h, w, c, ys.data_ptr(), xs.data_ptr(), p, row_len,
+                DTYPE_CODES[feat.dtype], out.data_ptr(),
+                torch.cuda.current_stream(feat.device).cuda_stream,
             )
         if err != 0:
             raise RuntimeError(f"deform sample forward launch failed: cudaError {err}")
@@ -133,7 +142,7 @@ class DeformSampleKernel:
         `ops/deform_conv.py::window_tiles` returns them, and each sample's
         window start (int32, row << 16 | column) and weights (f32 [N, 4]:
         wy0, wy1, wx0, wx1) in that order."""
-        b, h, w, _, p = _check(feat, ys, xs)
+        b, h, w, _, p, _ = _check(feat, ys, xs)
         lib = self.build()
         dev = feat.device
         weights, order, starts, offsets, totals, counts = self._bin_buffers(b, h, w, p, dev)
@@ -150,18 +159,20 @@ class DeformSampleKernel:
     def backward(self, feat: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, g: torch.Tensor,
                  need_map: bool = True, need_coords: bool = True):
         """Launch the backward kernels (the binning's first when the map needs
-        a gradient): g `[B, P, C]` in feat's dtype -> (gradient to feat in
-        its dtype or None, gys, gxs `[B, P]` f32 or None). The map's sums are
-        taken in float32, in a fixed order."""
-        b, h, w, c, p = _check(feat, ys, xs)
-        if g.dtype != feat.dtype or g.device != feat.device or tuple(g.shape) != (b, p, c):
-            raise ValueError("g must be [B, P, C] of feat's dtype on its device")
+        a gradient): g of the coordinates' shape + `[C]` in feat's dtype ->
+        (gradient to feat in its dtype or None, gys, gxs of the coordinates'
+        shape, f32, or None). The map's sums are taken in float32, in a fixed
+        order."""
+        b, h, w, c, p, _ = _check(feat, ys, xs)
+        if g.dtype != feat.dtype or g.device != feat.device or g.shape != (*ys.shape, c):
+            raise ValueError("g must be the coordinates' shape + [C], of feat's dtype on its device")
         if not g.is_contiguous() or g.data_ptr() % 16:
             raise ValueError("g must be contiguous and 16-byte aligned")
         dev = feat.device
         alloc = torch.empty if p > 0 else torch.zeros   # the kernels write every element
         grad = alloc(feat.shape, dtype=feat.dtype, device=dev) if need_map else None
-        gys, gxs = alloc((2, b, p), dtype=torch.float32, device=dev) if need_coords else (None, None)
+        gys, gxs = (alloc((2, *ys.shape), dtype=torch.float32, device=dev) if need_coords
+                    else (None, None))
         if p > 0 and (need_map or need_coords):
             lib = self.build()
             bins = self._bin_buffers(b, h, w, p, dev) if need_map else (None,) * 6
@@ -204,8 +215,9 @@ class _DeformSample(torch.autograd.Function):
 
 def deform_sample_cuda(feat: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """Bilinear samples of feat `[B, H, W, C]` (f32 or bf16, on a card) at
-    ys / xs `[B, P]` -> `[B, P, C]`: the forward kernel, and the backward
-    kernel when the map or the coordinates require a gradient."""
+    ys / xs `[B, P]` or `[B, rows, row_len]` -> their shape + `[C]`: the
+    forward kernel, and the backward kernel when the map or the coordinates
+    require a gradient."""
     if feat.device.type != "cuda":
         raise ValueError(f"no deform sample kernel for device {feat.device}")
     feat = feat.contiguous()

@@ -10,11 +10,16 @@ made with torch ops (`ops/roi_align.py::stack_levels`: a pad and a cat), as
 the JAX package leaves it to XLA; its time is not the kernel's.
 
 What bounds both kernels on the H100 is bytes (csrc/stacked_roi_align.cu
-says how each is laid out). The backward accumulates in float32 with
-`atomicAdd` into one zero-filled stacked buffer, which this wrapper slices
-back per level and casts once to the dtype of `g`; the TPU kernel
-accumulates in the feature dtype. The atomics' order changes from run to
-run, so two backward runs agree to float32 rounding, not to the bit.
+says how each is laid out). The backward produces the gradient of the
+stacked buffer, as the TPU kernel's `_bwd` does, in the dtype of `g`: it runs
+the multilevel backward's tile-owned gather (csrc/roi_align_tiles.cuh) over
+each level's valid region of that buffer, sums in float32 in a fixed order
+and writes every such cell once. The wrapper allocates the buffer with
+`torch.empty` (the padding columns are never written or read) and returns
+the per-level views of it (`unstack_levels`), with no float32 accumulator,
+fill, cast or copy; autograd takes gradients with these strides. Two
+backward runs on the same inputs give the same bits, and the same bits as
+the multilevel backward.
 
 `multilevel_roi_align_stacked` dispatches on where the tensors lie: on the
 CPU it runs the plain stacked formulation
@@ -68,7 +73,7 @@ class StackedRoIAlignKernel:
     def _launch(self, entry, stack, level_hw, rois, levels, valid, output_size,
                 spatial_scales, sampling_ratio, aligned, dtype, data):
         """One launch of `entry` ('fwd' or 'bwd') on the current stream.
-        stack: the buffer the kernel reads (fwd) or adds into (bwd); data:
+        stack: the buffer the kernel reads (fwd) or writes (bwd); data:
         the output (fwd) or the incoming gradient (bwd), of `dtype`."""
         num_levels = len(level_hw)
         if not 1 <= num_levels <= MAX_LEVELS:
@@ -125,7 +130,9 @@ class StackedRoIAlignKernel:
                  sampling_ratio: int = 0, aligned: bool = False):
         """Launch the backward kernel: `g` `[R, ph, pw, C]` (contiguous, f32
         or bf16, on the card) -> one gradient `[B, H_l, W_l, C]` per level
-        in g's dtype, sliced out of one stacked float32 accumulator."""
+        in g's dtype: views of the stacked buffer's gradient, which the
+        kernel writes in its levels' regions. The sums are taken in float32,
+        in a fixed order."""
         levels, valid = check_rois(rois, levels, valid)
         dtype = g.dtype
         if dtype not in DTYPE_CODES:
@@ -143,13 +150,13 @@ class StackedRoIAlignKernel:
             raise ValueError(f"C={channels} must fill 16-byte vectors of {dtype}")
         level_hw = [s[1:3] for s in shapes]
         _, total_rows, wmax = stack_geometry(level_hw)
-        acc = torch.zeros((batch, total_rows, wmax, channels), dtype=torch.float32,
-                          device=rois.device)
+        alloc = torch.empty if rois.shape[0] > 0 else torch.zeros   # the kernel writes the levels
+        grad = alloc((batch, total_rows, wmax, channels), dtype=dtype, device=rois.device)
         if rois.shape[0] > 0:
-            self._launch("bwd", acc, level_hw, rois, levels, valid, tuple(g.shape[1:3]),
+            self._launch("bwd", grad, level_hw, rois, levels, valid, tuple(g.shape[1:3]),
                          spatial_scales, sampling_ratio, aligned, dtype, g)
             self.backward_launches += 1
-        return [part.to(dtype).contiguous() for part in unstack_levels(acc, level_hw)]
+        return unstack_levels(grad, level_hw)
 
 
 KERNEL = StackedRoIAlignKernel()

@@ -82,7 +82,8 @@ def _sample_corner4(feat, ys, xs):
 
 def deform_sample_plain(feat: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """Bilinear samples of feat `[B, H, W, C]` at coordinates ys / xs `[B, P]`
-    -> `[B, P, C]` in feat's dtype; the plain version of the CUDA sampler.
+    (or `[B, rows, row_len]`) -> their shape + `[C]` in feat's dtype; the
+    plain version of the CUDA sampler.
 
     Coordinates are taken in float32 whatever the map's dtype. A sample
     wholly outside the map gives zero and one on the border a partial sum
@@ -90,15 +91,17 @@ def deform_sample_plain(feat: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) 
     the JAX package does; both forms give the same values, and autograd
     through either gives the gradients to the map and to the coordinates
     (the tent's derivative is zero at an integer coordinate)."""
-    ys, xs = ys.float(), xs.float()
-    if feat.shape[1] < 2 or feat.shape[2] < 2:
-        return _sample_corner4(feat, ys, xs)
-    return _sample_window(feat, ys, xs)
+    shape = (*ys.shape, feat.shape[3])
+    ys, xs = ys.float().flatten(1), xs.float().flatten(1)
+    sample = _sample_corner4 if feat.shape[1] < 2 or feat.shape[2] < 2 else _sample_window
+    return sample(feat, ys, xs).reshape(shape)
 
 
 def deform_sample(feat: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """`deform_sample_plain` for CPU tensors; the CUDA kernels (forward, and
-    backward under autograd) for tensors on a card."""
+    backward under autograd) for tensors on a card. Coordinates given as
+    `[B, rows, row_len]`, a deformable conv's output rows, let the forward
+    kernel tile the samples by rows; the shape changes no value."""
     if feat.device.type == "cpu":
         return deform_sample_plain(feat, ys, xs)
     from cpm_tpu_torch.ops.cuda.deform_sample import deform_sample_cuda
@@ -205,6 +208,8 @@ def deform_conv2d(
     if tuple(offset.shape) != (b, ho, wo, 2 * k):
         raise ValueError(f"offset {tuple(offset.shape)}, want {(b, ho, wo, 2 * k)}")
     ys, xs = sampling_grid(offset, (kh, kw), stride, padding, dilation)
+    # rows of samples: the output rows, Wo x taps each
+    ys, xs = ys.view(b, ho, wo * k), xs.view(b, ho, wo * k)
     sampled = deform_sample(x, ys, xs).reshape(b, ho, wo, k, cin)
     if mask is not None:
         sampled = sampled * mask[..., None].to(sampled.dtype)

@@ -78,9 +78,9 @@ class _Axis(NamedTuple):
     oob: torch.Tensor
 
 
-def _roi_samples(rois, scale, h_l, w_l, output_size, sr, aligned):
-    """The samples of rois `[R, 5]` on maps of per-roi scale, height and
-    width (`[R]` float tensors): (y axis, x axis)."""
+def _roi_coords(rois, scale, output_size, sr, aligned):
+    """The sample coordinates of rois `[R, 5]` on maps of per-roi scale
+    (`[R]`): (ys `[R, ph*sr]`, xs `[R, pw*sr]`) in cells."""
     ph, pw = output_size
     dev = rois.device
     offset = 0.5 if aligned else 0.0
@@ -107,8 +107,48 @@ def _roi_samples(rois, scale, h_l, w_l, output_size, sr, aligned):
     iy = iy / torch.full_like(iy, sr)
     xs = x1[:, None] + ix[None, :] * bin_w[:, None]  # [R, pw*sr]
     ys = y1[:, None] + iy[None, :] * bin_h[:, None]  # [R, ph*sr]
+    return ys, xs
+
+
+def _roi_samples(rois, scale, h_l, w_l, output_size, sr, aligned):
+    """The samples of rois `[R, 5]` on maps of per-roi scale, height and
+    width (`[R]` float tensors): (y axis, x axis)."""
+    ys, xs = _roi_coords(rois, scale, output_size, sr, aligned)
     return (_Axis(*_bilinear_weights_1d(ys, h_l[:, None])),
             _Axis(*_bilinear_weights_1d(xs, w_l[:, None])))
+
+
+def _reach_1d(first, last, size):
+    """`footprint` of csrc/roi_align_tiles.cuh along one axis: the cells
+    [lo, hi] that samples between coordinates `first` and `last` can read
+    after the out-of-bounds rule and the clamp, and whether any can; a
+    coordinate that is not finite reaches the whole axis."""
+    finite = torch.isfinite(first) & torch.isfinite(last)
+    least, most = torch.minimum(first, last), torch.maximum(first, last)
+    top = size - 1.0
+    lo = torch.floor(torch.minimum(torch.clamp(least, min=0.0), top))
+    hi = torch.minimum(torch.floor(torch.minimum(torch.clamp(most, min=0.0), top)) + 1.0, top)
+    reaches = (most >= -1.0) & (least <= size)
+    lo = torch.where(finite, lo, torch.zeros_like(lo))
+    hi = torch.where(finite, hi, top.expand_as(hi))
+    return lo.long(), hi.long(), reaches | ~finite
+
+
+def roi_tile_reach(rois, levels, level_hw, spatial_scales, output_size, sampling_ratio: int = 0,
+                   aligned: bool = False):
+    """The plain version of the rule by which the tile-owned RoIAlign
+    backward kernels (multilevel and stacked, csrc/roi_align_tiles.cuh) let a
+    roi into a tile: the cells of its level that its first and last sample
+    coordinates along each axis can reach. Returns (row_lo, row_hi, col_lo,
+    col_hi) long `[R]` (inclusive) and `reaches` bool `[R]`, false where
+    every sample of the roi reads zero; a tile of the roi's level and image
+    that meets the rectangle takes the roi, every other tile skips it."""
+    sr = sampling_ratio if sampling_ratio > 0 else 2
+    lv = _level_columns([tuple(hw) for hw in level_hw], 1, levels, spatial_scales, rois.device)
+    ys, xs = _roi_coords(rois, lv.scale, output_size, sr, aligned)
+    row_lo, row_hi, y_in = _reach_1d(ys[:, 0], ys[:, -1], lv.height.float())
+    col_lo, col_hi, x_in = _reach_1d(xs[:, 0], xs[:, -1], lv.width.float())
+    return row_lo, row_hi, col_lo, col_hi, y_in & x_in
 
 
 def _pool_samples(gather, ys: _Axis, xs: _Axis, output_size, sr, fd):

@@ -77,6 +77,7 @@ def sampler_bounds(feat, ys, xs):
 
     b, h, w, c = feat.shape
     e = feat.element_size()
+    ys, xs = ys.flatten(1), xs.flatten(1)
     yi, wy = _tent_axis(ys, h)
     xi, wx = _tent_axis(xs, w)
     image = torch.arange(b, device=feat.device)[:, None] * (h * w)
@@ -102,10 +103,11 @@ def grid_sample_call(feat, ys, xs, g=None):
     """The one PyTorch call for the same function, and its inputs prepared:
     the map as an NCHW view and the coordinates as a normalised grid.
     Returns (call, to_samples): call() runs F.grid_sample alone, to_samples
-    turns its output into `[B, P, C]`. With `g` `[B, P, C]`, call() runs
-    instead the backward of that call to both the map and the grid
-    (`torch.autograd.grad`, the forward made once beforehand)."""
+    turns its output into `[B, P, C]`. With `g` (the coordinates' shape +
+    `[C]`), call() runs instead the backward of that call to both the map
+    and the grid (`torch.autograd.grad`, the forward made once beforehand)."""
     b, h, w, c = feat.shape
+    ys, xs = ys.flatten(1), xs.flatten(1)
     nchw = feat.permute(0, 3, 1, 2)
     gx = xs / max(w - 1, 1) * 2.0 - 1.0
     gy = ys / max(h - 1, 1) * 2.0 - 1.0
@@ -122,7 +124,7 @@ def grid_sample_call(feat, ys, xs, g=None):
         return call, to_samples
     nchw, grid = nchw.detach().requires_grad_(), grid.detach().requires_grad_()
     out = F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
-    grad_out = g.permute(0, 2, 1)[..., None].to(out.dtype)
+    grad_out = g.flatten(1, -2).permute(0, 2, 1)[..., None].to(out.dtype)
 
     def backward_call():
         return torch.autograd.grad(out, (nchw, grid), grad_out, retain_graph=True)
@@ -170,7 +172,7 @@ def check_forward(name, feat, ys, xs, card, reps=20, timed=True):
         # the yardstick only: where the library has no kernel for this dtype
         call, to_samples = grid_sample_call(feat.float(), ys, xs)
         lib_out, library_note = call(), " on a float32 copy"
-    lib_err = (to_samples(lib_out).float() - want).abs().max().item()
+    lib_err = (to_samples(lib_out).float() - want.flatten(1, -2)).abs().max().item()
     del lib_out, got, want
     ms = cuda_ms(lambda: KERNEL(feat, ys, xs), reps)
     plain_ms = cuda_ms(lambda: deform_sample_plain(feat, ys, xs), 5)

@@ -1,4 +1,4 @@
-"""The binning of the deformable-conv sampler's backward, on the CPU.
+"""The tile rules of the port's two tile-owned backward kernels, on the CPU.
 
 The sampler's backward kernel owns tiles of the map's gradient: its samples
 are first sorted stably by the tile of their window start
@@ -11,6 +11,14 @@ binned lists as the kernel does is held against the JAX package's
 hand-written backward, `cpm_tpu/ops/deform_conv.py::_bilinear_gather_bwd`
 (through `jax.vjp` of `_bilinear_gather`), at rtol 1e-4 / atol 1e-5 (f32 in
 JAX, two orders of summation).
+
+The RoIAlign backward kernels (multilevel and stacked, which share one tile
+loop, csrc/roi_align_tiles.cuh) let a roi into a tile of its level when the
+cells its first and last sample coordinates can reach meet the tile
+(cpm_tpu_torch/ops/roi_align.py::roi_tile_reach, the plain version of the
+kernels' `footprint`). Here a tile-owned sum built on that rule (per tile,
+the rois in order, float32, one cast) is held against the plain stacked
+backward and the JAX package's stacked Pallas backward in interpret mode.
 
 torch and the port are imported inside the tests, so that collecting this
 file loads no torch into a test worker.
@@ -25,6 +33,7 @@ import numpy as np
 import pytest
 
 from cpm_tpu.ops import deform_conv as jdc
+from cpm_tpu.ops.pallas.stacked_pallas import multilevel_roi_align_stacked
 
 TILE = (8, 16)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -171,3 +180,83 @@ def test_tile_owned_sum_over_the_bins_matches_the_custom_vjp(shape):
     tiled = _tile_gather((b, h, w, c), ys, xs, g, order.numpy(), offsets.numpy())
     np.testing.assert_allclose(tiled, want, **GRAD_TOL)
     assert np.abs(want).sum() > 0
+
+
+ROI_SHAPES = [(28, 40), (14, 20), (7, 10), (4, 5)]
+ROI_SCALES = (0.25, 0.125, 0.0625, 0.03125)
+ROI_TILE = (8, 8)   # the kernels' kTileH x kTileW
+ROI_BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _roi_case(seed, pool, n=20, c=4):
+    """Rois over a 2 x 112x160 batch: spread boxes, plus one past the
+    border, one wholly outside, a degenerate one (x2 < x1), one of zero
+    area and the whole image, and masked rois among them (one of them
+    a wild box); `g` of the pooled shape."""
+    rng = np.random.RandomState(seed)
+    x1, y1 = rng.uniform(-10, 140, n), rng.uniform(-10, 95, n)
+    boxes = np.stack([x1, y1, x1 + rng.uniform(4, 90, n), y1 + rng.uniform(4, 60, n)], 1)
+    special = np.array([[-40, -30, 50, 40], [400, 300, 480, 380], [100, 80, 90, 70],
+                        [60, 50, 60, 50], [0, 0, 159, 111], [-1e6, 3e5, 2e6, -4e5]])
+    boxes = np.concatenate([boxes, special])
+    rois = np.concatenate([rng.randint(0, 2, (len(boxes), 1)), boxes], 1).astype(np.float32)
+    levels = rng.randint(0, 4, len(rois)).astype(np.int32)
+    levels[-2] = 0                       # the whole image on the finest level
+    valid = rng.rand(len(rois)) > 0.25
+    valid[n:-1] = True
+    valid[-1] = False                    # a masked wild box adds nothing
+    g = rng.randn(len(rois), *pool, c).astype(np.float32)
+    return rois, levels, valid, g
+
+
+@pytest.mark.parametrize("pool", [(7, 7), (14, 14)], ids=["7x7", "14x14"])
+def test_tile_owned_roi_sum_over_the_reach_rule_matches_the_stacked_backward(pool):
+    import torch
+
+    from cpm_tpu_torch.ops.cuda.multilevel_roi_align import plain_multilevel_roi_align_backward
+    from cpm_tpu_torch.ops.cuda.stacked_roi_align import plain_stacked_roi_align_backward
+    from cpm_tpu_torch.ops.roi_align import roi_tile_reach
+
+    rois, levels, valid, g = _roi_case(4, pool)
+    shapes = [(2, h, w, g.shape[-1]) for h, w in ROI_SHAPES]
+    r, lv, gt = torch.from_numpy(rois), torch.from_numpy(levels), torch.from_numpy(g)
+    row_lo, row_hi, col_lo, col_hi, reaches = (t.numpy() for t in roi_tile_reach(
+        r, lv, ROI_SHAPES, ROI_SCALES, pool, 2))
+    one = torch.ones(1, dtype=torch.bool)
+    per_roi = [[t.numpy() for t in plain_multilevel_roi_align_backward(
+        shapes, r[i:i + 1], lv[i:i + 1], one, gt[i:i + 1], ROI_SCALES, 2)] for i in range(len(r))]
+    # the rule is sound: a roi adds nothing outside its rectangle
+    for i, grads in enumerate(per_roi):
+        outside = np.ones(ROI_SHAPES[levels[i]], bool)
+        if reaches[i]:
+            outside[row_lo[i]:row_hi[i] + 1, col_lo[i]:col_hi[i] + 1] = False
+        assert not grads[levels[i]][:, outside].any(), f"roi {i} reaches past its rectangle"
+    assert not reaches[-5] and reaches[-2] and (row_hi - row_lo)[-2] == ROI_SHAPES[0][0] - 1
+
+    th, tw = ROI_TILE
+    tiled = [np.zeros(s, np.float32) for s in shapes]
+    for level, (h, w) in enumerate(ROI_SHAPES):
+        for image in range(2):
+            for y0 in range(0, h, th):
+                for x0 in range(0, w, tw):
+                    acc = np.zeros((min(th, h - y0), min(tw, w - x0), g.shape[-1]), np.float32)
+                    for i in range(len(rois)):
+                        if (valid[i] and levels[i] == level and int(rois[i, 0]) == image
+                                and reaches[i] and row_lo[i] < y0 + th and row_hi[i] >= y0
+                                and col_lo[i] < x0 + tw and col_hi[i] >= x0):
+                            acc += per_roi[i][level][image, y0:y0 + th, x0:x0 + tw]
+                    tiled[level][image, y0:y0 + th, x0:x0 + tw] = acc
+    want = plain_stacked_roi_align_backward(shapes, r, lv, torch.from_numpy(valid), gt,
+                                            ROI_SCALES, 2)
+    _, vjp = jax.vjp(
+        lambda fs: multilevel_roi_align_stacked(
+            tuple(fs), (jnp.asarray(rois), jnp.asarray(levels), jnp.asarray(valid)), pool,
+            ROI_SCALES, 2, False, True),
+        [jnp.zeros(s, jnp.float32) for s in shapes])
+    (pallas,) = vjp(jnp.asarray(g))
+    for level in range(len(shapes)):
+        np.testing.assert_allclose(tiled[level], want[level].numpy(), **ROI_BWD_TOL,
+                                   err_msg=f"level {level} vs the plain stacked backward")
+        np.testing.assert_allclose(tiled[level], np.asarray(pallas[level]), **ROI_BWD_TOL,
+                                   err_msg=f"level {level} vs the Pallas backward")
+    assert np.abs(tiled[0]).sum() > 0

@@ -11,9 +11,9 @@ Tolerances: forward f32 atol 1e-5 (TF32 off; kernel and plain version read
 the same cells with the same weights and differ in the order of a few sums),
 bf16 rtol 1.6e-2 / atol 1e-2 (one bf16 rounding of an f32 sum); backward f32
 rtol 1e-4 / atol 1e-4 (each cell's terms summed in another order: by the
-stacked kernel's atomics in one that changes from run to run, by the
-tile-owned multilevel and sampler backwards in one fixed order, so that two
-of their runs are bit-equal), bf16 as the forward.
+tile-owned multilevel, stacked and sampler backwards in one fixed order, so
+that two of their runs are bit-equal, and the stacked one gives the
+multilevel one's bits), bf16 as the forward.
 
 torch and the port are imported inside the tests, so that collecting this
 file loads no torch into a test worker.
@@ -242,6 +242,60 @@ def test_cuda_deform_sample_forward_matches_plain(shape, dtype_name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,channels,stride", [(1, 128, 1), (1, 256, 1), (2, 256, 2),
+                                                   (2, 512, 1), (1, 1024, 2), (2, 1024, 1)])
+def test_cuda_deform_sample_forward_tiles_are_exact(batch, channels, stride, dtype_name):
+    """The forward over a deformable conv's sampling grid given in rows of
+    output positions, as `deform_conv2d` gives it (tiles by output rows for
+    cells of at most 512 bytes, the flat form above): offsets of about +-2
+    cells, a few far outliers, whole tiles thrown past the map's border, and
+    non-finite coordinates. Exact against the plain version at the forward's
+    tolerances, and to the bit the same as on the flat list of the same
+    samples."""
+    import torch
+
+    from cpm_tpu_torch.ops import deform_conv
+    from cpm_tpu_torch.ops.cuda import deform_sample as op
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    h, w = 23, 37
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    rng = np.random.RandomState(20 + channels + stride)
+    offset = rng.uniform(-2, 2, (batch, ho, wo, 18)).astype(np.float32)
+    far = rng.rand(batch, ho, wo, 18) < 0.02
+    offset[far] = rng.uniform(-30, 30, int(far.sum()))
+    offset[:, :4, :8] += 60.0                       # a corner of tiles past the border
+    offset[:, 5, 3, 0], offset[:, 6, 2, 1] = np.nan, np.inf
+    offset[:, 7, 1, 2], offset[:, 8, 4, 3] = -np.inf, 1e7
+    ys, xs = (t.view(batch, ho, wo * 9) for t in deform_conv.sampling_grid(
+        torch.from_numpy(offset).cuda(), (3, 3), stride, 1, 1))
+    dtype = getattr(torch, dtype_name)
+    feat = torch.from_numpy(rng.randn(batch, h, w, channels).astype(np.float32)).cuda().to(dtype)
+    before = op.KERNEL.launches
+    got = deform_conv.deform_sample(feat, ys, xs)
+    assert op.KERNEL.launches == before + 1 and got.dtype == dtype
+    assert got.shape == (batch, ho, wo * 9, channels)
+    # the plain version's gathers take no NaN index: a coordinate that is not
+    # finite weighs nothing, as one far outside the map does
+    finite = torch.isfinite(ys) & torch.isfinite(xs)
+    far = torch.full_like(ys, -10.0)
+    want = deform_conv.deform_sample_plain(
+        feat.float(), torch.where(finite, ys, far), torch.where(finite, xs, far))
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.to(dtype).float(), rtol=1.6e-2, atol=1e-2)
+    outside = (ys < -1) | (ys > h) | (xs < -1) | (xs > w) | ~finite
+    assert outside.sum() > 100 and (~finite).sum() == 3 * batch and not got[outside].any()
+    flat = op.KERNEL(feat, ys.flatten(1), xs.flatten(1))
+    assert torch.equal(flat, got.flatten(1, 2))
+    assert op.KERNEL.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", SAMPLER_SHAPES[:2] + [(2, 1, 12, 64)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_cuda_deform_sample_backward_matches_autograd_of_plain(shape, dtype_name):
@@ -355,20 +409,13 @@ def _colliding_rois(n, rng):
     return rois
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-@pytest.mark.parametrize("channels", [256, 1024])
-def test_cuda_multilevel_backward_is_exact_and_deterministic(channels, dtype_name):
-    """The tile-owned backward against autograd of the plain forward, and two
-    runs bit-equal, on rois larger than a tile (whole image), rois spanning
-    tile and level borders, 512 rois colliding on a few cells, and masked,
-    degenerate and outside rois. The reference is the plain backward in
-    float64: each of the colliding cells sums some 25,000 terms, which a
-    float32 reference would round as much as the kernel does; their `g` is
-    scaled by 2^-3 (exact) so that those sums stay of unit scale."""
+def _backward_case(dtype_name, channels):
+    """Rois larger than a tile (whole image), rois spanning tile and level
+    borders, 512 rois colliding on a few cells, and masked, degenerate and
+    outside rois, with their levels, mask and `g` (the colliding rois' `g`
+    scaled by 2^-3, exact, so that their sums stay of unit scale)."""
     import torch
 
-    from cpm_tpu_torch.ops.cuda import multilevel_roi_align as op
     from cpm_tpu_torch.ops.pooler import assign_fpn_levels
 
     dtype, _, rois, _, valid = _inputs(dtype_name, seed=13, channels=16)
@@ -391,12 +438,31 @@ def test_cuda_multilevel_backward_is_exact_and_deterministic(channels, dtype_nam
     shapes = [(2, h, w, channels) for h, w in SHAPES]
     g = rng.randn(len(rows), 7, 7, channels).astype(np.float32)
     g[-512:] *= 0.125
-    g = torch.from_numpy(g).cuda().to(dtype)
+    return dtype, shapes, r, levels.int(), v, torch.from_numpy(g).cuda().to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", [256, 1024])
+@pytest.mark.parametrize("name", ["multilevel", "stacked"])
+def test_cuda_multilevel_backward_is_exact_and_deterministic(name, channels, dtype_name):
+    """The tile-owned backward of the multilevel and of the stacked RoIAlign
+    against autograd of the plain forward, and two runs bit-equal, on
+    `_backward_case`'s rois. The reference is the plain backward in float64:
+    each of the colliding cells sums some 25,000 terms, which a float32
+    reference would round as much as the kernel does."""
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import multilevel_roi_align, stacked_roi_align
+
+    op = dict(multilevel=multilevel_roi_align, stacked=stacked_roi_align)[name]
+    dtype, shapes, r, levels, v, g = _backward_case(dtype_name, channels)
     before = op.KERNEL.backward_launches
-    got = op.KERNEL.backward(shapes, r, levels.int(), v, g, SCALES, 2)
-    again = op.KERNEL.backward(shapes, r, levels.int(), v, g, SCALES, 2)
+    got = op.KERNEL.backward(shapes, r, levels, v, g, SCALES, 2)
+    again = op.KERNEL.backward(shapes, r, levels, v, g, SCALES, 2)
     assert op.KERNEL.backward_launches == before + 2
-    want = op.plain_multilevel_roi_align_backward(shapes, r, levels.int(), v, g.double(), SCALES, 2)
+    want = multilevel_roi_align.plain_multilevel_roi_align_backward(
+        shapes, r, levels, v, g.double(), SCALES, 2)
     for a, b, w in zip(got, again, want):
         assert a.dtype == dtype and tuple(a.shape) == tuple(w.shape)
         assert torch.equal(a, b)
@@ -405,6 +471,26 @@ def test_cuda_multilevel_backward_is_exact_and_deterministic(channels, dtype_nam
         else:
             torch.testing.assert_close(a.float(), w.to(dtype).float(), rtol=1.6e-2, atol=1e-2)
     assert got[0].abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", [256, 1024])
+def test_cuda_stacked_backward_gives_the_multilevel_backwards_bits(channels, dtype_name):
+    """The stacked backward runs the multilevel one's tile loop over the
+    stacked buffer: on the same inputs, colliding rois included, it gives
+    the same bits, as views of one buffer in g's dtype, without padding."""
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import multilevel_roi_align, stacked_roi_align
+
+    dtype, shapes, r, levels, v, g = _backward_case(dtype_name, channels)
+    got = stacked_roi_align.KERNEL.backward(shapes, r, levels, v, g, SCALES, 2)
+    want = multilevel_roi_align.KERNEL.backward(shapes, r, levels, v, g, SCALES, 2)
+    base = got[0].untyped_storage().data_ptr()
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.untyped_storage().data_ptr() == base
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
