@@ -7,17 +7,18 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 0. device: requires CUDA; prints the card's name and power limit, the torch
    and CUDA versions, and whether yaml and PIL import.
 1. build: builds the six CUDA sources of cpm_tpu_torch/csrc with nvcc, one
-   process each, all started together (nine kernels: multilevel forward and
-   backward, stacked forward and backward, clustered forward, single-level
-   forward, deformable-conv sampler forward and backward, cross-roi
-   shared-window forward).
+   process each, all started together (ten kernels: multilevel forward and
+   backward, stacked forward and backward, clustered forward and its
+   grouping, single-level forward, deformable-conv sampler forward and
+   backward, cross-roi shared-window forward).
 2. kernels: each multilevel-pooling forward kernel (multilevel, stacked,
    clustered) against its plain PyTorch version at the flagship's pooler
    shapes (B=2, P2-P5 of an 800x1344 batch, C=256), f32 and bf16, on random
    rois (~30% masked, with extreme-aspect, outside and degenerate boxes) and
    on a dense set that forms multi-roi groups (the group-size histogram is
    printed); the stacked and clustered kernels also against the multilevel
-   kernel on the same inputs. The single-level kernel against its plain
+   kernel on the same inputs, and the grouping kernel against its plain
+   version, `cluster_rois`, integer for integer. The single-level kernel against its plain
    version at the C4 shape ([2, 50, 84, 1024] f32, 1024 rois, 7x7 and 14x14).
 2b. backward kernels: the multilevel and the stacked backward against their
    plain versions (autograd of the plain forwards) at the training shapes
@@ -33,7 +34,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    batch-1 requests at 800x1344 (four under auto, two under the others) and
    one batch-2 request. Checks every request's detections and that it
    launched its backend's forward kernel 5 times (cls, three grid stages,
-   rescore) and no other kernel; under stacked and clustered the detections
+   rescore), under clustered the grouping kernel 5 times too, and no other
+   kernel; under stacked and clustered the detections
    of two requests must equal the auto path's. Then the kernel check of
    phase 2 is repeated on the FPN maps and rois of the five pooler calls of
    one batch-1 forward; each kernel's `ms` and `plain_ms` in the JSON line
@@ -48,7 +50,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    one seeded batch's statistics
    (cpm_tpu_torch/tools/profile_train.py::fold_batch_statistics). One
    warm-up step and two timed steps, checked for losses, launches (5 forward
-   and 5 backward of the backend's kernels, none of any other), gradients,
+   and 5 backward of the backend's kernels, under clustered 5 groupings, none
+   of any other), gradients,
    changed and frozen parameters and the learning rate; under stacked and
    clustered the losses are held against the auto path's. Then the
    backward-kernel check of phase 2b on the gradients, rois and level shapes
@@ -108,11 +111,13 @@ the larger of its bytes over 3.35 TB/s (the level cells the rois touch, the
 rois, and the output for a forward; the valid rois' gradient rows, the
 rois, and every level map written once for a backward; for the clustered
 forward each group's rectangle counted once, not once per roi, plus the
-grouping arrays) and its f32 multiply-adds over 67 TFLOP/s. The stacked
-kernels' stack copy and the clustered kernel's grouping are torch ops
-outside the kernels; their times are printed on lines of their own. No
+grouping arrays; for the grouping kernel the rois, level ids and mask read
+and the grouping written) and its f32 multiply-adds over 67 TFLOP/s. The
+stacked kernels' stack copy is torch ops outside the kernels; its time is
+printed on a line of its own. No
 single PyTorch call computes a RoIAlign or its transpose (torchvision's is
-no dependency of the port), so `library_ms` is null for the RoIAlign kernels. The
+no dependency of the port), so `library_ms` is null for the RoIAlign kernels
+and the grouping. The
 sampler's bounds (cpm_tpu_torch/tools/probe_dcn_sampler.py::sampler_bounds)
 and the cross-roi kernel's (tools/probe_pooler_crossroi.py::crossroi_bound)
 are made the same way; the sampler has a library call, `F.grid_sample`, and
@@ -139,15 +144,13 @@ F32_ATOL = 1e-5
 BWD_F32_RTOL, BWD_F32_ATOL = 1e-4, 1e-4
 POOLER_SITES = ("cls 7x7", "grid stage 1 14x14", "grid stage 2 14x14",
                 "grid stage 3 14x14", "rescore 7x7")
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12     # f32 outside the tensor cores, same sheet
 TRAIN_LOSSES = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_grid_1",
                 "loss_grid_2", "loss_grid_3", "loss_iou_3", "loss_rescore")
 BACKENDS = ("auto", "stacked", "clustered")
 # what disagreed with the auto path: reported where it happens, so that one
 # run shows every disagreement, and raised together at the end of main
 DISAGREEMENTS = []
-# the nine kernels: name -> (source, the TPU kernel it replaces)
+# the ten kernels: name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "multilevel_roi_align": (
         "cpm_tpu_torch/csrc/multilevel_roi_align.cu", "cpm_tpu/ops/pallas/multilevel_pallas.py:480"),
@@ -155,6 +158,9 @@ KERNELS = {
         "cpm_tpu_torch/csrc/multilevel_roi_align.cu", "cpm_tpu/ops/pallas/multilevel_pallas.py:632"),
     "clustered_roi_align": (
         "cpm_tpu_torch/csrc/clustered_roi_align.cu", "cpm_tpu/ops/pallas/clustered_pallas.py:327"),
+    # the clustered path's grouping, XLA ops around the Pallas kernel there
+    "cluster_rois": (
+        "cpm_tpu_torch/csrc/clustered_roi_align.cu", "cpm_tpu/ops/pallas/clustered_pallas.py:249"),
     "stacked_roi_align": (
         "cpm_tpu_torch/csrc/stacked_roi_align.cu", "cpm_tpu/ops/pallas/stacked_pallas.py:296"),
     "stacked_roi_align_backward": (
@@ -173,6 +179,8 @@ X101_SAMPLER_CALLS = 30   # deformable 3x3 convs in res3 (4), res4 (23), res5 (3
 # the kernels that a pooler call launches under each TPU.POOLER_KERNEL value
 FORWARD_KERNEL = {"auto": "multilevel_roi_align", "stacked": "stacked_roi_align",
                   "clustered": "clustered_roi_align"}
+# the grouping kernel each pooler call launches before the forward kernel
+GROUPING_KERNEL = {"clustered": "cluster_rois"}
 BACKWARD_KERNEL = {"auto": "multilevel_roi_align_backward",
                    "stacked": "stacked_roi_align_backward",
                    "clustered": "multilevel_roi_align_backward"}
@@ -195,7 +203,7 @@ def ops():
 
 
 def launch_counts():
-    """Launches of each of the nine kernels so far, as their wrappers count them."""
+    """Launches of each of the ten kernels so far, as their wrappers count them."""
     m = ops()
     return {
         "deform_sample": m["deform"].KERNEL.launches,
@@ -204,6 +212,7 @@ def launch_counts():
         "multilevel_roi_align": m["multilevel"].KERNEL.launches,
         "multilevel_roi_align_backward": m["multilevel"].KERNEL.backward_launches,
         "clustered_roi_align": m["clustered"].KERNEL.launches,
+        "cluster_rois": m["clustered"].KERNEL.grouping_launches,
         "stacked_roi_align": m["stacked"].KERNEL.launches,
         "stacked_roi_align_backward": m["stacked"].KERNEL.backward_launches,
         "roi_align": m["single"].KERNEL.launches,
@@ -216,6 +225,7 @@ def reset_launch_counts():
         mod.KERNEL.launches = 0
     for name in ("multilevel", "stacked", "deform"):
         m[name].KERNEL.backward_launches = 0
+    m["clustered"].KERNEL.grouping_launches = 0
 
 
 def launched_since(before):
@@ -236,63 +246,6 @@ def cuda_ms(fn, reps: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def bound_of(nbytes, flops):
-    """(bound ms, 'bytes' or 'operations') of a call that must move nbytes
-    and do flops f32 operations."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def touched_cells(shapes, rois, levels, valid, pool, scales):
-    """How many level cells the valid rois read: those that receive a
-    non-zero gradient from an all-ones output gradient, counted with the
-    plain backward at C=1."""
-    from cpm_tpu_torch.ops.cuda.multilevel_roi_align import plain_multilevel_roi_align_backward
-
-    ones = torch.ones((rois.shape[0], *pool, 1), device=rois.device)
-    touched = plain_multilevel_roi_align_backward(
-        [(*s[:3], 1) for s in shapes], rois, levels, valid, ones, scales, 2)
-    return sum(int((t != 0).sum()) for t in touched)
-
-
-def roi_align_bounds(shapes, rois, levels, valid, pool, elem_size, scales=SCALES):
-    """(forward bound ms, backward bound ms, 'bytes' or 'operations' each)
-    for one call on these inputs, as the module docstring sets out."""
-    channels = shapes[0][3]
-    cells = touched_cells(shapes, rois, levels, valid, pool, scales)
-    n, n_valid = rois.shape[0], int(valid.sum())
-    bins = pool[0] * pool[1]
-    roi_bytes = n * (5 * 4 + 4 + 1)
-    out_bytes = n * bins * channels * elem_size
-    fwd_bytes = cells * channels * elem_size + roi_bytes + out_bytes
-    map_bytes = sum(s[0] * s[1] * s[2] for s in shapes) * channels * elem_size
-    bwd_bytes = n_valid * bins * channels * elem_size + roi_bytes + map_bytes
-    flops = n_valid * bins * 4 * 4 * channels * 2  # samples x cells x (mul, add)
-    return bound_of(fwd_bytes, flops), bound_of(bwd_bytes, flops)
-
-
-def clustered_bound(shapes, rois, levels, valid, pool, elem_size, grouping):
-    """The clustered forward's bound: every group's rectangle read once (a
-    singleton whose rectangle exceeds the tile reads the cells it touches),
-    the rois, the grouping arrays, and the output written once."""
-    from cpm_tpu_torch.ops.roi_align import TILE
-
-    channels = shapes[0][3]
-    g = grouping.groups.long()
-    fits = (g[:, 6] <= TILE) & (g[:, 7] <= TILE)
-    cells = int((g[:, 6] * g[:, 7])[fits & (g[:, 1] > 0)].sum())
-    # the members of the groups beyond the tile: all singletons
-    big = torch.zeros_like(valid)
-    big[grouping.order.long()[g[~fits & (g[:, 1] > 0), 0]]] = True
-    if big.any():
-        cells += touched_cells(shapes, rois, levels, big, pool, SCALES)
-    n, n_valid = rois.shape[0], int(valid.sum())
-    bins = pool[0] * pool[1]
-    nbytes = (cells * channels * elem_size + n * (5 * 4 + 1) + n * 4 + n * 8 * 4
-              + n * bins * channels * elem_size)
-    return bound_of(nbytes, n_valid * bins * 4 * 4 * channels * 2)
 
 
 def group_histogram(grouping):
@@ -341,14 +294,37 @@ def forward_impl(impl, features, rois, levels, valid, pool):
         grouping = cluster()
 
         def extra(fs):
-            return (f"grouping (cluster_rois, torch ops) {cuda_ms(cluster):.4f} ms; "
-                    f"{group_histogram(grouping)}")
+            return group_histogram(grouping)
 
         return (lambda fs: m["clustered"].KERNEL(fs, rois, levels, valid, pool, SCALES, 2,
                                                  grouping=grouping),
                 lambda fs: plain.multilevel_roi_align_clustered_plain(
                     fs, rois, levels, valid, pool, SCALES, 2, grouping=grouping), extra)
     raise ValueError(impl)
+
+
+def check_grouping(name, rois, levels, valid, level_hw, batch, pool, card):
+    """The grouping kernel against its plain version, `cluster_rois`, on the
+    same inputs: order, groups, slot groups and group count equal, integer
+    for integer. Returns a dict of the times and bound (err 0)."""
+    from cpm_tpu_torch.ops.roi_align import Grouping, cluster_rois
+    from cpm_tpu_torch.tools.bench_roi_align import grouping_bound
+
+    kernel = ops()["clustered"].KERNEL
+    args = (rois, levels, valid, level_hw, batch, pool, SCALES, 2)
+    got, want = kernel.group(*args), cluster_rois(*args)
+    for field in Grouping._fields:
+        a, b = getattr(got, field), getattr(want, field)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"grouping {name}: {field} differs from cluster_rois'")
+    ms = cuda_ms(lambda: kernel.group(*args))
+    plain_ms = cuda_ms(lambda: cluster_rois(*args), reps=5)
+    bound_ms, bound_by = grouping_bound(rois.shape[0])
+    print(f"[grouping] {name}: R={rois.shape[0]} valid={int(valid.sum())} pool={pool}: "
+          f"{int(got.n_groups)} groups, order, groups, slot groups and count equal to "
+          f"cluster_rois'; kernel {ms:.4f} ms, plain (cluster_rois, torch ops) {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by}) | {card}")
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def check_kernel(name, features, rois, levels, valid, pool, card, rescale=False, impl="multilevel"):
@@ -394,6 +370,8 @@ def check_kernel(name, features, rois, levels, valid, pool, card, rescale=False,
     ms = cuda_ms(lambda: kernel(bf))
     plain_ms = cuda_ms(lambda: plain(bf), reps=5)
     shapes = [tuple(f.shape) for f in bf]
+    from cpm_tpu_torch.tools.bench_roi_align import clustered_bound, roi_align_bounds
+
     if impl == "clustered":
         from cpm_tpu_torch.ops.roi_align import cluster_rois
 
@@ -410,7 +388,11 @@ def check_kernel(name, features, rois, levels, valid, pool, card, rescale=False,
     )
     if extra is not None:
         print(f"[kernel] {name}: {extra(bf)} | {card}")
-    return dict(err=err32, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    out = dict(err=err32, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    if impl == "clustered":
+        out["grouping"] = check_grouping(name, rois, levels, valid, [s[1:3] for s in shapes],
+                                         shapes[0][0], pool, card)
+    return out
 
 
 def check_backward_kernel(name, shapes, rois, levels, valid, g, card, rescale=False,
@@ -492,6 +474,8 @@ def check_backward_kernel(name, shapes, rois, levels, valid, g, card, rescale=Fa
             raise AssertionError(f"{name}: bf16 backward, {bad} cells beyond rtol {BF16_RTOL} "
                                  f"atol {BF16_ATOL}, max |err| {d.max().item()}")
     del got, want, kept, again, got16, want16
+
+    from cpm_tpu_torch.tools.bench_roi_align import roi_align_bounds
 
     ms = cuda_ms(lambda: kernel(shapes, rois, levels, valid, g16, SCALES, 2))
     plain_ms = cuda_ms(lambda: plain(shapes, rois, levels, valid, g16, SCALES, 2), reps=3)
@@ -601,6 +585,7 @@ def phase_single_level(dev, rng, card):
     backward, which is the path that reaches this kernel."""
     from cpm_tpu_torch.ops.pooler import Pooler
     from cpm_tpu_torch.ops.roi_align import roi_align as plain
+    from cpm_tpu_torch.tools.bench_roi_align import roi_align_bounds
 
     m = ops()
     feats = torch.randn(C4_SHAPE, generator=torch.Generator().manual_seed(4)).to(dev)
@@ -779,6 +764,8 @@ def phase_eval(dev, card, backend, n_batch1, reference):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     want_launches = {FORWARD_KERNEL[backend]: 5}
+    if backend in GROUPING_KERNEL:
+        want_launches[GROUPING_KERNEL[backend]] = 5
     latencies = []
     for i, (images, sizes) in enumerate(requests):
         before = launch_counts()
@@ -806,7 +793,9 @@ def phase_eval(dev, card, backend, n_batch1, reference):
                     compared = f"; DISAGREES with the auto path: {e}"
         print(f"{tag} request {i}: batch {images.shape[0]} sizes {sizes.tolist()} "
               f"{dt * 1e3:.1f} ms, valid detections {counts}, launches {launched}{compared}")
-    launches = launch_counts()[FORWARD_KERNEL[backend]]
+    counts = launch_counts()
+    launches = counts[FORWARD_KERNEL[backend]]
+    grouping_launches = counts.get(GROUPING_KERNEL.get(backend))
     peak = torch.cuda.max_memory_allocated()
     lat1 = statistics.median(latencies[:-1]) * 1e3
     print(f"{tag} batch-1 median latency {lat1:.2f} ms over {n_batch1} requests | {card}")
@@ -835,7 +824,13 @@ def phase_eval(dev, card, backend, n_batch1, reference):
         check_kernel(f"eval-path {site}", *call, card, rescale=True, impl=impl)
         for site, call in zip(POOLER_SITES, captured)
     ]
-    return summed(results, launches, f"[kernel] {impl}: the 5 pooler calls of one batch-1 forward", card)
+    out = summed(results, launches, f"[kernel] {impl}: the 5 pooler calls of one batch-1 forward",
+                 card)
+    if backend in GROUPING_KERNEL:
+        name = GROUPING_KERNEL[backend]
+        out["grouping"] = summed([r["grouping"] for r in results], grouping_launches,
+                                 f"[kernel] {name}: the 5 groupings of one batch-1 forward", card)
+    return out
 
 
 def summed(results, launches, what, card):
@@ -994,6 +989,8 @@ def phase_train(dev, card, backend, reference, config="flagship"):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     want_launches = {fwd_kernel: 5, bwd_kernel: 5}
+    if backend in GROUPING_KERNEL:
+        want_launches[GROUPING_KERNEL[backend]] = 5
     if deformable:
         want_launches.update(deform_sample=X101_SAMPLER_CALLS,
                              deform_sample_backward=X101_SAMPLER_CALLS)
@@ -1054,7 +1051,9 @@ def phase_train(dev, card, backend, reference, config="flagship"):
     print(f"{tag} launches in the 2 steps: {fwd_kernel} {launches[0]}, {bwd_kernel} {launches[1]}")
     if backend == "clustered":
         # its backward is the multilevel kernel, checked under auto
-        return dict(launches=launches)
+        grouping = counts[GROUPING_KERNEL[backend]]
+        print(f"{tag} launches in the 2 steps: {GROUPING_KERNEL[backend]} {grouping}")
+        return dict(launches=launches, grouping_launches=grouping)
     if deformable:
         print(f"{tag} launches in the 2 steps: deform_sample {counts['deform_sample']}, "
               f"deform_sample_backward {counts['deform_sample_backward']}; "
@@ -1453,6 +1452,7 @@ def main():
         "multilevel_roi_align_backward": (bwd["auto"]["launches"][1] + bwd["clustered"]["launches"][1]
                                           + x101_bwd["pooler_launches"][1]),
         "clustered_roi_align": fwd["clustered"]["launches"] + bwd["clustered"]["launches"][0],
+        "cluster_rois": fwd["clustered"]["grouping"]["launches"] + bwd["clustered"]["grouping_launches"],
         "stacked_roi_align": fwd["stacked"]["launches"] + bwd["stacked"]["launches"][0],
         "stacked_roi_align_backward": bwd["stacked"]["launches"][1],
         "roi_align": single["launches"],
@@ -1465,6 +1465,7 @@ def main():
         "multilevel_roi_align": (fwd["auto"], synthetic["multilevel"]),
         "multilevel_roi_align_backward": (bwd["auto"], synthetic_bwd["multilevel"]),
         "clustered_roi_align": (fwd["clustered"], synthetic["clustered"]),
+        "cluster_rois": (fwd["clustered"]["grouping"], [r["grouping"] for r in synthetic["clustered"]]),
         "stacked_roi_align": (fwd["stacked"], synthetic["stacked"]),
         "stacked_roi_align_backward": (bwd["stacked"], synthetic_bwd["stacked"]),
         "roi_align": (single, []),

@@ -41,20 +41,6 @@ using namespace cpm;
 
 constexpr int kLanes = 2;  // threads along a chunk's channels, 16 bytes each
 
-template <typename T>
-__device__ __forceinline__ void accumulate_bits(const uint4& raw, float w,
-                                                float* acc);
-template <>
-__device__ __forceinline__ void accumulate_bits<float>(const uint4& raw,
-                                                       float w, float* acc) {
-  accumulate_raw(*reinterpret_cast<const float4*>(&raw), w, acc);
-}
-template <>
-__device__ __forceinline__ void accumulate_bits<__nv_bfloat16>(
-    const uint4& raw, float w, float* acc) {
-  accumulate_raw(raw, w, acc);
-}
-
 // The two window cells a relative position weighs and their hat weights;
 // a cell outside [0, extent) weighs zero.
 __device__ __forceinline__ void hat_axis(float pos, int extent, int* cell,

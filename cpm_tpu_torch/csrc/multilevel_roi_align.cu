@@ -18,14 +18,23 @@
 // What bounds it on the H100: bytes, not FLOPs. Every sample reads four
 // C-vectors (4 x 512 B at C=256 in bf16) and does one multiply-add per
 // element read, so the kernel is a gather whose traffic mostly hits L1/L2
-// (neighbouring samples of a roi share source cells). The design keeps
-// those gathers wide and coalesced: one CTA per roi (and C tile), threads
-// along C, each thread loading 16 contiguous bytes of a cell with a
-// read-only load, so a warp reads whole 512-byte cell rows. Threads along
-// the block's y dimension split the output bins. Accumulation is in f32;
-// the result is written once in the feature dtype. The TPU kernel's 64-cell
-// window, prefetch ring and hat-weight matmuls have no counterpart: the
-// kernel reads cells directly and is exact for every roi shape.
+// (neighbouring samples of a roi share source cells), and what limits it in
+// practice is how many of those gathers are in flight on the card. The
+// design: threads along C, each loading 16 contiguous bytes of a cell with a
+// read-only load, so a warp reads whole 512-byte cell rows; rows of threads
+// split a roi's bins, at most four bins a row, and the roi's bins are
+// spread over several blocks (bin_slices), so that a grid-stage call of 300
+// rois at 14x14 runs 2100 short blocks over the 132 SMs rather than 300
+// long ones. Each block stages the roi's samples along each axis (cells and
+// weights, pooled x sr a side) in shared memory once, instead of every
+// thread recomputing every sample for every bin; each thread keeps a
+// sample's four loads in flight (pool_bin, roi_align_common.cuh) within 48
+// registers, so that five blocks fit an SM. Every output element is summed
+// in the order the stacked, clustered and single-level forwards sum it, so
+// all four give the same bits. Accumulation is in
+// f32; the result is written once in the feature dtype. The TPU kernel's
+// 64-cell window, prefetch ring and hat-weight matmuls have no counterpart:
+// the kernel reads cells directly and is exact for every roi shape.
 //
 // Plain C interface, bound from Python with ctypes
 // (cpm_tpu_torch/ops/cuda/multilevel_roi_align.py).
@@ -62,70 +71,80 @@ namespace {
 using namespace cpm;
 using cpm_multilevel::LevelTable;
 
+// Block (tx, ty) as roi_launch_shape gives it: tx threads along C, ty rows
+// of bins. Block x of the grid pools bins [slice * span, slice * span +
+// span) of roi x / slices; block y is the C tile. Five blocks an SM: at
+// most 48 registers a thread.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 5)
     multilevel_roi_align_fwd_kernel(LevelTable levels, int num_levels,
                                     int batch, int channels,
                                     const float* __restrict__ rois,
                                     const int32_t* __restrict__ roi_levels,
                                     const uint8_t* __restrict__ valid,
                                     int pooled_h, int pooled_w, int sr,
-                                    int aligned, T* __restrict__ out) {
+                                    int aligned, int slices, int span,
+                                    T* __restrict__ out) {
+  extern __shared__ AxisSample axis[];  // pooled_h * sr rows, then columns
   constexpr int kN = VecWidth<T>::kN;
-  const int r = blockIdx.x;
-  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * kN;
-  if (c0 >= channels) return;
+  const int r = blockIdx.x / slices;
   const int bins = pooled_h * pooled_w;
+  const int first = (blockIdx.x - r * slices) * span;
+  const int last = min(first + span, bins);
+  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * kN;
+  const bool has_channels = c0 < channels;
   T* out_roi = out + static_cast<size_t>(r) * bins * channels + c0;
 
   if (!valid[r]) {
+    if (!has_channels) return;
     const float zeros[kN] = {};
-    for (int bin = threadIdx.y; bin < bins; bin += blockDim.y) {
+    for (int bin = first + threadIdx.y; bin < last; bin += blockDim.y) {
       store(out_roi + static_cast<size_t>(bin) * channels, zeros);
     }
     return;
   }
 
+  // the roi's samples along each axis, once for the block
   const RoiGeometry geo =
       roi_geometry(levels, num_levels, batch, rois, roi_levels, r, pooled_h,
                    pooled_w, aligned);
-  const int H = geo.height;
+  const int rows = pooled_h * sr;
+  const int cols = pooled_w * sr;
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < rows + cols;
+       i += blockDim.x * blockDim.y) {
+    axis[i] = i < rows
+                  ? axis_sample(geo.y1, i, sr, geo.bin_h, geo.height)
+                  : axis_sample(geo.x1, i - rows, sr, geo.bin_w, geo.width);
+  }
+  __syncthreads();
+  if (!has_channels) return;
+
   const int W = geo.width;
-  const float count = static_cast<float>(sr * sr);
-
   const T* feat = static_cast<const T*>(levels.ptr[geo.level]) +
-                  static_cast<size_t>(geo.batch) * H * W * channels + c0;
-
-  for (int bin = threadIdx.y; bin < bins; bin += blockDim.y) {
+                  static_cast<size_t>(geo.batch) * geo.height * W * channels +
+                  c0;
+  const auto load = [&](int y, int x) {
+    return load16(feat + (static_cast<size_t>(y) * W + x) * channels);
+  };
+  for (int bin = first + threadIdx.y; bin < last; bin += blockDim.y) {
     const int py = bin / pooled_w;
     const int px = bin - py * pooled_w;
-    float acc[kN] = {};
-    for (int iy = 0; iy < sr; ++iy) {
-      int y_lo, y_hi;
-      float wy_lo, wy_hi;
-      const float y = sample_coord(geo.y1, py * sr + iy, sr, geo.bin_h);
-      if (!bilinear_1d(y, H, &y_lo, &y_hi, &wy_lo, &wy_hi)) continue;
-      const T* row_lo = feat + static_cast<size_t>(y_lo) * W * channels;
-      const T* row_hi = feat + static_cast<size_t>(y_hi) * W * channels;
-      for (int ix = 0; ix < sr; ++ix) {
-        int x_lo, x_hi;
-        float wx_lo, wx_hi;
-        const float x = sample_coord(geo.x1, px * sr + ix, sr, geo.bin_w);
-        if (!bilinear_1d(x, W, &x_lo, &x_hi, &wx_lo, &wx_hi)) continue;
-        accumulate(row_lo + static_cast<size_t>(x_lo) * channels,
-                   cell_weight(wy_lo, wx_lo), acc);
-        accumulate(row_lo + static_cast<size_t>(x_hi) * channels,
-                   cell_weight(wy_lo, wx_hi), acc);
-        accumulate(row_hi + static_cast<size_t>(x_lo) * channels,
-                   cell_weight(wy_hi, wx_lo), acc);
-        accumulate(row_hi + static_cast<size_t>(x_hi) * channels,
-                   cell_weight(wy_hi, wx_hi), acc);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kN; ++k) acc[k] /= count;
+    float acc[kN];
+    pool_bin<T>(axis + py * sr, axis + rows + px * sr, sr, load, acc);
     store(out_roi + static_cast<size_t>(bin) * channels, acc);
   }
+}
+
+// The work split: each block pools `span` bins of one roi, at most
+// kBinsPerRow per row of threads, the bins spread evenly over the `slices`
+// blocks of a roi (at C=256 in bf16, 8 rows: 7 blocks of 28 bins a roi at
+// 14x14, 2 of 25 at 7x7). Its plain version is
+// cpm_tpu_torch/ops/cuda/multilevel_roi_align.py::bin_slices.
+constexpr int kBinsPerRow = 4;
+inline void bin_slices(int bins, int rows_of_threads, int* slices, int* span) {
+  const int most = kBinsPerRow * rows_of_threads;
+  *slices = (bins + most - 1) / most;
+  *span = (bins + *slices - 1) / *slices;
 }
 
 template <typename T>
@@ -136,9 +155,13 @@ cudaError_t launch(const LevelTable& table, int num_levels, int batch,
                    cudaStream_t stream) {
   dim3 grid, block;
   roi_launch_shape<T>(channels, num_rois, &grid, &block);
-  multilevel_roi_align_fwd_kernel<T><<<grid, block, 0, stream>>>(
+  int slices, span;
+  bin_slices(pooled_h * pooled_w, block.y, &slices, &span);
+  grid.x = num_rois * slices;
+  const size_t shared = sizeof(AxisSample) * (pooled_h + pooled_w) * sr;
+  multilevel_roi_align_fwd_kernel<T><<<grid, block, shared, stream>>>(
       table, num_levels, batch, channels, rois, roi_levels, valid, pooled_h,
-      pooled_w, sr, aligned, out);
+      pooled_w, sr, aligned, slices, span, out);
   return cudaGetLastError();
 }
 
@@ -165,10 +188,16 @@ LevelTable make_table(const void* level_ptrs, const void* level_hw,
   return table;
 }
 
-bool bad_arguments(int num_levels, int num_rois, int channels,
-                   int sampling_ratio, int dtype) {
+// The forward stages (pooled_h + pooled_w) * sampling_ratio samples in
+// shared memory: at most the 48 KB a block has without opting in.
+bool bad_arguments(int num_levels, int num_rois, int channels, int pooled_h,
+                   int pooled_w, int sampling_ratio, int dtype) {
   return num_levels < 1 || num_levels > kMaxLevels || num_rois < 1 ||
-         channels < 1 || sampling_ratio < 1 || dtype < 0 || dtype > 1;
+         channels < 1 || pooled_h < 1 || pooled_w < 1 || sampling_ratio < 1 ||
+         dtype < 0 || dtype > 1 ||
+         static_cast<long long>(pooled_h + pooled_w) * sampling_ratio *
+                 sizeof(AxisSample) >
+             48 * 1024;
 }
 
 }  // namespace
@@ -188,7 +217,8 @@ extern "C" int cpm_multilevel_roi_align_fwd(
     const void* roi_levels, const void* valid, int num_rois, int pooled_h,
     int pooled_w, int sampling_ratio, int aligned, int dtype, void* out,
     void* stream) {
-  if (bad_arguments(num_levels, num_rois, channels, sampling_ratio, dtype)) {
+  if (bad_arguments(num_levels, num_rois, channels, pooled_h, pooled_w,
+                    sampling_ratio, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const LevelTable table =
@@ -223,7 +253,8 @@ extern "C" int cpm_multilevel_roi_align_bwd(
     const void* roi_levels, const void* valid, int num_rois, int pooled_h,
     int pooled_w, int sampling_ratio, int aligned, int dtype, const void* g,
     void* stream) {
-  if (bad_arguments(num_levels, num_rois, channels, sampling_ratio, dtype)) {
+  if (bad_arguments(num_levels, num_rois, channels, pooled_h, pooled_w,
+                    sampling_ratio, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const LevelTable table =

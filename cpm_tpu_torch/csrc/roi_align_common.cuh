@@ -229,6 +229,87 @@ __device__ __forceinline__ float sample_coord(float start, int index, int sr,
   return __fadd_rn(start, __fmul_rn(f, bin));
 }
 
+// One sample of a roi along one axis, as the forward kernels stage it in
+// shared memory: its two cells and their weights; lo is -1 for a sample
+// that is out of bounds (it reads zero).
+struct AxisSample {
+  int lo;
+  int hi;
+  float w_lo;
+  float w_hi;
+};
+
+// Sample `index` (over bins x samples per bin) of an axis that starts at
+// `start` with bins of `bin` cells, on an axis of `size` cells: exactly
+// what sample_coord and bilinear_1d give for it.
+__device__ __forceinline__ AxisSample axis_sample(float start, int index,
+                                                  int sr, float bin,
+                                                  int size) {
+  AxisSample a;
+  if (!bilinear_1d(sample_coord(start, index, sr, bin), size, &a.lo, &a.hi,
+                   &a.w_lo, &a.w_hi)) {
+    a.lo = -1;
+  }
+  return a;
+}
+
+// acc += w * (16 bytes of T held as a uint4)
+template <typename T>
+__device__ __forceinline__ void accumulate_bits(const uint4& raw, float w,
+                                                float* acc);
+template <>
+__device__ __forceinline__ void accumulate_bits<float>(const uint4& raw,
+                                                       float w, float* acc) {
+  accumulate_raw(*reinterpret_cast<const float4*>(&raw), w, acc);
+}
+template <>
+__device__ __forceinline__ void accumulate_bits<__nv_bfloat16>(
+    const uint4& raw, float w, float* acc) {
+  accumulate_raw(raw, w, acc);
+}
+
+// The 16 bytes at p in global memory, read-only path.
+template <typename T>
+__device__ __forceinline__ uint4 load16(const T* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// One bin of a forward kernel: acc = the mean of its sr x sr bilinear
+// samples, from the staged samples ys[0..sr) and xs[0..sr) of the bin;
+// load(y, x) returns the thread's 16 bytes of cell (y, x). Every forward
+// kernel sums in this one order: y sample, x sample, then the four cells
+// (lo, lo), (lo, hi), (hi, lo), (hi, hi), each weighed by cell_weight; then
+// divides by sr^2. A sample's four cells are loaded before they are added,
+// so four 16-byte loads are in flight; two samples' eight need registers
+// that cost the kernels a block an SM, and lost on the card.
+template <typename T, typename Load>
+__device__ __forceinline__ void pool_bin(const AxisSample* ys,
+                                         const AxisSample* xs, int sr,
+                                         Load load, float* acc) {
+  constexpr int kN = VecWidth<T>::kN;
+#pragma unroll
+  for (int k = 0; k < kN; ++k) acc[k] = 0.0f;
+  for (int iy = 0; iy < sr; ++iy) {
+    const AxisSample y = ys[iy];
+    if (y.lo < 0) continue;
+    for (int ix = 0; ix < sr; ++ix) {
+      const AxisSample x = xs[ix];
+      if (x.lo < 0) continue;
+      const uint4 v0 = load(y.lo, x.lo);
+      const uint4 v1 = load(y.lo, x.hi);
+      const uint4 v2 = load(y.hi, x.lo);
+      const uint4 v3 = load(y.hi, x.hi);
+      accumulate_bits<T>(v0, cell_weight(y.w_lo, x.w_lo), acc);
+      accumulate_bits<T>(v1, cell_weight(y.w_lo, x.w_hi), acc);
+      accumulate_bits<T>(v2, cell_weight(y.w_hi, x.w_lo), acc);
+      accumulate_bits<T>(v3, cell_weight(y.w_hi, x.w_hi), acc);
+    }
+  }
+  const float count = static_cast<float>(sr * sr);
+#pragma unroll
+  for (int k = 0; k < kN; ++k) acc[k] /= count;
+}
+
 // Opts `kernel` in to `bytes` of dynamic shared memory on the current
 // device unless opted[device] says it already is: the call costs the host
 // microseconds, too much to repeat at every launch. Each launch function

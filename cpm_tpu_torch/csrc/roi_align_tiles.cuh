@@ -313,6 +313,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Which devices each dtype's backward kernel is opted in on, for this
+// library alone: `static` at namespace scope has internal linkage. A static
+// inside the launch template below would be one object across every library
+// loaded into the process (a unique symbol, even under RTLD_LOCAL), so a
+// second library built from another version of this header, loaded beside
+// it to compare the two, would skip its own opt-in and its launch would be
+// refused. A library includes this header for one table type.
+static int tile_backward_opted[2][kMaxDevices] = {};
+
 // One launch of the backward over every tile of every level's map, on
 // `stream`. Returns the cudaError_t of the launch.
 template <typename T, typename Table>
@@ -337,9 +346,9 @@ cudaError_t launch_roi_tile_backward(const Table& table, int num_levels,
   }
   const dim3 grid(static_cast<unsigned>(blocks),
                   (channels + kChunk - 1) / kChunk);
-  static int opted[kMaxDevices] = {};
-  const cudaError_t err =
-      opt_in_shared(roi_tile_backward_kernel<T, Table>, kTileBytes, opted);
+  const cudaError_t err = opt_in_shared(roi_tile_backward_kernel<T, Table>,
+                                        kTileBytes,
+                                        tile_backward_opted[sizeof(T) == 4]);
   if (err != cudaSuccess) return err;
   roi_tile_backward_kernel<T, Table><<<grid, kThreads, kTileBytes, stream>>>(
       table, tiles, num_levels, batch, channels, rois, roi_levels, valid,

@@ -8,11 +8,14 @@ plain C entry points, built by one nvcc call into `build/cpm_tpu_torch/` at
 first use (ops/cuda/_build.py) and bound with ctypes. A `torch.autograd.Function` pairs them.
 
 What bounds it on the H100 is the bytes its bilinear gathers read from
-L2/HBM, not FLOPs: one multiply-add per element read. The design keeps each
-gather a full coalesced row: one CTA per roi (and C tile), threads along C
-loading 16 bytes each with read-only loads, f32 accumulation, one store of
-the feature dtype per output element. Masked rois write zeros and read
-nothing. It takes none of the TPU kernel's window, so it is exact for every
+L2/HBM, not FLOPs: one multiply-add per element read, and in practice how
+many gathers are in flight. The design keeps each gather a full coalesced
+row (threads along C loading 16 bytes each with read-only loads) and spreads
+each roi's bins over several short blocks (`bin_slices`), each of which
+stages the roi's samples along each axis in shared memory once; a thread
+keeps a sample's four loads in flight within 48 registers, so that five
+blocks fit an SM; f32 accumulation, one store of the feature dtype per
+output element. Masked rois write zeros and read nothing. It takes none of the TPU kernel's window, so it is exact for every
 roi aspect ratio and the JAX pooler's window-overflow patch has no
 counterpart here.
 
@@ -39,6 +42,7 @@ kernels or raises. `KERNEL.launches` counts forward launches,
 `KERNEL.backward_launches` backward ones.
 """
 
+import contextlib
 import ctypes
 from typing import Sequence
 
@@ -94,6 +98,28 @@ def check_level_maps(features, dev):
     return dtype, batch, channels
 
 
+BINS_PER_ROW = 4
+
+
+def bin_slices(bins: int, channels: int, element_size: int):
+    """The forward kernel's work split (csrc/multilevel_roi_align.cu::
+    bin_slices): (blocks a roi, bins a block). A block has 256 threads, at
+    most 64 along C (16 bytes each), the rest in rows that take at most
+    BINS_PER_ROW bins each; a roi's bins are spread evenly over the fewest
+    blocks that hold them."""
+    vecs = channels * element_size // 16
+    rows = 256 // min(vecs, 64)
+    slices = -(-bins // (BINS_PER_ROW * rows))
+    return slices, -(-bins // slices)
+
+
+def on_device(dev):
+    """A context that makes `dev` current: none when it already is."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 class MultilevelRoIAlignKernel:
     """The built kernel library, its launch count and its build record."""
 
@@ -102,6 +128,20 @@ class MultilevelRoIAlignKernel:
         self.backward_launches = 0
         self.built = None
         self._lib = None
+        # (level sizes, scales) -> the ctypes arrays the launches pass
+        self._tables = {}
+
+    def level_tables(self, level_hw, spatial_scales):
+        """The ctypes arrays of level sizes ([h0, w0, h1, ...]) and scales,
+        made once for each geometry: the pooler calls repeat a few."""
+        key = (tuple(level_hw), tuple(spatial_scales))
+        tables = self._tables.get(key)
+        if tables is None:
+            n = len(level_hw)
+            tables = ((ctypes.c_int * (2 * n))(*[int(d) for hw in level_hw for d in hw]),
+                      (ctypes.c_float * n)(*[float(s) for s in spatial_scales]))
+            self._tables[key] = tables
+        return tables
 
     def build(self):
         """Compile the source unless a build of the same source, header and
@@ -129,13 +169,11 @@ class MultilevelRoIAlignKernel:
         lib = self.build()
         fn = getattr(lib, f"cpm_multilevel_roi_align_{entry}")
         ptrs = (ctypes.c_void_p * num_levels)(*[f.data_ptr() for f in level_tensors])
-        hw = (ctypes.c_int * (2 * num_levels))(
-            *[int(d) for f in level_tensors for d in f.shape[1:3]]
-        )
-        scales = (ctypes.c_float * num_levels)(*[float(s) for s in spatial_scales])
+        hw, scales = self.level_tables([tuple(f.shape[1:3]) for f in level_tensors],
+                                       spatial_scales)
         f0 = level_tensors[0]
         dev = rois.device
-        with torch.cuda.device(dev):
+        with on_device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(
                 ctypes.addressof(ptrs), ctypes.addressof(hw),

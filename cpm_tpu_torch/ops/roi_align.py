@@ -374,6 +374,86 @@ def _support(axis: _Axis):
     return torch.where(extent > 0, first, 0), extent
 
 
+class _GroupKeys(NamedTuple):
+    """What the grouping computes for each roi before it sorts (`[R]` long
+    each): its sort key, its support's origin and extent on its level along
+    each axis, its batch image and its level id; and the size of the key
+    space of the grouped rois."""
+    key: torch.Tensor
+    y0: torch.Tensor
+    need_r: torch.Tensor
+    x0: torch.Tensor
+    need_c: torch.Tensor
+    image: torch.Tensor
+    level: torch.Tensor
+    shared_keys: int
+
+
+def _group_keys(rois, levels, valid, level_hw, batch, output_size, spatial_scales, sr,
+                aligned) -> _GroupKeys:
+    """Rois of one image and level whose supports (the cells their bilinear
+    samples read) begin in the same LATTICE_Q x LATTICE_Q lattice block, and
+    fit the TILE x TILE rectangle placed at that block's origin, get that
+    block's key, below `shared_keys`; every other valid roi i gets
+    `shared_keys + i`, a key of its own, and masked roi i `shared_keys + R +
+    i`."""
+    tile, pitch = TILE, LATTICE_Q
+    dev = rois.device
+    n = rois.shape[0]
+    lv = _level_columns(level_hw, batch, levels, spatial_scales, dev)
+    ys, xs = _roi_samples(rois, lv.scale, lv.height.float(), lv.width.float(),
+                          output_size, sr, aligned)
+    y0, need_r = _support(ys)
+    x0, need_c = _support(xs)
+    image = torch.clamp(rois[:, 0].long(), 0, batch - 1)
+    lvl = levels.long()
+    valid = valid.bool()
+
+    cy, cx = y0 // pitch, x0 // pitch
+    fits = ((y0 - cy * pitch + need_r <= tile) & (x0 - cx * pitch + need_c <= tile)
+            & (need_r > 0) & (need_c > 0))
+    eligible = fits & valid
+    ny = max(h for h, _ in level_hw) // pitch + 1
+    nx = max(w for _, w in level_hw) // pitch + 1
+    cell = ((image * len(level_hw) + lvl) * ny + cy) * nx + cx
+    arange = torch.arange(n, dtype=torch.long, device=dev)
+    beyond = batch * len(level_hw) * ny * nx
+    key = torch.where(eligible, cell, beyond + arange)
+    key = torch.where(valid, key, beyond + n + arange)
+    return _GroupKeys(key, y0, need_r, x0, need_c, image, lvl, beyond)
+
+
+def _group_rows(keys: _GroupKeys, order, new_group, slot_group, valid_s):
+    """The `Grouping` of rois sorted into `order`, where `new_group` marks
+    the slots that open a group and `slot_group` holds each slot's group."""
+    n = order.shape[0]
+    dev = order.device
+    arange = torch.arange(n, dtype=torch.long, device=dev)
+    # one spare row takes what belongs to no group
+    member_of = torch.where(valid_s, slot_group, n)
+    leader_of = torch.where(new_group, slot_group, n)
+    y0_s, x0_s = keys.y0[order], keys.x0[order]
+    far = torch.iinfo(torch.int64).max
+
+    def reduce(values, how, start):
+        out = torch.full((n + 1,), start, dtype=torch.long, device=dev)
+        return out.scatter_reduce(0, member_of, values, how, include_self=True)
+
+    top, left = reduce(y0_s, "amin", far), reduce(x0_s, "amin", far)
+    bottom = reduce(y0_s + keys.need_r[order], "amax", -1)
+    right = reduce(x0_s + keys.need_c[order], "amax", -1)
+    size = reduce(valid_s.long(), "sum", 0)
+    groups = torch.zeros((n + 1, 8), dtype=torch.long, device=dev)
+    groups[leader_of, 0] = arange
+    groups[leader_of, 2] = keys.level[order]
+    groups[leader_of, 3] = keys.image[order]
+    groups[:, 1] = size
+    groups[:, 4], groups[:, 5] = top, left
+    groups[:, 6], groups[:, 7] = bottom - top, right - left
+    groups = torch.where(size[:, None] > 0, groups, 0)[:n]
+    return Grouping(order.int(), groups.int(), slot_group, new_group.sum())
+
+
 def cluster_rois(
     rois: torch.Tensor,
     levels: torch.Tensor,
@@ -399,62 +479,80 @@ def cluster_rois(
     """
     sr = sampling_ratio if sampling_ratio > 0 else 2
     group = group_cap(output_size) if group is None else int(group)
-    tile, pitch = TILE, LATTICE_Q
     dev = rois.device
     n = rois.shape[0]
-    lv = _level_columns(level_hw, batch, levels, spatial_scales, dev)
-    ys, xs = _roi_samples(rois, lv.scale, lv.height.float(), lv.width.float(),
-                          output_size, sr, aligned)
-    y0, need_r = _support(ys)
-    x0, need_c = _support(xs)
-    image = torch.clamp(rois[:, 0].long(), 0, batch - 1)
-    lvl = levels.long()
-    valid = valid.bool()
-
-    cy, cx = y0 // pitch, x0 // pitch
-    fits = ((y0 - cy * pitch + need_r <= tile) & (x0 - cx * pitch + need_c <= tile)
-            & (need_r > 0) & (need_c > 0))
-    eligible = fits & valid
-    ny = max(h for h, _ in level_hw) // pitch + 1
-    nx = max(w for _, w in level_hw) // pitch + 1
-    cell = ((image * len(level_hw) + lvl) * ny + cy) * nx + cx
+    keys = _group_keys(rois, levels, valid, level_hw, batch, output_size, spatial_scales, sr,
+                       aligned)
     arange = torch.arange(n, dtype=torch.long, device=dev)
-    beyond = batch * len(level_hw) * ny * nx
-    key = torch.where(eligible, cell, beyond + arange)
-    key = torch.where(valid, key, beyond + n + arange)
 
-    order = torch.argsort(key, stable=True)
-    key_s, valid_s = key[order], valid[order]
+    order = torch.argsort(keys.key, stable=True)
+    key_s, valid_s = keys.key[order], valid.bool()[order]
     boundary = torch.ones(n, dtype=torch.bool, device=dev)
     boundary[1:] = key_s[1:] != key_s[:-1]
     run_start = torch.cummax(torch.where(boundary, arange, 0), dim=0).values
     # groups open only at valid slots; the masked tail joins none
     new_group = (boundary | ((arange - run_start) % group == 0)) & valid_s
     slot_group = torch.cumsum(new_group.long(), dim=0) - 1
+    return _group_rows(keys, order, new_group, slot_group, valid_s)
 
-    # one spare row takes what belongs to no group
-    member_of = torch.where(valid_s, slot_group, n)
-    leader_of = torch.where(new_group, slot_group, n)
-    y0_s, x0_s = y0[order], x0[order]
-    far = torch.iinfo(torch.int64).max
 
-    def reduce(values, how, start):
-        out = torch.full((n + 1,), start, dtype=torch.long, device=dev)
-        return out.scatter_reduce(0, member_of, values, how, include_self=True)
+def counting_sort_groups(
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    valid: torch.Tensor,
+    level_hw,
+    batch: int,
+    output_size,
+    spatial_scales: Sequence[float],
+    sampling_ratio: int = 0,
+    aligned: bool = False,
+    group: int = None,
+) -> Grouping:
+    """`cluster_rois` as the grouping kernel (csrc/clustered_roi_align.cu::
+    cluster_rois_kernel) computes it, without a sort: the plain statement of
+    its rule, which gives `cluster_rois`' integers.
 
-    top, left = reduce(y0_s, "amin", far), reduce(x0_s, "amin", far)
-    bottom = reduce(y0_s + need_r[order], "amax", -1)
-    right = reduce(x0_s + need_c[order], "amax", -1)
-    size = reduce(valid_s.long(), "sum", 0)
-    groups = torch.zeros((n + 1, 8), dtype=torch.long, device=dev)
-    groups[leader_of, 0] = arange
-    groups[leader_of, 2] = lvl[order]
-    groups[leader_of, 3] = image[order]
-    groups[:, 1] = size
-    groups[:, 4], groups[:, 5] = top, left
-    groups[:, 6], groups[:, 7] = bottom - top, right - left
-    groups = torch.where(size[:, None] > 0, groups, 0)[:n]
-    return Grouping(order.int(), groups.int(), slot_group, new_group.sum())
+    The grouped rois (a shared key, below `shared_keys`) are counted per key;
+    the exclusive scan of the counts gives each key's first slot, and that of
+    ceil(count / group) its first group. A grouped roi's rank is the number
+    of rois of its key with a smaller index (stable); its slot is its key's
+    first slot plus its rank, its group its key's first group plus rank //
+    group. The other valid rois follow in index order, one group each, and
+    the masked rois last, in no group (their slot group is the last group).
+    """
+    sr = sampling_ratio if sampling_ratio > 0 else 2
+    group = group_cap(output_size) if group is None else int(group)
+    dev = rois.device
+    n = rois.shape[0]
+    keys = _group_keys(rois, levels, valid, level_hw, batch, output_size, spatial_scales, sr,
+                       aligned)
+    valid = valid.bool()
+    grouped = keys.key < keys.shared_keys
+    loner = valid & ~grouped
+    cell = torch.where(grouped, keys.key, 0)
+    count = torch.bincount(cell[grouped], minlength=keys.shared_keys)
+    first_slot = torch.cumsum(count, 0) - count
+    first_group = torch.cumsum((count + group - 1) // group, 0) - (count + group - 1) // group
+    n_grouped, shared_groups = int(count.sum()), int(((count + group - 1) // group).sum())
+    index = torch.arange(n, dtype=torch.long, device=dev)
+    same_before = (cell[:, None] == cell[None, :]) & grouped[None, :] & (index[None, :] < index[:, None])
+    rank = same_before.sum(1)
+    loner_rank = torch.cumsum(loner.long(), 0) - loner.long()
+    masked_rank = torch.cumsum((~valid).long(), 0) - (~valid).long()
+    slot = torch.where(grouped, first_slot[cell] + rank,
+                       torch.where(loner, n_grouped + loner_rank,
+                                   n_grouped + int(loner.sum()) + masked_rank))
+    n_groups = shared_groups + int(loner.sum())
+    roi_group = torch.where(grouped, first_group[cell] + rank // group,
+                            torch.where(loner, shared_groups + loner_rank, n_groups - 1))
+    opens = (grouped & (rank % group == 0)) | loner
+    order = torch.empty(n, dtype=torch.long, device=dev)
+    order[slot] = index
+    slot_group = torch.empty(n, dtype=torch.long, device=dev)
+    slot_group[slot] = roi_group
+    new_group = torch.zeros(n, dtype=torch.bool, device=dev)
+    new_group[slot] = opens
+    return _group_rows(keys, order, new_group, slot_group, valid[order])
 
 
 def multilevel_roi_align_clustered_plain(

@@ -60,6 +60,71 @@ def cuda_ms(fn, iters=30):
     return statistics.median(times)
 
 
+def touched_cells(shapes, rois, levels, valid, pool, scales=SCALES):
+    """How many level cells the valid rois read: those that receive a
+    non-zero gradient from an all-ones output gradient, counted with the
+    plain backward at C=1."""
+    from cpm_tpu_torch.ops.cuda.multilevel_roi_align import plain_multilevel_roi_align_backward
+
+    ones = torch.ones((rois.shape[0], *pool, 1), device=rois.device)
+    touched = plain_multilevel_roi_align_backward(
+        [(*s[:3], 1) for s in shapes], rois, levels, valid, ones, scales, 2)
+    return sum(int((t != 0).sum()) for t in touched)
+
+
+def roi_align_bounds(shapes, rois, levels, valid, pool, elem_size, scales=SCALES):
+    """((forward bound ms, by), (backward bound ms, by)) of one multilevel
+    RoIAlign call on these inputs, `by` 'bytes' or 'operations'. Forward: the
+    level cells the rois touch, the rois, level ids and mask read, the output
+    written; backward: the valid rois' rows of `g` and the rois read, every
+    level map's gradient written once. One multiply-add per channel of each of
+    a valid sample's four cells."""
+    from cpm_tpu_torch.tools.probe_dcn_sampler import bound_of
+
+    channels = shapes[0][3]
+    cells = touched_cells(shapes, rois, levels, valid, pool, scales)
+    n, n_valid = rois.shape[0], int(valid.sum())
+    bins = pool[0] * pool[1]
+    roi_bytes = n * (5 * 4 + 4 + 1)
+    out_bytes = n * bins * channels * elem_size
+    fwd_bytes = cells * channels * elem_size + roi_bytes + out_bytes
+    map_bytes = sum(s[0] * s[1] * s[2] for s in shapes) * channels * elem_size
+    bwd_bytes = n_valid * bins * channels * elem_size + roi_bytes + map_bytes
+    flops = n_valid * bins * 4 * 4 * channels * 2  # samples x cells x (mul, add)
+    return bound_of(fwd_bytes, flops), bound_of(bwd_bytes, flops)
+
+
+def clustered_bound(shapes, rois, levels, valid, pool, elem_size, grouping, scales=SCALES):
+    """(ms, by) of the clustered forward: every group's rectangle read once (a
+    singleton whose rectangle exceeds the tile reads the cells it touches),
+    the rois, the grouping arrays, and the output written once."""
+    from cpm_tpu_torch.ops.roi_align import TILE
+    from cpm_tpu_torch.tools.probe_dcn_sampler import bound_of
+
+    channels = shapes[0][3]
+    g = grouping.groups.long()
+    fits = (g[:, 6] <= TILE) & (g[:, 7] <= TILE)
+    cells = int((g[:, 6] * g[:, 7])[fits & (g[:, 1] > 0)].sum())
+    # the members of the groups beyond the tile: all singletons
+    big = torch.zeros_like(valid)
+    big[grouping.order.long()[g[~fits & (g[:, 1] > 0), 0]]] = True
+    if big.any():
+        cells += touched_cells(shapes, rois, levels, big, pool, scales)
+    n, n_valid = rois.shape[0], int(valid.sum())
+    bins = pool[0] * pool[1]
+    nbytes = (cells * channels * elem_size + n * (5 * 4 + 1) + n * 4 + n * 8 * 4
+              + n * bins * channels * elem_size)
+    return bound_of(nbytes, n_valid * bins * 4 * 4 * channels * 2)
+
+
+def grouping_bound(num_rois):
+    """(ms, by) of grouping `num_rois` rois: the rois, level ids and mask
+    read, the order, group rows, slot groups and group count written."""
+    from cpm_tpu_torch.tools.probe_dcn_sampler import bound_of
+
+    return bound_of(num_rois * (5 * 4 + 4 + 1) + num_rois * (4 + 8 * 4 + 8) + 8, 0)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rois", type=int, default=768)

@@ -575,3 +575,131 @@ def test_cuda_deform_sample_backward_at_batch_4_on_the_res3_stride_2_map():
                                rtol=1.6e-2, atol=1e-2)
     torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-3)
+
+
+# the flagship's level maps at 800x1344
+FLAGSHIP_SHAPES = [(200, 336), (100, 168), (50, 84), (25, 42)]
+
+
+def _pooler_rois(n, seed, dense=False, masked=0.3):
+    """[n, 5] rois over a batch of two 800x1344 images on the card, their
+    levels by the FPN rule, and a mask: boxes of every size, the first
+    (up to seven) rows extreme aspect ratios, a whole-map roi, boxes outside
+    the image and a degenerate one; `dense`: jittered copies of a few boxes,
+    so that rois share cells and groups form."""
+    import torch
+
+    from cpm_tpu_torch.ops.pooler import assign_fpn_levels
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    rng = np.random.RandomState(seed)
+    side = np.exp(rng.uniform(np.log(8), np.log(900), n))
+    aspect = np.exp(rng.uniform(np.log(0.25), np.log(4.0), n))
+    w, h = side * np.sqrt(aspect), side / np.sqrt(aspect)
+    x1, y1 = rng.uniform(-40, 1344, n), rng.uniform(-40, 800, n)
+    boxes = np.stack([x1, y1, x1 + w, y1 + h], 1)
+    if dense:
+        base = boxes[rng.randint(0, max(1, n // 12), n)]
+        boxes = base + rng.uniform(-4, 4, (n, 4)) * np.tile(base[:, 2:] - base[:, :2], 2) / 100
+    special = np.array([[0, 300, 1340, 310], [600, 0, 606, 799], [0, 0, 1343, 799],
+                        [1400, 900, 1500, 1000], [-300, -300, -100, -100], [500, 400, 480, 380],
+                        [700, 300, 700, 300]])
+    k = min(n, len(special)) if not dense else 0
+    boxes[:k] = special[:k]
+    rois = np.concatenate([rng.randint(0, 2, n)[:, None], boxes], 1).astype(np.float32)
+    valid = rng.rand(n) >= masked
+    valid[:k] = True
+    rois = torch.from_numpy(rois).cuda()
+    levels = (assign_fpn_levels(rois[:, 1:5], 2, 5) - 2).int()
+    return rois, levels, torch.from_numpy(valid).cuda()
+
+
+def _flagship_maps(dtype, seed=0, channels=256):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(2, h, w, channels, generator=gen).cuda().to(dtype)
+            for h, w in FLAGSHIP_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool", POOLS, ids=["7x7", "14x14"])
+@pytest.mark.parametrize("num_rois", [1, 7, 300, 1000])
+def test_cuda_multilevel_forward_bin_slices_match_plain(num_rois, pool, dtype_name):
+    """The multilevel forward spreads each roi's bins over several blocks
+    (`bin_slices`); at roi counts that fill none of the splits evenly, with
+    masked rois, extreme aspect ratios and a whole-map roi it gives the plain
+    version's values and zeros for the masked rois."""
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import multilevel_roi_align as op
+    from cpm_tpu_torch.ops.roi_align import multilevel_roi_align as plain
+
+    rois, levels, valid = _pooler_rois(num_rois, seed=num_rois)
+    dtype = getattr(torch, dtype_name)
+    fs = _flagship_maps(dtype)
+    before = op.KERNEL.launches
+    got = op.multilevel_roi_align(fs, rois, levels, valid, pool, SCALES, 2)
+    assert op.KERNEL.launches == before + 1
+    assert got.dtype == dtype and not got[~valid].any()
+    want = torch.cat([plain([f.float() for f in fs], r, l, pool, SCALES, 2)
+                      for r, l in zip(rois.split(100), levels.split(100))])
+    want = want * valid[:, None, None, None]
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.to(dtype).float(), rtol=1.6e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", POOLS, ids=["cap 8 at 7x7", "cap 4 at 14x14"])
+@pytest.mark.parametrize("kind", ["random", "dense", "all masked", "one roi"])
+def test_cuda_grouping_kernel_equals_cluster_rois(kind, pool):
+    """The grouping kernel's order, groups, slot groups and group count are
+    `cluster_rois`' integer for integer, at the group caps of both pool
+    sizes."""
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import clustered_roi_align as op
+    from cpm_tpu_torch.ops.roi_align import Grouping, cluster_rois, group_cap
+
+    n = {"random": 600, "dense": 1000, "all masked": 64, "one roi": 1}[kind]
+    rois, levels, valid = _pooler_rois(n, seed=3, dense=kind == "dense",
+                                       masked=1.0 if kind == "all masked" else 0.3)
+    if kind == "one roi":
+        valid[:] = True
+    args = (rois, levels, valid, FLAGSHIP_SHAPES, 2, pool, SCALES, 2)
+    before = op.KERNEL.grouping_launches
+    got, want = op.KERNEL.group(*args), cluster_rois(*args)
+    assert op.KERNEL.grouping_launches == before + 1
+    for field in Grouping._fields:
+        a, b = getattr(got, field), getattr(want, field)
+        assert a.dtype == b.dtype and torch.equal(a, b), field
+    sizes = want.groups[:, 1]
+    assert int(sizes.max()) <= group_cap(pool)
+    if kind == "dense":
+        assert int((sizes > 1).sum()) > 10   # groups of several rois formed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["random", "dense"])
+def test_cuda_clustered_forward_on_the_grouping_kernel_gives_the_multilevel_bits(kind, dtype_name):
+    """Kernel 3 on the grouping kernel's groups gives the multilevel
+    forward's bits at both pool sizes, and launches the grouping once a
+    call."""
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import clustered_roi_align as op
+    from cpm_tpu_torch.ops.cuda import multilevel_roi_align as level_op
+
+    rois, levels, valid = _pooler_rois(1000, seed=5, dense=kind == "dense")
+    fs = _flagship_maps(getattr(torch, dtype_name), seed=1)
+    for pool in POOLS:
+        before = (op.KERNEL.launches, op.KERNEL.grouping_launches)
+        got = op.multilevel_roi_align_clustered(fs, rois, levels, valid, pool, SCALES, 2)
+        assert (op.KERNEL.launches, op.KERNEL.grouping_launches) == (before[0] + 1, before[1] + 1)
+        assert torch.equal(got, level_op.multilevel_roi_align(fs, rois, levels, valid, pool,
+                                                              SCALES, 2))
