@@ -17,9 +17,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    rois (~30% masked, with extreme-aspect, outside and degenerate boxes) and
    on a dense set that forms multi-roi groups (the group-size histogram is
    printed); the stacked and clustered kernels also against the multilevel
-   kernel on the same inputs, and the grouping kernel against its plain
-   version, `cluster_rois`, integer for integer. The single-level kernel against its plain
-   version at the C4 shape ([2, 50, 84, 1024] f32, 1024 rois, 7x7 and 14x14).
+   kernel on the same inputs, bit-equal in f32 and bf16 (the stacked one runs
+   its loop, csrc/roi_align_forward.cuh), the stacked path's one-pass stack
+   against `stack_levels`, bit-equal, and the grouping kernel against its
+   plain version, `cluster_rois`, integer for integer. The single-level
+   kernel against its plain version at the C4 shape ([2, 50, 84, 1024] f32,
+   1024 rois, 7x7 and 14x14), and against the multilevel kernel at one level
+   (not aligned, every roi valid), bit-equal.
 2b. backward kernels: the multilevel and the stacked backward against their
    plain versions (autograd of the plain forwards) at the training shapes
    (R=1024 at 7x7, R=256 at 14x14, ~30% masked, and a case where 512 rois
@@ -35,7 +39,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    one batch-2 request. Checks every request's detections and that it
    launched its backend's forward kernel 5 times (cls, three grid stages,
    rescore), under clustered the grouping kernel 5 times too, and no other
-   kernel; under stacked and clustered the detections
+   kernel, and that under stacked it built one stack (the five calls pool the
+   same FPN maps), elsewhere none; under stacked and clustered the detections
    of two requests must equal the auto path's. Then the kernel check of
    phase 2 is repeated on the FPN maps and rois of the five pooler calls of
    one batch-1 forward; each kernel's `ms` and `plain_ms` in the JSON line
@@ -51,7 +56,7 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    (cpm_tpu_torch/tools/profile_train.py::fold_batch_statistics). One
    warm-up step and two timed steps, checked for losses, launches (5 forward
    and 5 backward of the backend's kernels, under clustered 5 groupings, none
-   of any other), gradients,
+   of any other), stacks built (one a step under stacked), gradients,
    changed and frozen parameters and the learning rate; under stacked and
    clustered the losses are held against the auto path's. Then the
    backward-kernel check of phase 2b on the gradients, rois and level shapes
@@ -62,7 +67,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    CPU at a narrow width in f32, the same seed, batch and draws.
 7. single-level path: no model of the port has a one-level pooler yet, so a
    `Pooler` over one C4 map is driven directly, forward and backward, and
-   held against the plain version.
+   held against the plain version and, bit for bit, against the multilevel
+   kernel at one level on the same f32 map.
 8. sampler kernels: the deformable-conv sampler's forward and backward
    kernels against their plain versions (`deform_sample_plain` and autograd
    of it) at the geometries of cpm_tpu_torch/tools/probe_dcn_sampler.py (res3
@@ -113,8 +119,8 @@ rois, and every level map written once for a backward; for the clustered
 forward each group's rectangle counted once, not once per roi, plus the
 grouping arrays; for the grouping kernel the rois, level ids and mask read
 and the grouping written) and its f32 multiply-adds over 67 TFLOP/s. The
-stacked kernels' stack copy is torch ops outside the kernels; its time is
-printed on a line of its own. No
+stacked kernels' stack is torch ops outside the kernels, made once a
+forward in one pass; its time is printed on a line of its own. No
 single PyTorch call computes a RoIAlign or its transpose (torchvision's is
 no dependency of the port), so `library_ms` is null for the RoIAlign kernels
 and the grouping. The
@@ -219,6 +225,12 @@ def launch_counts():
     }
 
 
+def stack_builds():
+    """Stacked buffers built so far by the stacked pooler (once a forward,
+    `ops/cuda/stacked_roi_align.py::STACKS`)."""
+    return ops()["stacked"].STACKS.builds
+
+
 def reset_launch_counts():
     m = ops()
     for mod in m.values():
@@ -281,8 +293,13 @@ def forward_impl(impl, features, rois, levels, valid, pool):
             return m["stacked"].KERNEL(stacks[key], level_hw, rois, levels, valid, pool, SCALES, 2)
 
         def extra(fs):
-            ms = cuda_ms(lambda: plain.stack_levels(fs))
-            return f"stack copy (pad and cat, torch ops) {ms:.4f} ms"
+            # the card's stack, made once a forward: one pass over the bytes
+            if not torch.equal(plain.stack_levels_in_one_pass(fs), plain.stack_levels(fs)):
+                raise AssertionError("the one-pass stack differs from stack_levels")
+            ms = cuda_ms(lambda: plain.stack_levels_in_one_pass(fs))
+            pad_cat_ms = cuda_ms(lambda: plain.stack_levels(fs))
+            return (f"stack in one pass (torch ops, once a forward) {ms:.4f} ms, bit-equal to "
+                    f"stack_levels (pad and cat, {pad_cat_ms:.4f} ms)")
 
         return (kernel, lambda fs: plain.multilevel_roi_align_stacked_plain(
             fs, rois, levels, pool, SCALES, 2) * mask.to(fs[0].dtype), extra)
@@ -353,12 +370,17 @@ def check_kernel(name, features, rois, levels, valid, pool, card, rescale=False,
         raise AssertionError(f"{name}: f32 kernel vs plain max |err| {err32} > {F32_ATOL}")
     if got[~valid].any():
         raise AssertionError(f"{name}: a masked roi's row is not zero")
-    vs_multilevel = (got - other(f32)).abs().max().item()
-    if vs_multilevel > F32_ATOL:
-        raise AssertionError(f"{name}: differs from the multilevel kernel by {vs_multilevel}")
+    # the stacked and clustered forwards sum in the multilevel one's order
+    # (csrc/roi_align_forward.cuh, roi_align_common.cuh::pool_bin): its bits
+    if impl != "multilevel" and not torch.equal(got, other(f32)):
+        raise AssertionError(f"{name}: f32 differs from the multilevel kernel by "
+                             f"{(got - other(f32)).abs().max().item()}")
 
     bf = [f.to(torch.bfloat16).contiguous() for f in features]
-    got = kernel(bf).float()
+    got = kernel(bf)
+    if impl != "multilevel" and not torch.equal(got, other(bf)):
+        raise AssertionError(f"{name}: bf16 differs from the multilevel kernel's bits")
+    got = got.float()
     want = plain([f.float() for f in bf]).to(torch.bfloat16).float()
     torch.cuda.synchronize()
     err16 = (got - want).abs().max().item()
@@ -382,7 +404,8 @@ def check_kernel(name, features, rois, levels, valid, pool, card, rescale=False,
         (bound_ms, bound_by), _ = roi_align_bounds(shapes, rois, levels, valid, pool, 2)
     print(
         f"[kernel] {name}: R={rois.shape[0]} pool={pool} valid={int(valid.sum())} "
-        f"f32 max|err|={err32:.3g} (atol {F32_ATOL}) vs multilevel kernel {vs_multilevel:.3g} "
+        f"f32 max|err|={err32:.3g} (atol {F32_ATOL}) "
+        f"{'' if impl == 'multilevel' else 'bit-equal to the multilevel kernel (f32, bf16) '}"
         f"bf16 max|err|={err16:.3g} (rtol {BF16_RTOL}, atol {BF16_ATOL}) bf16 kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) | {card}"
     )
@@ -606,13 +629,18 @@ def phase_single_level(dev, rng, card):
         err = (got - want).abs().max().item()
         if not torch.isfinite(got).all() or err > F32_ATOL:
             raise AssertionError(f"single-level {pool}: f32 kernel vs plain max |err| {err}")
+        # kernel 1's loop at one level, not aligned, every roi valid: its bits
+        if not torch.equal(got, m["multilevel"].KERNEL([feats], rois, zeros, everyone, pool,
+                                                       (C4_SCALE,), 2)):
+            raise AssertionError(f"single-level {pool}: differs from the multilevel kernel")
         del got, want
         ms = cuda_ms(lambda: m["single"].KERNEL(feats, rois, pool, C4_SCALE, 2))
         plain_ms = cuda_ms(lambda: chunked_plain(pool), reps=3)
         (bound_ms, bound_by), _ = roi_align_bounds(
             [C4_SHAPE], rois, zeros, everyone, pool, 4, scales=(C4_SCALE,))
         print(f"[kernel] single-level C4 {pool[0]}x{pool[1]}: map {C4_SHAPE} f32 R={C4_ROIS} "
-              f"max|err|={err:.3g} (atol {F32_ATOL}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"max|err|={err:.3g} (atol {F32_ATOL}), bit-equal to the multilevel kernel at one "
+              f"level; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
               f"(in chunks of 256 rois), bound {bound_ms:.4f} ms ({bound_by}) | {card}")
         results.append(dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
 
@@ -635,6 +663,12 @@ def phase_single_level(dev, rng, card):
         raise AssertionError(f"one-level Pooler: {bad.item()} elements differ from the plain version")
     if half.grad is None or not torch.isfinite(half.grad).all() or not half.grad.any():
         raise AssertionError("one-level Pooler: no finite gradient reached the map")
+    # kernel 5 against kernel 1 at one level on what the Pooler gave it
+    level = m["multilevel"].KERNEL([half.detach().float()], rois, zeros, everyone, (7, 7),
+                                   (C4_SCALE,), 2).to(torch.bfloat16)
+    if not torch.equal(pooled.detach(),
+                       torch.where(valid[:, None, None, None], level, torch.zeros_like(level))):
+        raise AssertionError("one-level Pooler: differs from the multilevel kernel at one level")
     # the gradient through the op (forward kernel, multilevel backward kernel
     # at one level) against autograd of the plain version, f32, 256 rois
     few = rois[:256].contiguous()
@@ -651,7 +685,8 @@ def phase_single_level(dev, rng, card):
           f"max |diff| {d.max().item():.3g} (rtol {BWD_F32_RTOL}, atol {BWD_F32_ATOL})")
     print(f"[single-level path] Pooler over one C4 level, bf16 map {C4_SHAPE}, R={C4_ROIS} "
           f"({int(valid.sum())} valid), 7x7: matches the plain version (rtol {BF16_RTOL}, atol "
-          f"{BF16_ATOL}), masked rows zero, gradient finite; launches {launched}")
+          f"{BF16_ATOL}) and the multilevel kernel at one level (bit-equal), masked rows zero, "
+          f"gradient finite; launches {launched}")
     # the JSON line's times are those of the path's shape, 7x7
     return dict(results[0], launches=launched["roi_align"], err=max(r["err"] for r in results))
 
@@ -768,7 +803,7 @@ def phase_eval(dev, card, backend, n_batch1, reference):
         want_launches[GROUPING_KERNEL[backend]] = 5
     latencies = []
     for i, (images, sizes) in enumerate(requests):
-        before = launch_counts()
+        before, builds = launch_counts(), stack_builds()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         dets = forward(images, sizes)
@@ -776,9 +811,14 @@ def phase_eval(dev, card, backend, n_batch1, reference):
         dt = time.perf_counter() - t0
         latencies.append(dt)
         launched = launched_since(before)
+        built = stack_builds() - builds
         counts = check_detections(dets, sizes, images.shape[0], nc, max_dets)
         if launched != want_launches:
             raise AssertionError(f"{tag} request {i}: launched {launched}, want {want_launches}")
+        # the five pooler calls share the FPN maps: one stack a forward
+        if built != (backend == "stacked"):
+            raise AssertionError(f"{tag} request {i}: {built} stacks built, want "
+                                 f"{int(backend == 'stacked')}")
         compared = ""
         if i in (0, len(requests) - 1):
             key = "batch 1" if i == 0 else "batch 2"
@@ -792,7 +832,8 @@ def phase_eval(dev, card, backend, n_batch1, reference):
                     DISAGREEMENTS.append(str(e))
                     compared = f"; DISAGREES with the auto path: {e}"
         print(f"{tag} request {i}: batch {images.shape[0]} sizes {sizes.tolist()} "
-              f"{dt * 1e3:.1f} ms, valid detections {counts}, launches {launched}{compared}")
+              f"{dt * 1e3:.1f} ms, valid detections {counts}, launches {launched}, stacks "
+              f"built {built}{compared}")
     counts = launch_counts()
     launches = counts[FORWARD_KERNEL[backend]]
     grouping_launches = counts.get(GROUPING_KERNEL.get(backend))
@@ -999,12 +1040,15 @@ def phase_train(dev, card, backend, reference, config="flagship"):
     for i in range(2):
         batch = batch_for(101 + i)
         before = {k: p.detach().clone() for k, p in model.named_parameters()}
-        counts0, step0 = launch_counts(), state.step
+        counts0, step0, builds = launch_counts(), state.step, stack_builds()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        built = stack_builds() - builds
+        if built != (backend == "stacked"):
+            raise AssertionError(f"step {i}: {built} stacks built, want {int(backend == 'stacked')}")
         losses = losses_of(metrics)
         if set(metrics) != set(TRAIN_LOSSES) | {"total_loss", "lr"}:
             raise AssertionError(f"step {i}: metrics {sorted(metrics)}")
@@ -1039,7 +1083,7 @@ def phase_train(dev, card, backend, reference, config="flagship"):
         print(f"{tag} step {i} (update {step0}): {times[-1] * 1e3:.1f} ms, lr {metrics['lr']:.6g} "
               f"(schedule {lr_fn(step0):.6g}), total_loss {total:.4f}, "
               + ", ".join(f"{k[5:]} {v:.4f}" for k, v in losses.items())
-              + f"; launches {launched}; "
+              + f"; launches {launched}, stacks built {built}; "
               f"{len(changed)} tensors changed, {len(frozen)} frozen bit-equal{note}")
         del before
     counts = launch_counts()

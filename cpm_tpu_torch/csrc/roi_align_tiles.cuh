@@ -30,7 +30,8 @@
 //
 // The maps are reached through a table type with height(l), width(l),
 // scale(l) and row<T>(l, image, y, channels), the address of cell (y, 0) of
-// level l in `image`: that is all the two kernels differ in.
+// level l in `image` (LevelTable in roi_align_forward.cuh, StackMaps in
+// stacked_roi_align.cu): that is all the two kernels differ in.
 
 #pragma once
 
@@ -57,19 +58,17 @@ struct RoiGeometry {
   float bin_h;
 };
 
-// The level id is clamped like the batch id (roi_box): a malformed roi
-// cannot touch memory outside the maps.
+// The roi's geometry on `level` of the maps.
 template <typename Table>
-__device__ __forceinline__ RoiGeometry roi_geometry(
-    const Table& levels, int num_levels, int batch,
-    const float* __restrict__ rois, const int32_t* __restrict__ roi_levels,
+__device__ __forceinline__ RoiGeometry roi_geometry_at(
+    const Table& levels, int level, int batch, const float* __restrict__ rois,
     int r, int pooled_h, int pooled_w, int aligned) {
   RoiGeometry g;
-  g.level = min(max(roi_levels[r], 0), num_levels - 1);
-  g.height = levels.height(g.level);
-  g.width = levels.width(g.level);
+  g.level = level;
+  g.height = levels.height(level);
+  g.width = levels.width(level);
   const RoiBox box = roi_box(rois + static_cast<size_t>(r) * 5,
-                             levels.scale(g.level), batch, pooled_h, pooled_w,
+                             levels.scale(level), batch, pooled_h, pooled_w,
                              aligned);
   g.batch = box.batch;
   g.x1 = box.x1;
@@ -77,6 +76,22 @@ __device__ __forceinline__ RoiGeometry roi_geometry(
   g.bin_w = box.bin_w;
   g.bin_h = box.bin_h;
   return g;
+}
+
+// The level id is clamped like the batch id (roi_box): a malformed roi
+// cannot touch memory outside the maps.
+__device__ __forceinline__ int roi_level(const int32_t* __restrict__ roi_levels,
+                                         int r, int num_levels) {
+  return min(max(roi_levels[r], 0), num_levels - 1);
+}
+
+template <typename Table>
+__device__ __forceinline__ RoiGeometry roi_geometry(
+    const Table& levels, int num_levels, int batch,
+    const float* __restrict__ rois, const int32_t* __restrict__ roi_levels,
+    int r, int pooled_h, int pooled_w, int aligned) {
+  return roi_geometry_at(levels, roi_level(roi_levels, r, num_levels), batch,
+                         rois, r, pooled_h, pooled_w, aligned);
 }
 
 // The backward's blocks along grid x: level l owns [first[l], first[l+1]),

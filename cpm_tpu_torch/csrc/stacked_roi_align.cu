@@ -5,22 +5,23 @@
 // backward (_bwd/_bwd_kernel_body). All FPN levels lie in ONE buffer
 // [batch, total_rows, row_width, channels]: level l occupies rows
 // row_offset[l] .. row_offset[l] + height[l] and columns 0 .. width[l], the
-// rest of each row is padding. The kernel gets one base pointer and one row
+// rest of each row is padding. The kernels get one base pointer and one row
 // stride, and a per-level table of (row offset, height, width, scale) by
 // value; the address of cell (b, l, y, x) is
 //   base + ((b * total_rows + row_offset[l] + y) * row_width + x) * channels
 // so no pointer is chosen per roi. Sample coordinates are clamped to the
 // level's own height and width, so no sample reads a neighbour level's rows
-// or the padding columns. It computes what the multilevel kernel
-// (multilevel_roi_align.cu) computes, with the same device functions
-// (roi_align_common.cuh): the same cells, the same weights.
+// or the padding columns.
 //
-// What bounds it on the H100: bytes, as for the multilevel kernel: four
-// C-vectors read per sample, one multiply-add per element. One CTA per roi
-// (and C tile), threads along C with 16-byte read-only loads, f32
-// accumulation, one store of the feature dtype per output element; masked
-// rois write zeros and read nothing. The TPU kernel's 64-cell window DMA,
-// its zero tail rows and its pad to 8 columns have no counterpart.
+// The forward is the multilevel forward's own loop (roi_align_forward.cuh,
+// which says what bounds it on the H100 and how it is laid out) over the
+// stacked buffer (StackMaps): a roi's bins spread over several blocks, its
+// axis samples staged once a block, one sample's four 16-byte loads in
+// flight, five blocks an SM. It reads the same cells with the same weights
+// and sums them in the same order as the multilevel forward, so the two give
+// the same bits. Masked rois write zeros and read nothing. The TPU kernel's
+// 64-cell window DMA, its zero tail rows and its pad to 8 columns have no
+// counterpart.
 //
 // The backward is the transpose, the gradient of the stacked buffer: the
 // tile-owned gather of roi_align_tiles.cuh, the multilevel backward's own
@@ -41,7 +42,7 @@
 // Plain C interface, bound from Python with ctypes
 // (cpm_tpu_torch/ops/cuda/stacked_roi_align.py).
 
-#include "roi_align_tiles.cuh"
+#include "roi_align_forward.cuh"
 
 namespace cpm_stacked {
 
@@ -55,7 +56,7 @@ struct StackTable {
 };
 
 // The levels of one stacked buffer [batch, total_rows, row_width, channels]
-// as the tile-owned backward reaches them.
+// as the forward loop and the tile-owned backward reach them.
 struct StackMaps {
   StackTable table;
   void* base;
@@ -64,6 +65,7 @@ struct StackMaps {
 
   __host__ __device__ int height(int l) const { return table.height[l]; }
   __host__ __device__ int width(int l) const { return table.width[l]; }
+  __host__ __device__ int pitch(int) const { return row_width; }
   __device__ float scale(int l) const { return table.scale[l]; }
   // cell (y, 0) of level l in `image`
   template <typename T>
@@ -81,76 +83,6 @@ namespace {
 using namespace cpm;
 using cpm_stacked::StackMaps;
 using cpm_stacked::StackTable;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    stacked_roi_align_fwd_kernel(const T* __restrict__ stack,
-                                 StackTable table, int num_levels, int batch,
-                                 int total_rows, int row_width, int channels,
-                                 const float* __restrict__ rois,
-                                 const int32_t* __restrict__ roi_levels,
-                                 const uint8_t* __restrict__ valid,
-                                 int pooled_h, int pooled_w, int sr,
-                                 int aligned, T* __restrict__ out) {
-  constexpr int kN = VecWidth<T>::kN;
-  const int r = blockIdx.x;
-  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * kN;
-  if (c0 >= channels) return;
-  const int bins = pooled_h * pooled_w;
-  T* out_roi = out + static_cast<size_t>(r) * bins * channels + c0;
-
-  if (!valid[r]) {
-    const float zeros[kN] = {};
-    for (int bin = threadIdx.y; bin < bins; bin += blockDim.y) {
-      store(out_roi + static_cast<size_t>(bin) * channels, zeros);
-    }
-    return;
-  }
-
-  const int level = min(max(roi_levels[r], 0), num_levels - 1);
-  const int H = table.height[level];
-  const int W = table.width[level];
-  const RoiBox box = roi_box(rois + static_cast<size_t>(r) * 5,
-                             table.scale[level], batch, pooled_h, pooled_w,
-                             aligned);
-  const float count = static_cast<float>(sr * sr);
-  const size_t row_stride = static_cast<size_t>(row_width) * channels;
-  // row 0 of the roi's level in the roi's image
-  const T* level_rows =
-      stack +
-      (static_cast<size_t>(box.batch) * total_rows + table.row_offset[level]) *
-          row_stride +
-      c0;
-
-  for (int bin = threadIdx.y; bin < bins; bin += blockDim.y) {
-    const int py = bin / pooled_w;
-    const int px = bin - py * pooled_w;
-    float acc[kN] = {};
-    for (int iy = 0; iy < sr; ++iy) {
-      int y_lo, y_hi;
-      float wy_lo, wy_hi;
-      const float y = sample_coord(box.y1, py * sr + iy, sr, box.bin_h);
-      if (!bilinear_1d(y, H, &y_lo, &y_hi, &wy_lo, &wy_hi)) continue;
-      const T* row_lo = level_rows + y_lo * row_stride;
-      const T* row_hi = level_rows + y_hi * row_stride;
-      for (int ix = 0; ix < sr; ++ix) {
-        int x_lo, x_hi;
-        float wx_lo, wx_hi;
-        const float x = sample_coord(box.x1, px * sr + ix, sr, box.bin_w);
-        if (!bilinear_1d(x, W, &x_lo, &x_hi, &wx_lo, &wx_hi)) continue;
-        const size_t lo = static_cast<size_t>(x_lo) * channels;
-        const size_t hi = static_cast<size_t>(x_hi) * channels;
-        accumulate(row_lo + lo, cell_weight(wy_lo, wx_lo), acc);
-        accumulate(row_lo + hi, cell_weight(wy_lo, wx_hi), acc);
-        accumulate(row_hi + lo, cell_weight(wy_hi, wx_lo), acc);
-        accumulate(row_hi + hi, cell_weight(wy_hi, wx_hi), acc);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kN; ++k) acc[k] /= count;
-    store(out_roi + static_cast<size_t>(bin) * channels, acc);
-  }
-}
 
 // Fills the table from the host arrays ([row_offset, height, width] int32
 // triples, and float scales); false when a level does not lie inside the
@@ -174,10 +106,29 @@ bool make_table(const void* level_rows_hw, const void* level_scales,
   return true;
 }
 
-bool bad_arguments(int num_levels, int num_rois, int channels,
-                   int sampling_ratio, int dtype) {
+// The forward's staged samples must fit (forward_fits); the backward takes
+// the same arguments.
+bool bad_arguments(int num_levels, int num_rois, int channels, int pooled_h,
+                   int pooled_w, int sampling_ratio, int dtype) {
   return num_levels < 1 || num_levels > kMaxLevels || num_rois < 1 ||
-         channels < 1 || sampling_ratio < 1 || dtype < 0 || dtype > 1;
+         channels < 1 || dtype < 0 || dtype > 1 ||
+         !forward_fits(pooled_h, pooled_w, sampling_ratio);
+}
+
+// The stacked buffer at `base` as StackMaps; false when the arguments are
+// bad or a level does not lie inside the buffer.
+bool make_maps(void* base, const void* level_rows_hw, const void* level_scales,
+               int num_levels, int num_rois, int total_rows, int row_width,
+               int channels, int pooled_h, int pooled_w, int sampling_ratio,
+               int dtype, StackMaps* maps) {
+  *maps = {};
+  maps->base = base;
+  maps->total_rows = total_rows;
+  maps->row_width = row_width;
+  return !bad_arguments(num_levels, num_rois, channels, pooled_h, pooled_w,
+                        sampling_ratio, dtype) &&
+         make_table(level_rows_hw, level_scales, num_levels, total_rows,
+                    row_width, &maps->table);
 }
 
 }  // namespace
@@ -197,31 +148,28 @@ extern "C" int cpm_stacked_roi_align_fwd(
     const void* rois, const void* roi_levels, const void* valid, int num_rois,
     int pooled_h, int pooled_w, int sampling_ratio, int aligned, int dtype,
     void* out, void* stream) {
-  StackTable table = {};
-  if (bad_arguments(num_levels, num_rois, channels, sampling_ratio, dtype) ||
-      !make_table(level_rows_hw, level_scales, num_levels, total_rows,
-                  row_width, &table)) {
+  StackMaps maps;
+  if (!make_maps(const_cast<void*>(stack), level_rows_hw, level_scales,
+                 num_levels, num_rois, total_rows, row_width, channels,
+                 pooled_h, pooled_w, sampling_ratio, dtype, &maps)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* r = static_cast<const float*>(rois);
   const int32_t* lv = static_cast<const int32_t*>(roi_levels);
   const uint8_t* v = static_cast<const uint8_t*>(valid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid, block;
+  cudaError_t err;
   if (dtype == 0) {
-    roi_launch_shape<float>(channels, num_rois, &grid, &block);
-    stacked_roi_align_fwd_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(stack), table, num_levels, batch, total_rows,
-        row_width, channels, r, lv, v, pooled_h, pooled_w, sampling_ratio,
-        aligned, static_cast<float*>(out));
+    err = launch_roi_align_forward<float>(
+        maps, num_levels, batch, channels, r, lv, v, num_rois, pooled_h,
+        pooled_w, sampling_ratio, aligned, static_cast<float*>(out), s);
   } else {
-    roi_launch_shape<__nv_bfloat16>(channels, num_rois, &grid, &block);
-    stacked_roi_align_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(stack), table, num_levels, batch,
-        total_rows, row_width, channels, r, lv, v, pooled_h, pooled_w,
-        sampling_ratio, aligned, static_cast<__nv_bfloat16*>(out));
+    err = launch_roi_align_forward<__nv_bfloat16>(
+        maps, num_levels, batch, channels, r, lv, v, num_rois, pooled_h,
+        pooled_w, sampling_ratio, aligned, static_cast<__nv_bfloat16*>(out),
+        s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // The backward. grad_stack is the gradient of the stack,
@@ -236,15 +184,12 @@ extern "C" int cpm_stacked_roi_align_bwd(
     const void* rois, const void* roi_levels, const void* valid, int num_rois,
     int pooled_h, int pooled_w, int sampling_ratio, int aligned, int dtype,
     const void* g, void* stream) {
-  StackMaps maps = {};
-  if (bad_arguments(num_levels, num_rois, channels, sampling_ratio, dtype) ||
-      !make_table(level_rows_hw, level_scales, num_levels, total_rows,
-                  row_width, &maps.table)) {
+  StackMaps maps;
+  if (!make_maps(grad_stack, level_rows_hw, level_scales, num_levels,
+                 num_rois, total_rows, row_width, channels, pooled_h,
+                 pooled_w, sampling_ratio, dtype, &maps)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  maps.base = grad_stack;
-  maps.total_rows = total_rows;
-  maps.row_width = row_width;
   const float* r = static_cast<const float*>(rois);
   const int32_t* lv = static_cast<const int32_t*>(roi_levels);
   const uint8_t* v = static_cast<const uint8_t*>(valid);

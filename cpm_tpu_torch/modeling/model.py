@@ -94,7 +94,7 @@ class GeneralizedRCNN(nn.Module):
         scope = (
             pooler_mod.pooler_force_f32_scope(True) if force_f32 else contextlib.nullcontext()
         )
-        with scope:
+        with scope, pooler_mod.one_stack_per_forward():
             return self._forward(images, image_sizes, gt, train, draws)
 
     def _forward(self, images, image_sizes, gt, train, draws):

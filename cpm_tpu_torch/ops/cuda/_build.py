@@ -19,7 +19,8 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-HEADERS = (CSRC / "roi_align_common.cuh", CSRC / "roi_align_tiles.cuh")
+HEADERS = (CSRC / "roi_align_common.cuh", CSRC / "roi_align_tiles.cuh",
+           CSRC / "roi_align_forward.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cpm_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -3,7 +3,9 @@
 Replaces the TPU kernels of cpm_tpu/ops/pallas/multilevel_pallas.py:
 `multilevel_roi_align_pallas` (forward, `_fwd`) and its custom_vjp backward
 (`_bwd` / `_bwd_kernel_body`). The kernels,
-cpm_tpu_torch/csrc/multilevel_roi_align.cu, are CUDA C++ for sm_90a with
+cpm_tpu_torch/csrc/multilevel_roi_align.cu (its forward loop in
+csrc/roi_align_forward.cuh, shared with the stacked and single-level
+forwards), are CUDA C++ for sm_90a with
 plain C entry points, built by one nvcc call into `build/cpm_tpu_torch/` at
 first use (ops/cuda/_build.py) and bound with ctypes. A `torch.autograd.Function` pairs them.
 
@@ -102,8 +104,9 @@ BINS_PER_ROW = 4
 
 
 def bin_slices(bins: int, channels: int, element_size: int):
-    """The forward kernel's work split (csrc/multilevel_roi_align.cu::
-    bin_slices): (blocks a roi, bins a block). A block has 256 threads, at
+    """The forward kernels' work split (csrc/roi_align_forward.cuh::
+    bin_slices, shared by the multilevel, stacked and single-level
+    forwards): (blocks a roi, bins a block). A block has 256 threads, at
     most 64 along C (16 bytes each), the rest in rows that take at most
     BINS_PER_ROW bins each; a roi's bins are spread evenly over the fewest
     blocks that hold them."""

@@ -5,7 +5,9 @@ Replaces the TPU kernel of cpm_tpu/ops/pallas/roi_align_pallas.py:
 cpm_tpu_torch/csrc/roi_align.cu, computes that function exactly (not
 aligned, no mask, float32 in and out: a bf16 map is cast by this wrapper, as
 the TPU wrapper does) and reads only the four cells of each sample; what
-bounds it on the H100 is the bytes of its output.
+bounds it on the H100 is the bytes of its output. It is the multilevel
+forward's loop (csrc/roi_align_forward.cuh) at one level, and gives the
+multilevel forward's bits on a one-level map with every roi valid.
 
 In the JAX package the backward of `roi_align_tpu` is XLA's autodiff of the
 gather formulation. Here it is the multilevel backward kernel

@@ -6,11 +6,18 @@ Replaces the TPU kernels of cpm_tpu/ops/pallas/stacked_pallas.py:
 write ONE buffer `[B, sum(H_l), max(W_l), C]` that holds all FPN levels one
 below the other, through a by-value table of row offsets and level sizes:
 one base pointer, one row stride, no per-level pointer. The stack itself is
-made with torch ops (`ops/roi_align.py::stack_levels`: a pad and a cat), as
-the JAX package leaves it to XLA; its time is not the kernel's.
+made with torch ops, as the JAX package leaves it to XLA: on the card in one
+pass over the bytes (`ops/roi_align.py::stack_levels_in_one_pass`: each level
+copied into its rows, only the padding columns zeroed), once for each set of
+level maps within a forward (`STACKS`): the five pooler calls of a forward
+(cls, three grid stages, rescore) pool from the same FPN maps, as they do in
+the one jitted JAX forward, so they share one stack. On the CPU it is the
+differentiable pad and cat (`stack_levels`) of every call.
 
 What bounds both kernels on the H100 is bytes (csrc/stacked_roi_align.cu
-says how each is laid out). The backward produces the gradient of the
+and csrc/roi_align_forward.cuh say how each is laid out). The forward is the
+multilevel forward's own loop (csrc/roi_align_forward.cuh) over the stacked
+buffer, and gives its bits. The backward produces the gradient of the
 stacked buffer, as the TPU kernel's `_bwd` does, in the dtype of `g`: it runs
 the multilevel backward's tile-owned gather (csrc/roi_align_tiles.cuh) over
 each level's valid region of that buffer, sums in float32 in a fixed order
@@ -23,13 +30,17 @@ the multilevel backward.
 
 `multilevel_roi_align_stacked` dispatches on where the tensors lie: on the
 CPU it runs the plain stacked formulation
-(`ops/roi_align.py::multilevel_roi_align_stacked_plain`), through which
-autograd differentiates by itself; on a CUDA device it launches the kernels
+(`ops/roi_align.py::multilevel_roi_align_stacked_plain` on the stack of
+`stack_levels`), through which autograd differentiates by itself; on a CUDA
+device it launches the kernels
 or raises. `KERNEL.launches` counts forward launches,
-`KERNEL.backward_launches` backward ones.
+`KERNEL.backward_launches` backward ones, `STACKS.builds` the stacks made.
 """
 
+import contextlib
+import contextvars
 import ctypes
+import weakref
 from typing import Sequence
 
 import torch
@@ -40,7 +51,7 @@ from cpm_tpu_torch.ops.roi_align import (
     multilevel_roi_align_stacked_plain,
     roi_align_from_stack,
     stack_geometry,
-    stack_levels,
+    stack_levels_in_one_pass,
     unstack_levels,
 )
 
@@ -49,9 +60,12 @@ MAX_LEVELS = 5
 
 
 class StackedRoIAlignKernel:
-    """The built kernel library, its launch counts and its build record."""
+    """The built kernel library, its launch counts and its build record.
+    `defines` build the source in a measured form
+    (csrc/roi_align_forward.cuh); the port uses the default."""
 
-    def __init__(self):
+    def __init__(self, defines=()):
+        self.defines = tuple(defines)
         self.launches = 0
         self.backward_launches = 0
         self.built = None
@@ -162,6 +176,79 @@ class StackedRoIAlignKernel:
 KERNEL = StackedRoIAlignKernel()
 
 
+class StackMemo:
+    """The stacked buffer of the last set of level maps it was asked for.
+
+    Keyed on the maps' identity, through weak references (a new map may
+    reuse a freed one's memory, so its `data_ptr` proves nothing), and on
+    their `_version`s, so that an in-place change makes a new stack; the
+    inference tensors of an eval forward under `torch.inference_mode` keep no
+    version counter and are keyed on their identity alone, which holds
+    within one forward, the memo's life under `STACKS.scope()`. The entry is
+    dropped when any of its maps dies. It is one attribute, read and
+    replaced whole. `builds` counts the stacks made."""
+
+    def __init__(self):
+        self.builds = 0
+        self._entry = None   # (weak references to the maps, their versions, the stack)
+
+    def _drop(self, ref):
+        entry = self._entry
+        if entry is not None and any(r is ref for r in entry[0]):
+            self._entry = None
+
+    def __call__(self, features, build):
+        """The stack of `features`, made by `build(features)` unless the
+        last one made is theirs."""
+        versions = tuple(None if f.is_inference() else f._version for f in features)
+        entry = self._entry
+        if (entry is not None and len(entry[0]) == len(features) and entry[1] == versions
+                and all(r() is f for r, f in zip(entry[0], features))):
+            return entry[2]
+        self._entry = None
+        stack = build(features)
+        self._entry = (tuple(weakref.ref(f, self._drop) for f in features), versions, stack)
+        self.builds += 1
+        return stack
+
+
+class ForwardStacks:
+    """The card's stacks (`stack_levels_in_one_pass`), one for each set of
+    maps within a forward.
+
+    Within `scope()`, which `GeneralizedRCNN.forward` opens through
+    `ops/pooler.py::one_stack_per_forward`, a `StackMemo` of the scope's own
+    lets the forward's pooler calls share one stack; it dies when the scope
+    ends, so nothing is kept from one forward to the next, and a context
+    variable gives each thread its own. Outside a scope every call makes its
+    own stack. `builds` counts the stacks made."""
+
+    def __init__(self):
+        self.builds = 0
+        self._memo = contextvars.ContextVar("cpm_torch_stack_memo", default=None)
+
+    @contextlib.contextmanager
+    def scope(self):
+        token = self._memo.set(StackMemo())
+        try:
+            yield
+        finally:
+            self._memo.reset(token)
+
+    def __call__(self, features):
+        memo = self._memo.get()
+        if memo is None:
+            self.builds += 1
+            return stack_levels_in_one_pass(features)
+        before = memo.builds
+        stack = memo(features, stack_levels_in_one_pass)
+        self.builds += memo.builds - before
+        return stack
+
+
+STACKS = ForwardStacks()
+
+
 class _StackedRoIAlign(torch.autograd.Function):
     """Stack, forward kernel and backward kernel as one differentiable op
     over the level maps; rois, level ids and the mask get no gradient."""
@@ -173,8 +260,8 @@ class _StackedRoIAlign(torch.autograd.Function):
         ctx.feature_shapes = [tuple(f.shape) for f in features]
         ctx.args = (tuple(spatial_scales), sampling_ratio, aligned)
         level_hw = [tuple(f.shape[1:3]) for f in features]
-        return KERNEL(stack_levels(features), level_hw, rois, levels, valid, output_size,
-                      spatial_scales, sampling_ratio, aligned)
+        return KERNEL(STACKS(features), level_hw, rois, levels,
+                      valid, output_size, spatial_scales, sampling_ratio, aligned)
 
     @staticmethod
     def backward(ctx, g):
@@ -217,7 +304,8 @@ def multilevel_roi_align_stacked(
     levels -> `[R, ph, pw, C]`; same contract as
     `ops/cuda/multilevel_roi_align.py::multilevel_roi_align`. CPU tensors
     take the plain stacked formulation; CUDA tensors take the kernels, the
-    backward one when a level map requires a gradient."""
+    backward one when a level map requires a gradient, and pool from the
+    stack of `STACKS`, made once for each set of maps within a forward."""
     if rois.device.type == "cpu":
         out = multilevel_roi_align_stacked_plain(
             features, rois, levels, output_size, spatial_scales, sampling_ratio, aligned)
@@ -236,5 +324,6 @@ def multilevel_roi_align_stacked(
             rois, levels, valid, tuple(output_size), tuple(spatial_scales),
             sampling_ratio, aligned, *features,
         )
-    return KERNEL(stack_levels(features), [tuple(f.shape[1:3]) for f in features], rois,
-                  levels, valid, output_size, spatial_scales, sampling_ratio, aligned)
+    return KERNEL(STACKS(features),
+                  [tuple(f.shape[1:3]) for f in features], rois, levels, valid, output_size,
+                  spatial_scales, sampling_ratio, aligned)

@@ -80,6 +80,13 @@ def pooler_force_f32_scope(flag: bool):
         _FORCE_F32.reset(token)
 
 
+def one_stack_per_forward():
+    """Within the scope (GeneralizedRCNN.forward), the stacked backend's
+    pooler calls on one set of FPN maps share one stack
+    (ops/cuda/stacked_roi_align.py::STACKS); nothing is kept after it."""
+    return stacked_op.STACKS.scope()
+
+
 def assign_fpn_levels(
     boxes: torch.Tensor,
     k_min: int,

@@ -16,9 +16,9 @@ as the kernels do:
 * `multilevel_roi_align_stacked_plain`: all levels are first stacked into
   one buffer (`stack_levels`, `stack_geometry`; port of
   cpm_tpu/ops/pallas/stacked_pallas.py::_stack_levels/_stack_geometry
-  without the TPU window's tail rows and pad to 8 columns), and each roi
-  gathers through its level's row offset
-  (cpm_tpu_torch/ops/cuda/stacked_roi_align.py);
+  without the TPU window's tail rows and pad to 8 columns; on the card the
+  same buffer is made by `stack_levels_in_one_pass`), and each roi gathers
+  through its level's row offset (cpm_tpu_torch/ops/cuda/stacked_roi_align.py);
 * `multilevel_roi_align_clustered_plain`: rois are grouped by `cluster_rois`
   (port of cpm_tpu/ops/pallas/clustered_pallas.py::_cluster), each group's
   shared rectangle of cells is copied once into a tile, and the group's rois
@@ -280,6 +280,25 @@ def stack_levels(features: Sequence[torch.Tensor]) -> torch.Tensor:
     wmax = max(int(f.shape[2]) for f in features)
     parts = [F.pad(f, (0, 0, 0, wmax - int(f.shape[2]))) for f in features]
     return torch.cat(parts, dim=1).contiguous()
+
+
+def stack_levels_in_one_pass(features: Sequence[torch.Tensor]) -> torch.Tensor:
+    """`stack_levels` in one pass over the bytes: the buffer is allocated
+    empty, each level is copied into its rows and only the padding columns
+    of those rows are zeroed, so every level is read once and every byte of
+    the buffer written once (the pad and the cat write the padded levels and
+    then the buffer). Not differentiated: the stacked backward kernel
+    returns the levels' gradients itself."""
+    level_hw = _hw(features)
+    offs, rows, wmax = stack_geometry(level_hw)
+    f0 = features[0]
+    stack = torch.empty((f0.shape[0], rows, wmax, f0.shape[3]), dtype=f0.dtype,
+                        device=f0.device)
+    with torch.no_grad():
+        for f, off, (h, w) in zip(features, offs, level_hw):
+            stack[:, off:off + h, :w].copy_(f)
+            stack[:, off:off + h, w:].zero_()
+    return stack
 
 
 def unstack_levels(stack: torch.Tensor, level_hw):

@@ -8,9 +8,12 @@ FPN levels of the 832x1344 training bucket at batch 2, rois of areas across
 all levels with aspect ratios up to 4, levels from the level mapper. It times
 the forward and the forward plus backward of the plain gather formulation
 and of the three kernel backends (multilevel, stacked, clustered) through the
-functions the `Pooler` calls, so the stacked path's stack copy and the
-clustered path's grouping are inside their times, and the single-level op on
-the C4 map of the same bucket. Times are medians of CUDA-event pairs; every
+functions the `Pooler` calls, so the clustered path's grouping is inside its
+times, and the single-level op on the C4 map of the same bucket. The stacked
+path makes its stack once for each set of maps, as the five pooler calls of a
+forward share it: its forward times reuse the stack of the maps they repeat
+on, its forward-plus-backward times (fresh leaves each call) build it each
+call. Times are medians of CUDA-event pairs; every
 line that holds a number ends with the card's name and power limit.
 """
 

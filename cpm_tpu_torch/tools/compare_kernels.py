@@ -1,6 +1,6 @@
 """The kernels redesigned lately against an older tree's, on one GPU.
 
-    python3 -m cpm_tpu_torch.tools.compare_kernels --parent build/parent [--only forward]
+    python3 -m cpm_tpu_torch.tools.compare_kernels --parent build/parent [--only stacked]
 
 `--parent` is an unpacked copy of an earlier commit of this repository (for
 example `git archive HEAD | tar -x -C build/parent` before a change). The tool
@@ -8,7 +8,7 @@ captures what the kernels are given on the paths that run them, at the
 operating point of `profile_train.training_cfg` (batch 2 at 800x1344, bf16,
 seeded random weights, offset convs spread, affines folded) and of a batch-1
 eval forward at 800x1344 (`GRID_RCNN.SCORE_THRESH` 0.0, as `profile_eval`
-sets it). Three sections, all by default, any with `--only`:
+sets it). Five sections, all by default, any with `--only`:
 
 * `sampler`: 6f, the deformable-conv sampler's forward, at its 30 calls in
   one batch-2 training step of CPM X-101-32x4d-FPN-DCN and in one batch-1 eval
@@ -23,24 +23,31 @@ sets it). Three sections, all by default, any with `--only`:
   training step of the flagship under `auto`; kernel 3, the clustered
   forward, with its grouping, at its 5 calls under `clustered` in the same
   two runs, and the grouping alone (`cluster_rois` in the parent, the
-  grouping kernel here); then, for this tree only, the device time of 4f
-  (the stacked forward, its stack copies on a line of their own), 5 (the
-  single-level forward on a C4 map) and 7 (the cross-roi forward at the
-  probe's shapes).
+  grouping kernel here); then, for this tree only, the device time of 7
+  (the cross-roi forward at the probe's shapes);
+* `stacked`: 4f, the stacked forward, at its 5 calls under `stacked` in the
+  same two runs and the crowded sets (each on a stack made beforehand, with
+  kernel 1 on the same inputs beside it), and the stack of those calls'
+  maps: the parent's five pad-and-cat copies a forward against this tree's
+  one build (`stack_levels_in_one_pass`, made once a forward by `STACKS`);
+* `single`: 5, the single-level forward, on a C4 map [2, 50, 84, 1024] f32
+  with 1024 rois at 7x7 and 14x14, with kernel 1 at one level beside it.
 
 Then it times this tree's wrappers and the parent tree's on those inputs, in
 turns (parent, this, this, parent), and prints each turn's two sums over the
 sites beside their bounds (`probe_dcn_sampler.sampler_bounds`,
 `roi_align_backward_bound`, `bench_roi_align.roi_align_bounds`,
-`clustered_bound`, `grouping_bound`): the calls' median CUDA-event times,
+`clustered_bound`, `grouping_bound`, `stack_bound`): the calls' median CUDA-event times,
 which hold the wrapper's host time, and their device time
 (`torch.profiler`), which does not; for 6f also by channel width (res3,
 res4, res5) and beside a torch fill of the same outputs, a floor for writing
-them; for kernel 1 also each site's device time. `torch.profiler` then
-breaks this tree's calls down by kernel. It asserts that this tree's 6f,
-kernel 2 and kernel 1 give the parent's bits at every site, that 4b gives
-kernel 2's bits, that the grouping kernel gives `cluster_rois`' integers and
-that kernel 3 gives kernel 1's bits. It also times this tree's sampler
+them; for kernels 1 and 4f also each site's device time. `torch.profiler`
+then breaks this tree's calls down by kernel. It asserts that this tree's
+6f, kernel 2, kernel 1, 4f and 5 give the parent's bits at every site, that
+4b gives kernel 2's bits, that the grouping kernel gives `cluster_rois`'
+integers, that kernels 3 and 4f give kernel 1's bits, that 5 gives kernel
+1's at one level (not aligned, every roi valid) and that the one-pass stack
+gives `stack_levels`' bits. It also times this tree's sampler
 backward in its parts (the binning kernels alone, the map gradient alone,
 the coordinate gradients alone) and the binning's plain version.
 
@@ -71,7 +78,8 @@ from cpm_tpu_torch.tools.probe_dcn_sampler import bound_of, sampler_bounds
 from cpm_tpu_torch.tools.profile_eval import card_line
 
 SCALES = (0.25, 0.125, 0.0625, 0.03125)
-SECTIONS = ("sampler", "backward", "forward")
+SECTIONS = ("sampler", "backward", "forward", "stacked", "single")
+C4_SHAPE, C4_SCALE, C4_ROIS = (2, 50, 84, 1024), 0.0625, 1024
 IMAGE_HW = (800, 1344)
 # gt boxes (x1, y1, x2, y2) of the crowded layouts, and the share of the
 # positives each draws
@@ -331,8 +339,12 @@ def describe(site):
         feat, ys = site[:2]
         rows = f", rows of {ys.shape[2]}" if ys.dim() == 3 else ""
         return f"map {tuple(feat.shape)}, {ys[0].numel()} samples an image{rows}"
+    if len(site) == 1:                                    # a stack's maps
+        return f"levels {[tuple(f.shape) for f in site[0]]}"
+    if len(site) == 5 and isinstance(site[2], tuple):      # single-level forward
+        return f"map {tuple(site[0].shape)}, {site[1].shape[0]} rois, {site[2][0]}x{site[2][1]}"
     valid = site[3]
-    pool = site[4] if len(site) == 8 else tuple(site[4].shape[1:3])  # forward, backward
+    pool = site[4] if len(site) in (8, 9) else tuple(site[4].shape[1:3])  # forward, backward
     return f"{pool[0]}x{pool[1]}, {int(valid.sum())} of {valid.numel()} rois valid"
 
 
@@ -472,6 +484,39 @@ def backward_section(parent, steps):
     return cases
 
 
+def forward_sets(eval_sites, step_sites):
+    """(label, sites) of a pooler forward: a flagship batch-1 eval forward's
+    five calls, a batch-2 training step's, and the step's two crowded
+    versions."""
+    return ([("flagship eval forward (batch 1)", eval_sites),
+             ("flagship training step (batch 2)", step_sites)]
+            + [(f"{crowd} crowd of the training step", crowded_forward_sites(step_sites, crowd))
+               for crowd in CROWDS])
+
+
+def site_shapes(site):
+    return [tuple(f.shape) for f in site[0]]
+
+
+def level_bound(sites):
+    """The multilevel forward's bound summed over pooler sites (`keep_pool`)."""
+    from cpm_tpu_torch.tools.bench_roi_align import roi_align_bounds
+
+    return sum(roi_align_bounds(site_shapes(s), s[1], s[2], s[3], s[4], s[0][0].element_size(),
+                                s[5])[0][0] for s in sites)
+
+
+def stack_bound(maps):
+    """(ms, by) of one stack of `maps`: every level read once, the stacked
+    buffer written once; no arithmetic."""
+    from cpm_tpu_torch.ops.roi_align import stack_geometry
+
+    _, rows, wmax = stack_geometry(level_hw(maps))
+    f0 = maps[0]
+    stack = f0.shape[0] * rows * wmax * f0.shape[3] * f0.element_size()
+    return bound_of(sum(f.numel() * f.element_size() for f in maps) + stack, 0)
+
+
 def forward_section(parent, steps):
     """Kernel 1 and kernel 3 with its grouping: captured sites (a batch-1
     eval forward and a batch-2 training step of the flagship, under auto and
@@ -480,11 +525,7 @@ def forward_section(parent, steps):
     kernel 3 kernel 1's bits; returns the cases."""
     from cpm_tpu_torch.ops.cuda import clustered_roi_align, multilevel_roi_align
     from cpm_tpu_torch.ops.roi_align import cluster_rois
-    from cpm_tpu_torch.tools.bench_roi_align import (
-        clustered_bound,
-        grouping_bound,
-        roi_align_bounds,
-    )
+    from cpm_tpu_torch.tools.bench_roi_align import clustered_bound, grouping_bound
 
     old_level = load_parent(parent, "multilevel_roi_align")
     old_clustered = load_parent(parent, "clustered_roi_align")
@@ -497,12 +538,6 @@ def forward_section(parent, steps):
           f"and {len(step_auto)} of a batch-2 training step; clustered forward: "
           f"{len(eval_clustered)} and {len(step_clustered)}")
 
-    def sets(eval_sites, step_sites):
-        return ([("flagship eval forward (batch 1)", eval_sites),
-                 ("flagship training step (batch 2)", step_sites)]
-                + [(f"{crowd} crowd of the training step", crowded_forward_sites(step_sites, crowd))
-                   for crowd in CROWDS])
-
     def grouping_of(runner):
         return lambda maps, rois, levels, valid, pool, scales, sr, aligned: runner(
             rois, levels, valid, level_hw(maps), int(maps[0].shape[0]), pool, scales, sr, aligned)
@@ -511,7 +546,8 @@ def forward_section(parent, steps):
     clustered = {"parent": old_clustered.KERNEL, "this": clustered_roi_align.KERNEL}
     grouping = {"parent": grouping_of(cluster_rois),
                 "this": grouping_of(clustered_roi_align.KERNEL.group)}
-    level_sets, clustered_sets = sets(eval_auto, step_auto), sets(eval_clustered, step_clustered)
+    level_sets = forward_sets(eval_auto, step_auto)
+    clustered_sets = forward_sets(eval_clustered, step_clustered)
     for label, sites in level_sets:
         for i, site in enumerate(sites):
             same_bits(f"kernel 1 {label} site {i} vs the parent", level["this"](*site),
@@ -528,16 +564,10 @@ def forward_section(parent, steps):
               f"groups, slot_group, n_groups) and kernel 3 gives kernel 1's bits at all "
               f"{len(sites)} sites")
 
-    def shapes(site):
-        return [tuple(f.shape) for f in site[0]]
-
-    def level_bound(sites):
-        return sum(roi_align_bounds(shapes(s), s[1], s[2], s[3], s[4], s[0][0].element_size(),
-                                    s[5])[0][0] for s in sites)
-
     def clustered_bound_of(sites):
-        return sum(clustered_bound(shapes(s), s[1], s[2], s[3], s[4], s[0][0].element_size(),
-                                   grouping["parent"](*s), s[5])[0] for s in sites)
+        return sum(clustered_bound(site_shapes(s), s[1], s[2], s[3], s[4],
+                                   s[0][0].element_size(), grouping["parent"](*s), s[5])[0]
+                   for s in sites)
 
     cases = [dict(label=f"1 multilevel forward, {label}", sites=sites, runners=level,
                   bound=level_bound(sites), site_device=True) for label, sites in level_sets]
@@ -550,38 +580,108 @@ def forward_section(parent, steps):
     return cases
 
 
+def stacked_section(parent, steps):
+    """4f and its stack: captured sites (a batch-1 eval forward and a batch-2
+    training step of the flagship under stacked) and the step's crowded
+    versions, each site on a stack made beforehand; checks that 4f gives the
+    parent's bits and kernel 1's, and that the one-pass stack gives
+    `stack_levels`' bits; returns the cases."""
+    from cpm_tpu_torch.ops.cuda import multilevel_roi_align, stacked_roi_align
+    from cpm_tpu_torch.ops.roi_align import stack_levels, stack_levels_in_one_pass
+
+    old_stacked = load_parent(parent, "stacked_roi_align")
+    eval_stacked = captured_eval_forward(stacked_roi_align, "multilevel_roi_align_stacked",
+                                         keep_pool, "flagship", "stacked")
+    step_stacked = steps("stacked")["forward"]
+    print(f"[sites] stacked forward: {len(eval_stacked)} calls of a flagship batch-1 eval forward "
+          f"and {len(step_stacked)} of a batch-2 training step")
+
+    def on_stack(kernel):
+        # a site of `stacked_sites`: the pooler call's arguments and its stack
+        return lambda maps, rois, levels, valid, pool, scales, sr, aligned, stack: kernel(
+            stack, level_hw(maps), rois, levels, valid, pool, scales, sr, aligned)
+
+    def on_maps(kernel):
+        # kernel 1 on the same site, reading the level maps
+        return lambda maps, rois, levels, valid, pool, scales, sr, aligned, stack: kernel(
+            maps, rois, levels, valid, pool, scales, sr, aligned)
+
+    level_kernel = on_maps(multilevel_roi_align.KERNEL)
+    runners = {"parent": on_stack(old_stacked.KERNEL), "this": on_stack(stacked_roi_align.KERNEL),
+               "kernel 1 on the same inputs": level_kernel}
+    sets = [(label, [(*site, stack_levels(site[0])) for site in sites])
+            for label, sites in forward_sets(eval_stacked, step_stacked)]
+    for label, sites in sets:
+        for i, site in enumerate(sites):
+            got = runners["this"](*site)
+            same_bits(f"4f {label} site {i} vs the parent", got, runners["parent"](*site))
+            same_bits(f"4f {label} site {i} vs kernel 1", got, level_kernel(*site))
+        print(f"[check] 4f, {label}: bit-equal to the parent's 4f and to kernel 1 at all "
+              f"{len(sites)} sites ({', '.join(describe(s) for s in sites)})")
+    cases = [dict(label=f"4f stacked forward, {label}", sites=sites, runners=runners,
+                  bound=level_bound(sites), site_device=True) for label, sites in sets]
+
+    # the stack: the parent made one with every pooler call, this tree one a forward
+    stacks = {"parent": lambda maps: [stack_levels(maps) for _ in range(len(eval_stacked))],
+              "this": stack_levels_in_one_pass}
+    for label, sites in sets[:2]:
+        maps = sites[0][0]
+        same_bits(f"one-pass stack, {label}", stack_levels_in_one_pass(maps), stack_levels(maps))
+        print(f"[check] stack, {label}: the one-pass stack is bit-equal to stack_levels "
+              f"(levels {[tuple(f.shape) for f in maps]})")
+        cases.append(dict(label=f"the stack of one forward's maps, {label}: parent five pad and "
+                                f"cat copies, this one pass", sites=[(maps,)], runners=stacks,
+                          bound=stack_bound(maps)[0]))
+    return cases
+
+
+def single_section(parent):
+    """Kernel 5 on a C4 map [2, 50, 84, 1024] f32 with 1024 rois at 7x7 and
+    14x14; checks that it gives the parent's bits and kernel 1's at one
+    level, not aligned, every roi valid; returns the cases."""
+    from cpm_tpu_torch.ops.cuda import multilevel_roi_align, roi_align
+    from cpm_tpu_torch.tools.bench_roi_align import make_rois, roi_align_bounds
+
+    old_single = load_parent(parent, "roi_align")
+    rng = np.random.RandomState(0)
+    c4 = torch.from_numpy(rng.rand(*C4_SHAPE).astype(np.float32)).cuda()
+    rois = torch.from_numpy(make_rois(rng, C4_ROIS, C4_SHAPE[0])).cuda()
+    zeros = torch.zeros(C4_ROIS, dtype=torch.int32, device=rois.device)
+    everyone = torch.ones(C4_ROIS, dtype=torch.bool, device=rois.device)
+
+    def level_kernel(feats, rois, pool, scale, sr):
+        return multilevel_roi_align.KERNEL([feats], rois, zeros, everyone, pool, (scale,), sr)
+
+    runners = {"parent": old_single.KERNEL, "this": roi_align.KERNEL,
+               "kernel 1 at one level on the same inputs": level_kernel}
+    cases = []
+    for pool in ((7, 7), (14, 14)):
+        site = (c4, rois, pool, C4_SCALE, 2)
+        got = roi_align.KERNEL(*site)
+        same_bits(f"5 at {pool} vs the parent", got, old_single.KERNEL(*site))
+        same_bits(f"5 at {pool} vs kernel 1", got, level_kernel(*site))
+        print(f"[check] 5, {describe(site)}: bit-equal to the parent's 5 and to kernel 1 at one "
+              f"level")
+        del got
+        (bound, _), _ = roi_align_bounds([C4_SHAPE], rois, zeros, everyone, pool, 4,
+                                         scales=(C4_SCALE,))
+        cases.append(dict(label=f"5 single-level forward, C4 {C4_SHAPE} f32, {C4_ROIS} rois, "
+                                f"{pool[0]}x{pool[1]}", sites=[site], runners=runners, bound=bound))
+    return cases
+
+
 def device_times_of_this_tree(card, reps):
-    """Device time (and event time) of kernels 4f, 5 and 7 at their sites,
-    this tree only: 4f at the five stacked pooler calls of a flagship batch-1
-    eval forward (the stack copies on a line of their own), 5 on a C4 map
-    [2, 50, 84, 1024] f32 with 1024 rois, 7 at the probe's shapes at G in
-    {1, 2, 4, 8}."""
-    from cpm_tpu_torch.ops.cuda import crossroi_roi_align, roi_align, stacked_roi_align
-    from cpm_tpu_torch.ops.roi_align import WindowedRois, crossroi_prep_rois, stack_levels
+    """Device time (and event time) of kernel 7 at the probe's shapes at G in
+    {1, 2, 4, 8}, this tree only."""
+    from cpm_tpu_torch.ops.cuda import crossroi_roi_align
+    from cpm_tpu_torch.ops.roi_align import WindowedRois, crossroi_prep_rois
     from cpm_tpu_torch.tools import probe_pooler_crossroi as probe
-    from cpm_tpu_torch.tools.bench_roi_align import make_rois
 
     def report(label, sites, run):
         event = sum(cuda_ms(lambda: run(*site), reps) for site in sites)
         device = sum(device_ms([site], run) for site in sites)
         print(f"[device] {label}: {event:.4f} ms of event time, {device:.4f} ms of device time, "
               f"over {len(sites)} calls (this tree) | {card}")
-
-    calls = captured_eval_forward(stacked_roi_align, "multilevel_roi_align_stacked", keep_pool,
-                                  "flagship", "stacked")
-    stacked = [(stack_levels(maps), level_hw(maps), *rest) for maps, *rest in calls]
-    report("4f stacked forward, flagship eval forward (batch 1), kernel alone", stacked,
-           stacked_roi_align.KERNEL)
-    report("4f's stack copies, the same calls", [(c[0],) for c in calls], stack_levels)
-    del calls, stacked
-
-    rng = np.random.RandomState(0)
-    c4 = torch.from_numpy(rng.rand(2, 50, 84, 1024).astype(np.float32)).cuda()
-    rois = torch.from_numpy(make_rois(rng, 1024, 2)).cuda()
-    for pool in ((7, 7), (14, 14)):
-        report(f"5 single-level forward, C4 {tuple(c4.shape)} f32, 1024 rois, {pool[0]}x{pool[1]}",
-               [(c4, rois, pool, 0.0625, 2)], roi_align.KERNEL)
-    del c4
 
     feat, rois = probe.make_inputs("cuda")
     half = feat.to(torch.bfloat16)
@@ -664,6 +764,10 @@ def main():
         cases += backward_section(parent, steps)
     if "forward" in sections:
         cases += forward_section(parent, steps)
+    if "stacked" in sections:
+        cases += stacked_section(parent, steps)
+    if "single" in sections:
+        cases += single_section(parent)
     captured.clear()
     torch.cuda.empty_cache()
     time_cases(cases, card, args.reps)

@@ -703,3 +703,137 @@ def test_cuda_clustered_forward_on_the_grouping_kernel_gives_the_multilevel_bits
         assert (op.KERNEL.launches, op.KERNEL.grouping_launches) == (before[0] + 1, before[1] + 1)
         assert torch.equal(got, level_op.multilevel_roi_align(fs, rois, levels, valid, pool,
                                                               SCALES, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool", POOLS, ids=["7x7", "14x14"])
+@pytest.mark.parametrize("num_rois", [1, 7, 300, 1000])
+def test_cuda_stacked_forward_gives_the_multilevel_bits_over_bin_slices(num_rois, pool, dtype_name):
+    """4f runs the multilevel forward's loop (csrc/roi_align_forward.cuh)
+    over the stacked buffer: at the roi counts of the bin-split test above it
+    gives kernel 1's bits, masked rows zero, one launch and one stack a
+    call."""
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import multilevel_roi_align as level_op
+    from cpm_tpu_torch.ops.cuda import stacked_roi_align as op
+
+    rois, levels, valid = _pooler_rois(num_rois, seed=num_rois)
+    fs = _flagship_maps(getattr(torch, dtype_name))
+    before = (op.KERNEL.launches, op.STACKS.builds)
+    got = op.multilevel_roi_align_stacked(fs, rois, levels, valid, pool, SCALES, 2)
+    assert (op.KERNEL.launches, op.STACKS.builds) == (before[0] + 1, before[1] + 1)
+    assert not got[~valid].any()
+    assert torch.equal(got, level_op.multilevel_roi_align(fs, rois, levels, valid, pool, SCALES, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", POOLS, ids=["7x7", "14x14"])
+@pytest.mark.parametrize("num_rois", [1, 7, 300, 1000])
+def test_cuda_single_level_forward_gives_the_multilevel_bits_at_one_level(num_rois, pool):
+    """Kernel 5 is the multilevel forward's loop at one level, not aligned,
+    with no mask: on a C4-wide map it gives kernel 1's bits on a one-level
+    table with every roi valid."""
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import multilevel_roi_align as level_op
+    from cpm_tpu_torch.ops.cuda import roi_align as op
+
+    rois, _, _ = _pooler_rois(num_rois, seed=num_rois + 1)
+    feats = torch.randn(2, 50, 84, 1024, generator=torch.Generator().manual_seed(4)).cuda()
+    zeros = torch.zeros(num_rois, dtype=torch.int32, device=rois.device)
+    everyone = torch.ones(num_rois, dtype=torch.bool, device=rois.device)
+    before = op.KERNEL.launches
+    got = op.roi_align_cuda(feats, rois, pool, 0.0625, 2)
+    assert op.KERNEL.launches == before + 1
+    want = level_op.multilevel_roi_align([feats], rois, zeros, everyone, pool, (0.0625,), 2, False)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_cuda_one_pass_stack_gives_stack_levels_bits_once_per_set_of_maps(dtype_name):
+    """The card's stack (one pass: levels copied into an empty buffer, only
+    the padding columns zeroed) gives `stack_levels`' bits, padding zeros
+    included; the memo builds it once for a set of maps and anew after an
+    in-place change."""
+    import torch
+
+    from cpm_tpu_torch.ops.cuda.stacked_roi_align import StackMemo
+    from cpm_tpu_torch.ops.roi_align import stack_levels, stack_levels_in_one_pass
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the stack is built on the card")
+    fs = _flagship_maps(getattr(torch, dtype_name), seed=2)
+    # leave non-zero bytes behind in the caching allocator for the stack's
+    # padding to land on
+    junk = torch.full((2, 375, 336, 256), float("nan"), dtype=fs[0].dtype, device="cuda")
+    del junk
+    memo = StackMemo()
+    got = memo(fs, stack_levels_in_one_pass)
+    assert torch.equal(got, stack_levels(fs))
+    assert memo(list(fs), stack_levels_in_one_pass) is got and memo.builds == 1
+    fs[3].mul_(2)
+    again = memo(fs, stack_levels_in_one_pass)
+    assert again is not got and memo.builds == 2 and torch.equal(again, stack_levels(fs))
+
+
+def _tiny_stacked_cfg():
+    import torch
+
+    from cpm_tpu_torch.config import flagship_cfg
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the stacked kernels have no CPU mode")
+    cfg = flagship_cfg(tiny=True)
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.POOLER_KERNEL = "stacked"
+    return cfg
+
+
+@pytest.mark.cuda
+def test_cuda_one_stack_per_eval_forward_under_stacked():
+    """The five pooler calls of an eval forward (cls, three grid stages,
+    rescore) pool the same FPN maps from one stack; the next forward builds
+    its own."""
+    from cpm_tpu_torch.engine.test import make_forward_fn
+    from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.ops import pooler as pooler_mod
+    from cpm_tpu_torch.ops.cuda import stacked_roi_align as op
+
+    cfg = _tiny_stacked_cfg()
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    sizes = np.array([[64, 64], [56, 48]], np.int32)
+    try:
+        forward = make_forward_fn(cfg, build_model(cfg, "cuda", seed=0))
+        for _ in range(2):
+            before = (op.KERNEL.launches, op.STACKS.builds)
+            forward(images, sizes)
+            assert (op.KERNEL.launches, op.STACKS.builds) == (before[0] + 5, before[1] + 1)
+    finally:
+        pooler_mod.set_pooler_backend("auto")
+
+
+@pytest.mark.cuda
+def test_cuda_one_stack_per_training_step_under_stacked():
+    """The training step's five pooler calls share one stack, and each of
+    them launches the stacked backward once."""
+    from cpm_tpu_torch.data.synthetic import synthetic_batch
+    from cpm_tpu_torch.engine.train import create_train_state, make_train_step
+    from cpm_tpu_torch.ops import pooler as pooler_mod
+    from cpm_tpu_torch.ops.cuda import stacked_roi_align as op
+
+    cfg = _tiny_stacked_cfg()
+    try:
+        model, optimizer, state = create_train_state(cfg, "cuda", seed=0)
+        step = make_train_step(cfg, model, optimizer)
+        batch = synthetic_batch(2, 64, 64, max_gt=4, num_classes=cfg.MODEL.NUM_CLASSES, seed=3)
+        for _ in range(2):
+            before = (op.KERNEL.launches, op.KERNEL.backward_launches, op.STACKS.builds)
+            step(state, batch)
+            assert (op.KERNEL.launches, op.KERNEL.backward_launches, op.STACKS.builds) == (
+                before[0] + 5, before[1] + 5, before[2] + 1)
+    finally:
+        pooler_mod.set_pooler_backend("auto")
