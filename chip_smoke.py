@@ -82,7 +82,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    window against its plain version at the shapes of
    cpm_tpu_torch/tools/probe_pooler_crossroi.py (one [2, 208, 336, 256] map,
    1024 rois, 7x7; G 1 and 4 at 14x14), beside the single-level and the
-   multilevel kernel on the same inputs; no model runs this kernel, so the
+   multilevel kernel on the same inputs, and a line a G with its device time
+   (`torch.profiler`) beside its bound; no model runs this kernel, so the
    path that is driven is the wrapper the tool calls.
 10. X-101 eval path: CPM X-101-32x4d-FPN-DCN (`x101_dcn_cfg()`: ResNeXt
    (3, 4, 23, 3), 32 groups of width 4, 30 deformable 3x3 convs in res3 to
@@ -125,7 +126,8 @@ single PyTorch call computes a RoIAlign or its transpose (torchvision's is
 no dependency of the port), so `library_ms` is null for the RoIAlign kernels
 and the grouping. The
 sampler's bounds (cpm_tpu_torch/tools/probe_dcn_sampler.py::sampler_bounds)
-and the cross-roi kernel's (tools/probe_pooler_crossroi.py::crossroi_bound)
+and the cross-roi kernel's (cpm_tpu_torch/tools/probe_pooler_crossroi.py::
+crossroi_bound, the distinct map cells its members weigh)
 are made the same way; the sampler has a library call, `F.grid_sample`, and
 for its backward that call's backward to the map and the grid. The backward
 bounds count each gradient map written once: the tile-owned backward kernels
@@ -1410,13 +1412,24 @@ def phase_crossroi(dev, card):
     """Phase 9: the cross-roi kernel at each group size against its plain
     version, then the path that reaches it: the wrapper its tool calls, once
     per group size. Returns the result the JSON line takes."""
+    from cpm_tpu_torch.ops.roi_align import WindowedRois, crossroi_prep_rois
     from cpm_tpu_torch.tools import probe_pooler_crossroi as probe
+    from cpm_tpu_torch.tools.compare_kernels import device_ms
 
     feat, rois = probe.make_inputs(dev)
     probe.reference_points(feat, rois, (7, 7), card)
     results = [probe.check_group(feat, rois, g, (7, 7), card) for g in probe.GROUPS]
     wide = [probe.check_group(feat, rois, g, (14, 14), card, reps=10) for g in (1, 4)]
     half = feat.to(torch.bfloat16)
+    for pool, checked in (((7, 7), results), ((14, 14), wide)):
+        prep = WindowedRois(*(t.contiguous() for t in crossroi_prep_rois(
+            rois, probe.SCALE, feat.shape[1:3], pool, 2)))
+        for r in checked:
+            ms = device_ms([(half, prep, r["group"], pool, 2)], ops()["crossroi"].KERNEL)
+            print(f"[cross-roi device] G={r['group']} {pool[0]}x{pool[1]} bf16: device time "
+                  f"{ms:.4f} ms (event {r['ms']:.4f}), bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}: the distinct map cells weighed), {ms / r['bound_ms']:.2f}x "
+                  f"| {card}")
     reset_launch_counts()
     before = launch_counts()
     for g in probe.GROUPS:

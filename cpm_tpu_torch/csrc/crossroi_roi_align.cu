@@ -12,23 +12,29 @@
 // save, and this kernel computes the same function
 // (cpm_tpu_torch/ops/roi_align.py::crossroi_roi_align_plain).
 //
-// One CTA per (step, channel chunk). A chunk is 32 bytes of channels of
-// every cell (16 bf16 or 8 f32 channels: 2 threads x 16 bytes). The CTA
-// 1. finds the rows and columns of the window that its members' positions
-//    reach (the largest position + 2, at most the window);
-// 2. copies those cells of the leader's window into dynamic shared memory
-//    with 16-byte loads (window * window * 32 bytes: 131,072 bytes at 64
-//    cells, above the 48 KB default, so the launch opts in with
-//    cudaFuncSetAttribute; one CTA fits an SM's 227 KB);
-// 3. __syncthreads, then pools every member from shared memory, 2 threads
-//    along the chunk's channels by 128 (member, bin) pairs at a time, f32
-//    accumulation, and stores each result to the member's own output row.
-// The TPU kernel's two batched hat-weight matmuls, its DMA double buffer and
-// its 8-aligned column origin have no counterpart (the origin's alignment is
-// kept in the prep, because it decides which cells the members share).
-//
-// What bounds it on the H100: bytes. Each step's window cells are read once,
-// the output is written once; one multiply-add per shared-memory element.
+// What bounds it on the H100: bytes. At best the map cells the members weigh
+// are read once and the output is written once; one multiply-add per element
+// of each weighed cell. The TPU kernel copies the window into VMEM because
+// its core has no gather. Here the kernel is a gather through L1, as the
+// multilevel forward is (roi_align_forward.cuh), with nothing staged but the
+// samples:
+// - a step's items, (bin, member) pairs taken bin by bin, so that the
+//   members' reads of one neighbourhood of the leader's window meet in one
+//   block's L1, are spread evenly over the fewest blocks that give a row of
+//   threads at most kItemsPerRow of them;
+// - threads along C, 16 bytes each, at most kLanes of them (128 bytes of a
+//   cell), the rest in rows; further C tiles are further blocks;
+// - each block stages its members' axis samples once (the two window cells
+//   a position weighs, clamped into the window, and their hat weights);
+// - a thread keeps one sample's four 16-byte loads in flight, and no shared
+//   memory beyond the samples limits how many blocks fit an SM (five).
+// Every launch shape measured takes one time: each sample's four cells are
+// requested from L1 at any G, and L2 serves most of them. Staging the
+// members' rows in shared memory through a two-stage TMA ring lost 3-4x
+// (PERF.md). One thread sums each output element's 16 taps in the order
+// (y sample, x sample, y cell, x cell), each weighed by cell_weight and
+// added when its weight is not zero, then divides by sr^2: the bits of the
+// window-staging kernel this one replaced.
 //
 // Plain C interface, bound from Python with ctypes
 // (cpm_tpu_torch/ops/cuda/crossroi_roi_align.py).
@@ -39,33 +45,38 @@ namespace {
 
 using namespace cpm;
 
-constexpr int kLanes = 2;  // threads along a chunk's channels, 16 bytes each
+constexpr int kLanes = 8;        // threads along C at most: 128 bytes of a cell
+constexpr int kItemsPerRow = 4;  // (bin, member) items a row of threads at most
 
-// The two window cells a relative position weighs and their hat weights;
-// a cell outside [0, extent) weighs zero.
-__device__ __forceinline__ void hat_axis(float pos, int extent, int* cell,
-                                         float* w) {
+// One axis sample of a member: the two window cells its position weighs,
+// floor(pos) and the next, each clamped into the window so that a load of it
+// stays there, and their hat weights, zero for a cell outside the window; lo
+// is -1 when both weights are zero (the sample adds nothing).
+__device__ __forceinline__ AxisSample hat_sample(float pos, int window) {
   const float f = floorf(pos);
+  int cell[2];
+  float w[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float c = f + static_cast<float>(i);
-    const bool inside = c >= 0.0f && c < static_cast<float>(extent);
+    const bool inside = c >= 0.0f && c < static_cast<float>(window);
     cell[i] = inside ? static_cast<int>(c) : 0;
     w[i] = inside ? fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(pos, c))), 0.0f)
                   : 0.0f;
   }
+  AxisSample s;
+  s.lo = (w[0] == 0.0f && w[1] == 0.0f) ? -1 : cell[0];
+  s.hi = cell[1];
+  s.w_lo = w[0];
+  s.w_hi = w[1];
+  return s;
 }
 
-// How far into the window a position reaches: the cell after floor(pos),
-// plus one; 0 for a position that weighs nothing.
-__device__ __forceinline__ int reach(float pos, int window) {
-  if (!(pos > -1.0f)) return 0;
-  const float r = floorf(pos) + 2.0f;
-  return r < static_cast<float>(window) ? static_cast<int>(r) : window;
-}
-
+// Block (tx, ty): tx threads along C, ty rows of items. Block x of the grid
+// pools items [slice * span, slice * span + span) of step x / slices, item
+// bin * group + member; block y is the C tile.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 5)
     crossroi_roi_align_fwd_kernel(const T* __restrict__ feat, int batch,
                                   int height, int width, int channels,
                                   const int32_t* __restrict__ roi_batch,
@@ -74,86 +85,89 @@ __global__ void __launch_bounds__(kThreads)
                                   const float* __restrict__ ys,
                                   const float* __restrict__ xs, int group,
                                   int window, int pooled_h, int pooled_w,
-                                  int sr, T* __restrict__ out) {
+                                  int sr, int slices, int span,
+                                  T* __restrict__ out) {
+  extern __shared__ AxisSample axis[];  // per member: rows, then columns
   constexpr int kN = VecWidth<T>::kN;
-  extern __shared__ uint4 win[];  // [need_rows * need_cols][kLanes]
-  __shared__ int need[2];
-
-  const int step = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid % kLanes;
-  const int c0 = (blockIdx.y * kLanes + lane) * kN;
-  const bool has_channels = c0 < channels;
-  const int sy = pooled_h * sr, sx = pooled_w * sr;
+  const int step = blockIdx.x / slices;
   const int bins = pooled_h * pooled_w;
-  const size_t first = static_cast<size_t>(step) * group;
+  const int first = (blockIdx.x - step * slices) * span;
+  const int last = min(first + span, group * bins);
+  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * kN;
+  const bool has_channels = c0 < channels;
+  const int rows = pooled_h * sr;
+  const int cols = pooled_w * sr;
+  const int per = rows + cols;
+  const size_t lead = static_cast<size_t>(step) * group;
 
-  if (tid < 2) need[tid] = 0;
-  __syncthreads();
-  int rows = 0, cols = 0;
-  for (int k = tid; k < group * sy; k += kThreads) {
-    rows = max(rows, reach(ys[first * sy + k], window));
-  }
-  for (int k = tid; k < group * sx; k += kThreads) {
-    cols = max(cols, reach(xs[first * sx + k], window));
-  }
-  if (rows > 0) atomicMax(&need[0], rows);
-  if (cols > 0) atomicMax(&need[1], cols);
-  __syncthreads();
-  const int need_rows = need[0], need_cols = need[1];
-
-  // the leader's window: that of roi `step`, clamped into the map
-  const int image = min(max(roi_batch[step], 0), batch - 1);
-  const int wy0 = min(max(roi_y0[step], 0), height - window);
-  const int wx0 = min(max(roi_x0[step], 0), width - window);
-  const T* origin = feat + ((static_cast<size_t>(image) * height + wy0) * width +
-                            wx0) * channels;
-  if (has_channels) {
-    for (int cell = tid / kLanes; cell < need_rows * need_cols;
-         cell += kThreads / kLanes) {
-      const int cy = cell / need_cols;
-      const int cx = cell - cy * need_cols;
-      const T* src = origin + (static_cast<size_t>(cy) * width + cx) * channels + c0;
-      win[cell * kLanes + lane] = __ldg(reinterpret_cast<const uint4*>(src));
-    }
+  // every member's samples, positions relative to its own origin
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < group * per;
+       i += blockDim.x * blockDim.y) {
+    const int m = i / per;
+    const int k = i - m * per;
+    const float pos = k < rows ? ys[(lead + m) * rows + k]
+                               : xs[(lead + m) * cols + (k - rows)];
+    axis[i] = hat_sample(pos, window);
   }
   __syncthreads();
   if (!has_channels) return;
 
+  // the leader's window: that of roi `step`, clamped into the map; cells
+  // within it are addressed by 32-bit offsets (the launch checks that a
+  // window's rows fit them)
+  const int image = min(max(roi_batch[step], 0), batch - 1);
+  const int wy0 = min(max(roi_y0[step], 0), height - window);
+  const int wx0 = min(max(roi_x0[step], 0), width - window);
+  const T* origin =
+      feat + ((static_cast<size_t>(image) * height + wy0) * width + wx0) *
+                 channels + c0;
+  const int pitch = width * channels;
   const float count = static_cast<float>(sr * sr);
-  for (int item = tid / kLanes; item < group * bins; item += kThreads / kLanes) {
-    const int m = item / bins;
-    const int bin = item - m * bins;
+  for (int item = first + threadIdx.y; item < last; item += blockDim.y) {
+    const int bin = item / group;
+    const int m = item - bin * group;
     const int py = bin / pooled_w;
     const int px = bin - py * pooled_w;
-    const float* my_ys = ys + (first + m) * sy;
-    const float* my_xs = xs + (first + m) * sx;
-    float acc[kN] = {};
+    const AxisSample* my_ys = axis + m * per + py * sr;
+    const AxisSample* my_xs = axis + m * per + rows + px * sr;
+    float acc[kN];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) acc[k] = 0.0f;
     for (int iy = 0; iy < sr; ++iy) {
-      int cy[2];
-      float wy[2];
-      hat_axis(my_ys[py * sr + iy], need_rows, cy, wy);
+      const AxisSample y = my_ys[iy];
+      if (y.lo < 0) continue;
+      const T* lo_row = origin + y.lo * pitch;
+      const T* hi_row = origin + y.hi * pitch;
       for (int ix = 0; ix < sr; ++ix) {
-        int cx[2];
-        float wx[2];
-        hat_axis(my_xs[px * sr + ix], need_cols, cx, wx);
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-#pragma unroll
-          for (int b = 0; b < 2; ++b) {
-            const float w = cell_weight(wy[a], wx[b]);
-            if (w != 0.0f) {
-              accumulate_bits<T>(win[(cy[a] * need_cols + cx[b]) * kLanes + lane],
-                                 w, acc);
-            }
-          }
-        }
+        const AxisSample x = my_xs[ix];
+        if (x.lo < 0) continue;
+        const int a = x.lo * channels;
+        const int b = x.hi * channels;
+        const uint4 v0 = load16(lo_row + a);
+        const uint4 v1 = load16(lo_row + b);
+        const uint4 v2 = load16(hi_row + a);
+        const uint4 v3 = load16(hi_row + b);
+        float w = cell_weight(y.w_lo, x.w_lo);
+        if (w != 0.0f) accumulate_bits<T>(v0, w, acc);
+        w = cell_weight(y.w_lo, x.w_hi);
+        if (w != 0.0f) accumulate_bits<T>(v1, w, acc);
+        w = cell_weight(y.w_hi, x.w_lo);
+        if (w != 0.0f) accumulate_bits<T>(v2, w, acc);
+        w = cell_weight(y.w_hi, x.w_hi);
+        if (w != 0.0f) accumulate_bits<T>(v3, w, acc);
       }
     }
 #pragma unroll
     for (int k = 0; k < kN; ++k) acc[k] /= count;
-    store(out + ((first + m) * bins + bin) * channels + c0, acc);
+    store(out + ((lead + m) * bins + bin) * channels + c0, acc);
   }
+}
+
+// The staged samples of a step's members: at most the 48 KB a block has
+// without opting in.
+inline size_t staged_bytes(int group, int pooled_h, int pooled_w, int sr) {
+  return static_cast<size_t>(group) * (pooled_h + pooled_w) * sr *
+         sizeof(AxisSample);
 }
 
 template <typename T>
@@ -163,17 +177,18 @@ cudaError_t launch(const T* feat, int batch, int height, int width,
                    const float* ys, const float* xs, int num_rois, int group,
                    int window, int pooled_h, int pooled_w, int sr, T* out,
                    cudaStream_t stream) {
-  const int chunk = kLanes * VecWidth<T>::kN;
-  const dim3 grid(num_rois / group, (channels + chunk - 1) / chunk);
-  const size_t shared =
-      static_cast<size_t>(window) * window * kLanes * sizeof(uint4);
-  cudaError_t err = cudaFuncSetAttribute(
-      crossroi_roi_align_fwd_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
-  if (err != cudaSuccess) return err;
-  crossroi_roi_align_fwd_kernel<T><<<grid, kThreads, shared, stream>>>(
-      feat, batch, height, width, channels, roi_batch, roi_y0, roi_x0, ys, xs,
-      group, window, pooled_h, pooled_w, sr, out);
+  const int vecs = channels / VecWidth<T>::kN;
+  const int tx = vecs < kLanes ? vecs : kLanes;
+  const dim3 block(tx, kThreads / tx);
+  const int items = group * pooled_h * pooled_w;
+  const int most = kItemsPerRow * static_cast<int>(block.y);
+  const int slices = (items + most - 1) / most;
+  const int span = (items + slices - 1) / slices;
+  const dim3 grid((num_rois / group) * slices, (vecs + tx - 1) / tx);
+  crossroi_roi_align_fwd_kernel<T>
+      <<<grid, block, staged_bytes(group, pooled_h, pooled_w, sr), stream>>>(
+          feat, batch, height, width, channels, roi_batch, roi_y0, roi_x0, ys,
+          xs, group, window, pooled_h, pooled_w, sr, slices, span, out);
   return cudaGetLastError();
 }
 
@@ -184,9 +199,10 @@ cudaError_t launch(const T* feat, int batch, int height, int width,
 // [num_rois, pooled_h * sr] and xs [num_rois, pooled_w * sr] f32 positions
 // relative to each roi's own origin; out [num_rois, pooled_h, pooled_w,
 // channels] of `dtype`; all device memory, 16-byte aligned. num_rois must be
-// a multiple of group, the map at least window x window cells, window *
-// window * 32 bytes at most 227 KB, channels a multiple of 16 bytes' worth
-// of elements. Returns the cudaError_t of the launch.
+// a multiple of group, the map at least window x window cells, channels a
+// multiple of 16 bytes' worth of elements, window x width x channels below
+// 2^31, and a step's staged samples, group * (pooled_h + pooled_w) * sr * 16
+// bytes, at most 48 KB. Returns the cudaError_t of the launch.
 extern "C" int cpm_crossroi_roi_align_fwd(
     const void* feat, int batch, int height, int width, int channels,
     const void* roi_batch, const void* roi_y0, const void* roi_x0,
@@ -197,7 +213,8 @@ extern "C" int cpm_crossroi_roi_align_fwd(
       num_rois % group != 0 || window < 1 || height < window ||
       width < window || sampling_ratio < 1 || pooled_h < 1 || pooled_w < 1 ||
       dtype < 0 || dtype > 1 || channels % (dtype == 0 ? 4 : 8) != 0 ||
-      static_cast<size_t>(window) * window * kLanes * sizeof(uint4) > 232448) {
+      static_cast<long long>(window) * width * channels >= (1LL << 31) ||
+      staged_bytes(group, pooled_h, pooled_w, sampling_ratio) > 48 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int32_t* rb = static_cast<const int32_t*>(roi_batch);

@@ -2,10 +2,11 @@
 
 Replaces the TPU kernel of tools/probe_pooler_crossroi.py (`make_probe`): a
 single-level RoIAlign in which the G rois of step i all pool from the 64x64
-window of roi i. The kernel, cpm_tpu_torch/csrc/crossroi_roi_align.cu, copies
-the reached part of that window into shared memory once per (step, channel
-chunk) and pools the G members from it; what bounds it on the H100 is the
-bytes of the windows it copies and of its output. No model runs it: like the
+window of roi i. The kernel, cpm_tpu_torch/csrc/crossroi_roi_align.cu, is a
+gather through L1: a step's members are pooled bin by bin in the fewest
+blocks that hold them, each block staging their axis samples once and
+reading the leader's window cells straight from the map; what bounds it on
+the H100 is the bytes of the map cells the members weigh and of its output. No model runs it: like the
 probe, it measures what sharing a window across rois could save, through
 cpm_tpu_torch/tools/probe_pooler_crossroi.py. It has no backward, as the
 probe has none.
@@ -30,6 +31,8 @@ from cpm_tpu_torch.ops.roi_align import (
 
 SOURCE = _build.CSRC / "crossroi_roi_align.cu"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# a step's staged axis samples, 16 bytes each, fit the 48 KB a block has
+STAGED_BYTES = 48 * 1024
 
 
 class CrossRoiKernel:
@@ -71,9 +74,14 @@ class CrossRoiKernel:
             raise ValueError(f"C={c} must fill 16-byte vectors of {features.dtype}")
         if h < window or w < window:
             raise ValueError(f"the map {h}x{w} must hold a {window}x{window} window")
+        if window * w * c >= 2**31:
+            raise ValueError(f"a window's rows of a {w}x{c} map exceed 32-bit offsets")
         n = int(prep.batch.shape[0])
         if group < 1 or n % group:
             raise ValueError(f"{n} rois do not fill groups of {group}")
+        if group * (ph + pw) * sr * 16 > STAGED_BYTES:
+            raise ValueError(f"{group} members' {(ph + pw) * sr} axis samples each exceed "
+                             f"{STAGED_BYTES} bytes of shared memory")
         for name, t, shape, dtype in (
             ("batch", prep.batch, (n,), torch.int32), ("y0", prep.y0, (n,), torch.int32),
             ("x0", prep.x0, (n,), torch.int32), ("ys", prep.ys, (n, ph * sr), torch.float32),

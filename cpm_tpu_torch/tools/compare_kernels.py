@@ -8,7 +8,7 @@ captures what the kernels are given on the paths that run them, at the
 operating point of `profile_train.training_cfg` (batch 2 at 800x1344, bf16,
 seeded random weights, offset convs spread, affines folded) and of a batch-1
 eval forward at 800x1344 (`GRID_RCNN.SCORE_THRESH` 0.0, as `profile_eval`
-sets it). Five sections, all by default, any with `--only`:
+sets it). Six sections, all by default, any with `--only`:
 
 * `sampler`: 6f, the deformable-conv sampler's forward, at its 30 calls in
   one batch-2 training step of CPM X-101-32x4d-FPN-DCN and in one batch-1 eval
@@ -23,27 +23,33 @@ sets it). Five sections, all by default, any with `--only`:
   training step of the flagship under `auto`; kernel 3, the clustered
   forward, with its grouping, at its 5 calls under `clustered` in the same
   two runs, and the grouping alone (`cluster_rois` in the parent, the
-  grouping kernel here); then, for this tree only, the device time of 7
-  (the cross-roi forward at the probe's shapes);
+  grouping kernel here);
 * `stacked`: 4f, the stacked forward, at its 5 calls under `stacked` in the
   same two runs and the crowded sets (each on a stack made beforehand, with
   kernel 1 on the same inputs beside it), and the stack of those calls'
   maps: the parent's five pad-and-cat copies a forward against this tree's
   one build (`stack_levels_in_one_pass`, made once a forward by `STACKS`);
 * `single`: 5, the single-level forward, on a C4 map [2, 50, 84, 1024] f32
-  with 1024 rois at 7x7 and 14x14, with kernel 1 at one level beside it.
+  with 1024 rois at 7x7 and 14x14, with kernel 1 at one level beside it;
+* `crossroi`: 7, the cross-roi shared-window forward, at the shapes of
+  `probe_pooler_crossroi` ([2, 208, 336, 256] bf16, 1024 rois) at G in
+  {1, 2, 4, 8} rois a window at 7x7 and G in {1, 4} at 14x14, with kernel 1
+  at one level (bf16) and kernel 5 (f32) on the same map and rois beside G =
+  1, the reference points the probe's question is read against.
 
 Then it times this tree's wrappers and the parent tree's on those inputs, in
 turns (parent, this, this, parent), and prints each turn's two sums over the
 sites beside their bounds (`probe_dcn_sampler.sampler_bounds`,
 `roi_align_backward_bound`, `bench_roi_align.roi_align_bounds`,
-`clustered_bound`, `grouping_bound`, `stack_bound`): the calls' median CUDA-event times,
+`clustered_bound`, `grouping_bound`, `stack_bound`,
+`probe_pooler_crossroi.crossroi_bound`): the calls' median CUDA-event times,
 which hold the wrapper's host time, and their device time
 (`torch.profiler`), which does not; for 6f also by channel width (res3,
 res4, res5) and beside a torch fill of the same outputs, a floor for writing
 them; for kernels 1 and 4f also each site's device time. `torch.profiler`
 then breaks this tree's calls down by kernel. It asserts that this tree's
-6f, kernel 2, kernel 1, 4f and 5 give the parent's bits at every site, that
+6f, kernel 2, kernel 1, 4f, 5 and 7 (f32 and bf16) give the parent's bits at
+every site, that
 4b gives kernel 2's bits, that the grouping kernel gives `cluster_rois`'
 integers, that kernels 3 and 4f give kernel 1's bits, that 5 gives kernel
 1's at one level (not aligned, every roi valid) and that the one-pass stack
@@ -78,7 +84,7 @@ from cpm_tpu_torch.tools.probe_dcn_sampler import bound_of, sampler_bounds
 from cpm_tpu_torch.tools.profile_eval import card_line
 
 SCALES = (0.25, 0.125, 0.0625, 0.03125)
-SECTIONS = ("sampler", "backward", "forward", "stacked", "single")
+SECTIONS = ("sampler", "backward", "forward", "stacked", "single", "crossroi")
 C4_SHAPE, C4_SCALE, C4_ROIS = (2, 50, 84, 1024), 0.0625, 1024
 IMAGE_HW = (800, 1344)
 # gt boxes (x1, y1, x2, y2) of the crowded layouts, and the share of the
@@ -341,6 +347,9 @@ def describe(site):
         return f"map {tuple(feat.shape)}, {ys[0].numel()} samples an image{rows}"
     if len(site) == 1:                                    # a stack's maps
         return f"levels {[tuple(f.shape) for f in site[0]]}"
+    if len(site) == 5 and isinstance(site[1], tuple):      # cross-roi forward
+        return (f"map {tuple(site[0].shape)}, {site[1].batch.shape[0]} rois, G={site[2]}, "
+                f"{site[3][0]}x{site[3][1]}")
     if len(site) == 5 and isinstance(site[2], tuple):      # single-level forward
         return f"map {tuple(site[0].shape)}, {site[1].shape[0]} rois, {site[2][0]}x{site[2][1]}"
     valid = site[3]
@@ -670,26 +679,51 @@ def single_section(parent):
     return cases
 
 
-def device_times_of_this_tree(card, reps):
-    """Device time (and event time) of kernel 7 at the probe's shapes at G in
-    {1, 2, 4, 8}, this tree only."""
-    from cpm_tpu_torch.ops.cuda import crossroi_roi_align
+def crossroi_section(parent):
+    """Kernel 7 at the probe's shapes (`probe_pooler_crossroi.make_inputs`:
+    [2, 208, 336, 256], 1024 rois) at G in {1, 2, 4, 8} at 7x7 and G in
+    {1, 4} at 14x14; checks that it gives the parent's bits in bf16 and in
+    f32 at each; returns the cases (bf16), at G = 1 with kernel 1 at one
+    level (bf16) and kernel 5 (f32) on the same map and rois beside it."""
+    from cpm_tpu_torch.ops.cuda import crossroi_roi_align, multilevel_roi_align, roi_align
     from cpm_tpu_torch.ops.roi_align import WindowedRois, crossroi_prep_rois
     from cpm_tpu_torch.tools import probe_pooler_crossroi as probe
 
-    def report(label, sites, run):
-        event = sum(cuda_ms(lambda: run(*site), reps) for site in sites)
-        device = sum(device_ms([site], run) for site in sites)
-        print(f"[device] {label}: {event:.4f} ms of event time, {device:.4f} ms of device time, "
-              f"over {len(sites)} calls (this tree) | {card}")
-
+    old = load_parent(parent, "crossroi_roi_align")
+    this = crossroi_roi_align.KERNEL
     feat, rois = probe.make_inputs("cuda")
     half = feat.to(torch.bfloat16)
-    prep = crossroi_prep_rois(rois, probe.SCALE, feat.shape[1:3], (7, 7), 2)
-    prep = WindowedRois(*(t.contiguous() for t in prep))
-    report(f"7 cross-roi forward, the probe's map {tuple(feat.shape)} bf16, 1024 rois, 7x7, G in "
-           f"{probe.GROUPS}", [(half, prep, g, (7, 7), 2) for g in probe.GROUPS],
-           crossroi_roi_align.KERNEL)
+    n = rois.shape[0]
+    zeros = torch.zeros(n, dtype=torch.int32, device=rois.device)
+    everyone = torch.ones(n, dtype=torch.bool, device=rois.device)
+
+    def level_kernel(f, prep, group, pool, sr):
+        return multilevel_roi_align.KERNEL([f], rois, zeros, everyone, pool, (probe.SCALE,), sr)
+
+    def single_kernel(f, prep, group, pool, sr):
+        return roi_align.KERNEL(feat, rois, pool, probe.SCALE, sr)
+
+    cases = []
+    for pool, groups in (((7, 7), probe.GROUPS), ((14, 14), (1, 4))):
+        prep = crossroi_prep_rois(rois, probe.SCALE, feat.shape[1:3], pool, 2)
+        prep = WindowedRois(*(t.contiguous() for t in prep))
+        for group in groups:
+            for f in (feat, half):
+                got = this(f, prep, group, pool, 2)
+                same_bits(f"7 at G={group} {pool} {f.dtype} vs the parent", got,
+                          old.KERNEL(f, prep, group, pool, 2))
+            print(f"[check] 7 at G={group}, {pool[0]}x{pool[1]}: bit-equal to the parent's 7 in "
+                  f"float32 and in bfloat16")
+            del got
+            runners = {"parent": old.KERNEL, "this": this}
+            if group == 1:
+                runners["kernel 1 at one level on the same map and rois (bf16)"] = level_kernel
+                runners["kernel 5 on the same map and rois (f32)"] = single_kernel
+            bound, _ = probe.crossroi_bound(prep, group, feat.shape, 2, pool)
+            cases.append(dict(label=f"7 cross-roi forward G={group}, the probe's map "
+                                    f"{tuple(half.shape)} bf16, {n} rois, {pool[0]}x{pool[1]}",
+                              sites=[(half, prep, group, pool, 2)], runners=runners, bound=bound))
+    return cases
 
 
 def time_cases(cases, card, reps):
@@ -768,11 +802,11 @@ def main():
         cases += stacked_section(parent, steps)
     if "single" in sections:
         cases += single_section(parent)
+    if "crossroi" in sections:
+        cases += crossroi_section(parent)
     captured.clear()
     torch.cuda.empty_cache()
     time_cases(cases, card, args.reps)
-    if "forward" in sections:
-        device_times_of_this_tree(card, args.reps)
 
 
 if __name__ == "__main__":

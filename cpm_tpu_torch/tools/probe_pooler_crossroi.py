@@ -51,19 +51,41 @@ def make_inputs(dev, rois=1024, channels=256, seed=0):
     return torch.from_numpy(feat).to(dev), torch.from_numpy(r).to(dev)
 
 
-def crossroi_bound(prep, group, channels, elem_size, pool):
-    """(bound ms, by): each step's window cells that its members reach, read
-    once; the origins and positions; the output written once; against a
-    multiply-add per channel of every weighed cell of every sample."""
+def weighed_cells(prep, group, map_shape):
+    """How many map cells the call weighs: the distinct cells of `[B, H, W]`
+    that some member's sample weighs non-zero, each in the window of its
+    step's leader (roi i for step i), counted once over the call as
+    `bench_roi_align.touched_cells` counts kernel 1's."""
     from cpm_tpu_torch.ops.roi_align import CROSSROI_WINDOW, _hat_axis
 
-    n, window = prep.batch.shape[0], CROSSROI_WINDOW
+    b, h, w = (int(d) for d in map_shape[:3])
+    n, window, dev = prep.batch.shape[0], CROSSROI_WINDOW, prep.batch.device
 
-    def reach(pos):
-        r = torch.where(pos > -1.0, torch.floor(pos) + 2.0, torch.zeros_like(pos))
-        return torch.clamp(r, max=window).reshape(n // group, -1).amax(dim=1)
+    def reached(pos):
+        """[R, window]: the window cells that a roi's positions weigh."""
+        cells, weights = _hat_axis(pos.float())
+        hit = torch.zeros(n, window, dtype=torch.bool, device=dev)
+        roi = torch.arange(n, device=dev)[:, None, None].expand_as(cells)
+        hit[roi[weights > 0], cells[weights > 0]] = True
+        return hit
 
-    cells = int((reach(prep.ys) * reach(prep.xs)).sum())
+    r, cy, cx = (reached(prep.ys)[:, :, None] & reached(prep.xs)[:, None, :]).nonzero().unbind(1)
+    lead = r // group
+    flat = ((prep.batch.long()[lead] * h + prep.y0.long()[lead] + cy) * w
+            + prep.x0.long()[lead] + cx)
+    seen = torch.zeros(b * h * w, dtype=torch.bool, device=dev)
+    seen[flat] = True
+    return int(seen.sum())
+
+
+def crossroi_bound(prep, group, map_shape, elem_size, pool):
+    """(bound ms, by): the map cells the call weighs (`weighed_cells`), read
+    once; the origins and positions; the output written once; against a
+    multiply-add per channel of every weighed cell of every sample."""
+    from cpm_tpu_torch.ops.roi_align import _hat_axis
+
+    n, channels = prep.batch.shape[0], int(map_shape[3])
+    cells = weighed_cells(prep, group, map_shape)
     wy, wx = _hat_axis(prep.ys)[1], _hat_axis(prep.xs)[1]
     weighed = int(((wy > 0).sum(dim=(1, 2)) * (wx > 0).sum(dim=(1, 2))).sum())
     nbytes = (cells * channels * elem_size + n * 12 + (prep.ys.numel() + prep.xs.numel()) * 4
@@ -104,7 +126,7 @@ def check_group(feat, rois, group, pool, card, reps=20):
     del got, want
     ms = cuda_ms(lambda: KERNEL(half, prep, group, pool, 2), reps)
     plain_ms = cuda_ms(lambda: plain(half), 5)
-    bound_ms, bound_by = crossroi_bound(prep, group, feat.shape[3], 2, pool)
+    bound_ms, bound_by = crossroi_bound(prep, group, feat.shape, 2, pool)
     print(f"[kernel] crossroi_roi_align G={group}: map {tuple(feat.shape)} R={rois.shape[0]} "
           f"pool={pool} f32 max|err|={err32:.3g} (atol {F32_ATOL}) bf16 max|err|={err16:.3g} "
           f"(rtol {BF16_TOL['rtol']}, atol {BF16_TOL['atol']}) bf16 kernel {ms:.4f} ms "

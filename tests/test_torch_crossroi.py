@@ -160,3 +160,42 @@ def test_the_rule_restated_in_numpy():
         np.testing.assert_allclose(got[r], want, rtol=0, atol=ATOL)
     with pytest.raises(ValueError):
         crossroi_roi_align_plain(torch.from_numpy(feat), prep, 3, pool, sr)
+
+
+@pytest.mark.parametrize("group", [1, 4])
+def test_bound_counts_the_distinct_map_cells_the_members_weigh(group):
+    """`crossroi_bound` reads each map cell that some member weighs once:
+    counted here in numpy, cell by cell of each step's leader window, and at
+    G = 1 by `touched_cells`, which counts kernel 1's cells with the plain
+    multilevel backward."""
+    import torch
+
+    from cpm_tpu_torch.ops.roi_align import crossroi_prep_rois
+    from cpm_tpu_torch.tools.bench_roi_align import touched_cells
+    from cpm_tpu_torch.tools.probe_dcn_sampler import bound_of
+    from cpm_tpu_torch.tools.probe_pooler_crossroi import crossroi_bound, weighed_cells
+
+    pool, sr, n = (7, 7), 2, 16
+    _, rois = _inputs(12, n=n)
+    rois[5, 1:] = [-500, -500, -400, -400]   # every sample out of bounds: weighs nothing
+    prep = crossroi_prep_rois(torch.from_numpy(rois), SCALE, (H, W), pool, sr)
+    seen = np.zeros((2, H, W), bool)
+    cells = np.arange(WIN, dtype=np.float32)
+    for r in range(n):
+        i = r // group
+        b, y0, x0 = int(prep.batch[i]), int(prep.y0[i]), int(prep.x0[i])
+        rows = np.nonzero((1 - np.abs(prep.ys[r].numpy()[:, None] - cells) > 0).any(0))[0]
+        cols = np.nonzero((1 - np.abs(prep.xs[r].numpy()[:, None] - cells) > 0).any(0))[0]
+        seen[b, y0 + rows[:, None], x0 + cols[None, :]] = True
+    got = weighed_cells(prep, group, (2, H, W, C))
+    assert got == int(seen.sum()) and 0 < got < 2 * H * W
+    if group == 1:
+        levels = torch.zeros(n, dtype=torch.int32)
+        valid = torch.ones(n, dtype=torch.bool)
+        assert got == touched_cells([(2, H, W, C)], torch.from_numpy(rois), levels, valid, pool,
+                                    scales=(SCALE,))
+    taps = sum(int((1 - np.abs(prep.ys[r].numpy()[:, None] - cells) > 0).sum())
+               * int((1 - np.abs(prep.xs[r].numpy()[:, None] - cells) > 0).sum())
+               for r in range(n))
+    nbytes = got * C * 2 + n * 12 + n * (pool[0] + pool[1]) * sr * 4 + n * 49 * C * 2
+    assert crossroi_bound(prep, group, (2, H, W, C), 2, pool) == bound_of(nbytes, taps * C * 2)

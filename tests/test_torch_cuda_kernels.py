@@ -401,6 +401,81 @@ def test_cuda_crossroi_kernel_matches_plain(group, pool, dtype_name):
         op.crossroi_roi_align(feat, r[:63], 2, pool, 0.25, 2)   # 63 rois do not fill groups of 2
 
 
+CROSSROI_EDGES = ["far corner", "outside the leader's window", "all out of bounds", "one vector",
+                  "ragged chunk", "one step", "G=16"]
+
+
+def _crossroi_edge(case, element_size):
+    """(rois [R, 5], group, channels) of one edge of the cross-roi kernel on a
+    [2, 80, 100, C] map at scale 0.25 (an image of 320 x 400 px), whose
+    windows' column origins (at most 36) round down to 32:
+    - far corner: every leader is clamped to the map's far corner, so its
+      members' positions reach 64 rows and 64 columns;
+    - outside the leader's window: every member but the leader lies in the
+      far corner, its positions up to 67 columns past its own origin, past
+      the leader's window (cells there weigh zero);
+    - all out of bounds: every sample of step 1 lies outside the map;
+    - one vector: C of one 16-byte vector; ragged chunk: C of 9 vectors, not a
+      multiple of the kernel's 8 lanes;
+    - one step: R = G = 4; G=16: two steps of 16 (and 64 members at 14x14,
+      whose staged samples exceed a block's 48 KB, refused)."""
+    rng = np.random.RandomState(8)
+    group = {"one step": 4, "G=16": 16}.get(case, 2)
+    n = {"one step": 4, "G=16": 32}.get(case, 16)
+    channels = {"one vector": 1, "ragged chunk": 9}.get(case, 8) * 16 // element_size
+    rois = np.zeros((n, 5), np.float32)
+    rois[:, 0] = rng.randint(0, 2, n)
+    w, h = rng.uniform(40, 130, n), rng.uniform(40, 130, n)
+    rois[:, 1] = rng.uniform(0, 400 - w, n)
+    rois[:, 2] = rng.uniform(0, 320 - h, n)
+    rois[:, 3], rois[:, 4] = rois[:, 1] + w, rois[:, 2] + h
+    corner = [270, 190, 399, 319]     # 32 x 32 cells ending at the far corner
+    if case == "far corner":
+        rois[::group, 1:] = corner
+    if case == "outside the leader's window":
+        rois[np.arange(n) % group != 0, 1:] = corner
+    if case == "all out of bounds":
+        rois[group:2 * group, 1:] = [-900, -900, -800, -800]
+    return rois, group, channels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CROSSROI_EDGES)
+def test_cuda_crossroi_kernel_edges_match_plain(case, dtype_name):
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import crossroi_roi_align as op
+    from cpm_tpu_torch.ops.roi_align import crossroi_prep_rois, crossroi_roi_align_plain
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dtype = getattr(torch, dtype_name)
+    rois, group, channels = _crossroi_edge(case, torch.finfo(dtype).bits // 8)
+    rng = np.random.RandomState(9)
+    feat = torch.from_numpy(rng.randn(2, 80, 100, channels).astype(np.float32)).cuda().to(dtype)
+    r = torch.from_numpy(rois).cuda()
+    prep = crossroi_prep_rois(r, 0.25, feat.shape[1:3], (7, 7), 2)
+    if case == "far corner":
+        assert (prep.y0[::group] == 16).all() and (prep.ys[::group].amax() >= 62)
+    if case == "outside the leader's window":
+        assert (prep.xs[1::group].amax(dim=1) > 64).all()
+    before = op.KERNEL.launches
+    got = op.crossroi_roi_align(feat, r, group, (7, 7), 0.25, 2)
+    assert op.KERNEL.launches == before + 1 and got.dtype == dtype
+    want = crossroi_roi_align_plain(feat.float(), prep, group, (7, 7), 2)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.to(dtype).float(), rtol=1.6e-2, atol=1e-2)
+    if case == "all out of bounds":
+        assert not got[group:2 * group].any()
+    if case == "G=16":
+        # 64 members' 56 axis samples each take 57 KB of shared memory: refused
+        with pytest.raises(ValueError):
+            op.crossroi_roi_align(feat, r.repeat(2, 1), 64, (14, 14), 0.25, 2)
+
+
 def _colliding_rois(n, rng):
     """[n, 5] rois on image 0 that are jittered copies of one small box: their
     samples share a few cells of one level."""
