@@ -108,6 +108,28 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    the backward check on its largest site (the first res3 block's 200x336
    map, 4200 tiles an image): the binning counts its keys per image, so the
    batch is not bounded by them.
+12. cli: the train and eval CLIs (`cpm_tpu_torch.tools.train_net.main`,
+   `test_net.main`, called in this process) on the headline YAML,
+   cfgs/rcnn/mscoco/grid_cascade/iou_helper/rescore/
+   e2e_grid_cascade@56_rcnn_R-50-FPN_2x.yaml (ResNet-50, FPN 256, 81
+   classes, CMM with 2 stages, ISM unmerged, RSM, 800x1344 bucket, bf16 over
+   f32 masters), over the repository's synthetic COCO set (data/
+   synthetic_debug, 16 images), batch 2 at SOLVER.BASE_LR 0.0025 (the YAML's
+   0.02 for 16 images, scaled linearly). A step-0 checkpoint, written through
+   the port's CheckPointer with the frozen affines folded from the first batch
+   of the port's TrainLoader, starts two runs: 4 steps in one go, and 2 steps,
+   a restore on the card held bit-equal to the model_iter2 snapshot, and a
+   resume to 4 whose losses are held against the first run's (relative
+   RESUME_LOSS_RTOL; whether the states are bit-equal is reported, and the
+   tensors that differ, with the kind of module that owns them, named). Every
+   step's losses are finite and its launches are those of the multilevel
+   kernels, one of each a pooler call (4 a forward: cls, two CMM stages,
+   rescore). Then test_net from the first run's checkpoint over the 16 images
+   at TEST.SCALE 800, MAX_SIZE 1333, GRID_RCNN.SCORE_THRESH 0.0: 4 forward
+   launches an image, at least one detection, every box inside its image,
+   bbox.json parses. It prints the step wall time, the loader wait, the peak
+   memory, the eval images per second with the first image apart, the AP,
+   and how long the phase took.
 
 Then a JSON line of kernel results and, last, {"ok": true, "device": ...}.
 Random weights give softmax scores near 1/81, below the default 0.03
@@ -1447,6 +1469,222 @@ def phase_crossroi(dev, card):
     )
 
 
+
+HEADLINE_YAML = "cfgs/rcnn/mscoco/grid_cascade/iou_helper/rescore/e2e_grid_cascade@56_rcnn_R-50-FPN_2x.yaml"
+# the headline YAML's cuts for one card: the repository's synthetic COCO set,
+# batch 2 (the flagship's per-device batch) at the linearly scaled rate
+CLI_TRAIN_OPTS = ["TRAIN.DATASETS", "('coco_debug_synthetic',)", "TRAIN.BATCH_SIZE", "2",
+                  "SOLVER.BASE_LR", "0.0025", "SOLVER.SNAPSHOT_ITERS", "2"]
+# random weights score near 1/81, below the YAML's GRID_RCNN.SCORE_THRESH 0.03
+CLI_TEST_OPTS = ["TEST.DATASETS", "('coco_debug_synthetic',)", "TEST.SCALE", "800",
+                 "TEST.MAX_SIZE", "1333", "GRID_RCNN.SCORE_THRESH", "0.0"]
+# the resumed run's losses against the uninterrupted run's, where cuDNN's
+# backward sums in another order than in the first run (relative)
+RESUME_LOSS_RTOL = 2e-2
+
+
+def state_differences(a, b, module_types):
+    """The tensors of two checkpoint state_dicts ('model') that differ, each
+    named with the kind of module that owns it and the largest difference."""
+    out = []
+    for k in a:
+        if not torch.equal(a[k].cpu(), b[k].cpu()):
+            owner = module_types.get(k.rsplit(".", 1)[0], "?")
+            diff = (a[k].float().cpu() - b[k].float().cpu()).abs().max().item()
+            out.append(f"{k} ({owner}, max |diff| {diff:.3g})")
+    return out
+
+
+def phase_cli(dev, card):
+    """Phase 12: the train and eval CLIs on the headline YAML. Returns the
+    multilevel kernels' launches in its runs."""
+    import os
+    import tempfile
+
+    from cpm_tpu_torch.data.coco import build_dataset
+    from cpm_tpu_torch.data.loader import TestLoader, TrainLoader
+    from cpm_tpu_torch.engine.checkpoint import CheckPointer
+    from cpm_tpu_torch.engine.train import create_train_state
+    from cpm_tpu_torch.tools import test_net, train_net
+    from cpm_tpu_torch.tools.profile_train import fold_batch_statistics
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg_file = os.path.join(repo, HEADLINE_YAML)
+    opts = CLI_TRAIN_OPTS + ["DATA_DIR", os.path.join(repo, "data")]
+    cfg = train_net.load_config(cfg_file, opts)
+    stages = cfg.GRID_RCNN.CASCADE_MAPPING_OPTION.STAGE_NUM
+    # the pooler calls of a forward: cls, each CMM stage, rescore
+    sites = 1 + stages + int(cfg.GRID_RCNN.RESCORE_ON)
+    losses = (["loss_objectness", "loss_rpn_box_reg", "loss_classifier"]
+              + [f"loss_grid_{s + 1}" for s in range(stages)] + [f"loss_iou_{stages}", "loss_rescore"])
+    print(f"[cli] {HEADLINE_YAML}: {cfg.MODEL.NUM_CLASSES} classes, ResNet "
+          f"{tuple(cfg.BACKBONE.RESNET.LAYERS)}, FPN {cfg.FPN.DIM}, CMM {stages} stages, "
+          f"{sites} pooler calls a forward, {len(losses)} losses; overrides {opts}")
+    fwd = ops()["multilevel"].KERNEL
+    launched = dict(forward=0, backward=0)
+
+    def run(what, fn, argv, want_fwd, want_bwd):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        seconds = time.perf_counter() - t0
+        got = launch_counts()
+        others = {k: v for k, v in got.items() if v and not k.startswith("multilevel_roi_align")}
+        if (fwd.launches, fwd.backward_launches) != (want_fwd, want_bwd) or others:
+            raise AssertionError(f"[cli] {what}: launched {got}, want multilevel_roi_align "
+                                 f"{want_fwd} and its backward {want_bwd}, no other")
+        launched["forward"] += fwd.launches
+        launched["backward"] += fwd.backward_launches
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        print(f"[cli] {what}: {seconds:.2f} s in the call, launches multilevel_roi_align "
+              f"{fwd.launches}, backward {fwd.backward_launches}; peak device memory {peak:.1f} MiB "
+              f"(max_memory_allocated) | {card}")
+        torch.cuda.empty_cache()
+        return out
+
+    def check_steps(what, history, first):
+        for r in history:
+            names = [k for k in r if k.startswith("loss_")]
+            values = [r[k] for k in losses + ["total_loss"]]
+            if sorted(names) != sorted(losses) or not all(math.isfinite(v) for v in values):
+                raise AssertionError(f"[cli] {what} iter {r['iter']}: losses {r}")
+        if [r["iter"] for r in history] != list(range(first, first + len(history))):
+            raise AssertionError(f"[cli] {what}: iterations {[r['iter'] for r in history]}")
+        for r in history:
+            print(f"[cli] {what} iter {r['iter']}: step {r['step_s'] * 1e3:.1f} ms, loader wait "
+                  f"{r['wait_s'] * 1e3:.1f} ms, lr {r['lr']:.6g}, total_loss {r['total_loss']:.4f}, "
+                  + ", ".join(f"{k[5:]} {r[k]:.4f}" for k in losses))
+
+    with tempfile.TemporaryDirectory(prefix="cpm_cli_") as tmp:
+        ck_a, ck_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+
+        def argv(ckpt, max_iter):
+            return (["--cfg", cfg_file, "--device", dev] + opts
+                    + ["CKPT", ckpt, "SOLVER.MAX_ITER", str(max_iter)])
+
+        # a step-0 checkpoint whose frozen affines are folded from the first
+        # batch of the port's loader (a random trunk with unit affines
+        # diverges in two steps); both CLI runs resume from it
+        t0 = time.perf_counter()
+        model, optimizer, state = create_train_state(cfg, dev, cfg.SEED)
+        module_types = {n: type(m).__name__ for n, m in model.named_modules()}
+        (dataset,) = build_dataset(cfg, cfg.TRAIN.DATASETS, is_train=True)
+        t1 = time.perf_counter()
+        first = next(iter(TrainLoader(cfg, dataset, cfg.TRAIN.BATCH_SIZE, seed=cfg.SEED, prefetch=0)))
+        make_ms = (time.perf_counter() - t1) * 1e3
+        n_folded = fold_batch_statistics(model, first["images"])
+        for ckpt in (ck_a, ck_b):
+            CheckPointer(ckpt).save(state, 0)
+        del model, optimizer, state
+        torch.cuda.empty_cache()
+        print(f"[cli] step-0 checkpoint in {time.perf_counter() - t0:.2f} s: {n_folded} frozen "
+              f"affines folded from the loader's first batch {tuple(first['images'].shape)} "
+              f"{first['images'].dtype}, {len(dataset)} images; the loader made that batch in "
+              f"{make_ms:.1f} ms on this thread (PIL decode, resize, flip, padding)")
+
+        straight = run("train_net 4 steps", train_net.main, argv(ck_a, 4), 4 * sites, 4 * sites)
+        check_steps("train_net", straight, 1)
+        steps = [r["step_s"] for r in straight]
+        waits = [r["wait_s"] for r in straight]
+        print(f"[cli] train_net step wall time {statistics.median(steps) * 1e3:.1f} ms median "
+              f"(first {steps[0] * 1e3:.1f}, cuDNN plans its shapes), loader wait "
+              f"{statistics.median(waits) * 1e3:.1f} ms median (max {max(waits) * 1e3:.1f}), "
+              f"batch 2 at 800x1344 | {card}")
+        files = sorted(os.listdir(ck_a))
+        if files != sorted(["model_iter2", "model_iter4", "model_latest",
+                            os.path.basename(cfg_file)]):
+            raise AssertionError(f"[cli] {ck_a} holds {files}")
+
+        # resume: stopped at step 2, restored, resumed to step 4
+        stopped = run("train_net to step 2", train_net.main, argv(ck_b, 2), 2 * sites, 2 * sites)
+        check_steps("train_net to step 2", stopped, 1)
+        snap = torch.load(os.path.join(ck_b, "model_iter2"), map_location="cpu", weights_only=True)
+        model, optimizer, state = create_train_state(cfg, dev, cfg.SEED)
+        CheckPointer(ck_b).load(state)
+        restored = dict(model=model.state_dict(), optimizer=optimizer.state_dict(),
+                        draws=state.draws.state_dict())
+        wrong = [f"model {k}" for k in snap["model"]
+                 if not torch.equal(restored["model"][k].cpu(), snap["model"][k])]
+        for i, s in snap["optimizer"]["state"].items():
+            if not torch.equal(restored["optimizer"]["state"][i]["momentum_buffer"].cpu(),
+                               s["momentum_buffer"]):
+                wrong.append(f"momentum {i}")
+        if not torch.equal(restored["draws"]["generator"], snap["draws"]["generator"]):
+            wrong.append("draws generator")
+        if state.step != 2 or wrong:
+            raise AssertionError(f"[cli] restored state at step {state.step} differs from the "
+                                 f"snapshot: {wrong[:5]}")
+        print(f"[cli] restored on the card: step 2, {len(snap['model'])} model tensors, "
+              f"{len(snap['optimizer']['state'])} momentum buffers and the draws' generator "
+              f"bit-equal to model_iter2")
+        del model, optimizer, state, restored
+        torch.cuda.empty_cache()
+        resumed = run("train_net resumed to step 4", train_net.main, argv(ck_b, 4),
+                      2 * sites, 2 * sites)
+        check_steps("train_net resumed", resumed, 3)
+        worst = max(abs(b[k] - a[k]) / abs(a[k]) for a, b in zip(straight, stopped + resumed)
+                    for k in losses + ["total_loss"])
+        same_losses = all(a[k] == b[k] for a, b in zip(straight, stopped + resumed)
+                          for k in losses + ["total_loss"])
+        def load(ckpt, name):
+            return torch.load(os.path.join(ckpt, name), map_location="cpu",
+                              weights_only=True)["model"]
+
+        at2 = state_differences(load(ck_a, "model_iter2"), snap["model"], module_types)
+        at4 = state_differences(load(ck_a, "model_latest"), load(ck_b, "model_latest"), module_types)
+        print(f"[cli] resume: losses of steps 1-4 {'bit-equal to' if same_losses else 'within'} "
+              f"the uninterrupted run's (largest relative difference {worst:.3g}, bound "
+              f"{RESUME_LOSS_RTOL}); step 2 states bit-equal: {not at2}; step 4 states bit-equal: "
+              f"{not at4}")
+        for what, diffs in (("step 2 (the same two steps from one checkpoint)", at2),
+                            ("step 4 (resumed against uninterrupted)", at4)):
+            if diffs:
+                owners = sorted({d.split("(")[1].split(",")[0] for d in diffs})
+                print(f"[cli] {what}: {len(diffs)} tensors differ, owned by {owners}; the first "
+                      f"in module order: {diffs[:3]}")
+        if worst > RESUME_LOSS_RTOL:
+            raise AssertionError(f"[cli] resumed losses differ by {worst:.3g} relative")
+        del snap
+
+        # eval: the final checkpoint over the 16 images
+        test_cfg = train_net.load_config(cfg_file, opts + CLI_TEST_OPTS)
+        (test_set,) = build_dataset(test_cfg, test_cfg.TEST.DATASETS, is_train=False)
+        t0 = time.perf_counter()
+        n_loaded = sum(item["count"] for item in TestLoader(test_cfg, test_set))
+        load_ms = (time.perf_counter() - t0) * 1e3 / n_loaded
+        print(f"[cli] the eval loader alone: {load_ms:.1f} ms an image over {n_loaded} (PIL "
+              f"decode, the cv2-rule resize in numpy to 800 rows, padding to 800x1344)")
+        out = run("test_net", test_net.main,
+                  ["--cfg", cfg_file, "--device", dev, "DATA_DIR", os.path.join(repo, "data"),
+                   "CKPT", ck_a] + CLI_TEST_OPTS, sites * len(test_set), 0)
+        results, seconds = out["results"], out["seconds"]
+        if not results or len(seconds) != len(test_set):
+            raise AssertionError(f"[cli] test_net: {len(results)} results, {len(seconds)} batches")
+        sizes = {test_set.id_to_img_map[i]: test_set.get_img_info(i) for i in range(len(test_set))}
+        for r in results:
+            x, y, w, h = r["bbox"]
+            info = sizes[r["image_id"]]
+            # x + w - 1 is the box's last pixel (TO_REMOVE = 1)
+            if not (0 <= x and 0 <= y and w >= 0 and h >= 0 and x + w - 1 < info["width"]
+                    and y + h - 1 < info["height"]) or not math.isfinite(r["score"]):
+                raise AssertionError(f"[cli] test_net: result {r} outside its "
+                                     f"{info['width']}x{info['height']} image")
+        with open(os.path.join(ck_a, "test", "bbox.json")) as f:
+            if json.load(f) != results:
+                raise AssertionError("[cli] bbox.json does not hold the results")
+        rest = len(seconds) - 1
+        print(f"[cli] test_net: {len(results)} detections over {len(test_set)} images, every box "
+              f"inside its image, bbox.json parses; the first image {seconds[0] * 1e3:.1f} ms "
+              f"(cuDNN plans the 800x1344 bucket), the other {rest} at "
+              f"{rest / sum(seconds[1:]):.2f} img/s ({statistics.median(seconds[1:]) * 1e3:.1f} ms "
+              f"median) | {card}")
+        print(f"[cli] test_net AP {out['stats']['AP']:.6f} AP50 {out['stats']['AP50']:.6f} "
+              f"(seeded weights after 4 steps; not a target)")
+    print(f"[cli] phase took {time.perf_counter() - t_phase:.1f} s")
+    return (launched["forward"], launched["backward"])
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -1501,13 +1739,16 @@ def main():
     phase_x101_reference(dev)
     x101_bwd = phase_train(dev, card, "auto", None, config="x101_dcn")
     torch.cuda.empty_cache()
+    cli = phase_cli(dev, card)
 
-    # launches on the driven paths: eval forwards plus training steps
+    # launches on the driven paths: eval forwards plus training steps, and
+    # the CLIs' runs
     launches = {
         "multilevel_roi_align": (fwd["auto"]["launches"] + bwd["auto"]["launches"][0]
-                                 + x101_fwd["pooler_launches"] + x101_bwd["pooler_launches"][0]),
+                                 + x101_fwd["pooler_launches"] + x101_bwd["pooler_launches"][0]
+                                 + cli[0]),
         "multilevel_roi_align_backward": (bwd["auto"]["launches"][1] + bwd["clustered"]["launches"][1]
-                                          + x101_bwd["pooler_launches"][1]),
+                                          + x101_bwd["pooler_launches"][1] + cli[1]),
         "clustered_roi_align": fwd["clustered"]["launches"] + bwd["clustered"]["launches"][0],
         "cluster_rois": fwd["clustered"]["grouping"]["launches"] + bwd["clustered"]["grouping_launches"],
         "stacked_roi_align": fwd["stacked"]["launches"] + bwd["stacked"]["launches"][0],

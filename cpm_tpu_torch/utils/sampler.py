@@ -36,6 +36,19 @@ class Draws:
             raise ValueError(f"draw {len(self.shapes)}: array {a.shape}, wanted {shape}")
         return torch.from_numpy(a).to(device)
 
+    def state_dict(self) -> dict:
+        """The generator's state, which a checkpoint keeps so that a resumed
+        run draws what an uninterrupted one would. A list of arrays is a
+        test's fixed stream and has no state to keep."""
+        if self._generator is None:
+            raise TypeError("Draws over a list of arrays has no state to save")
+        return {"generator": self._generator.get_state()}
+
+    def load_state_dict(self, state: dict) -> None:
+        if self._generator is None:
+            raise TypeError("Draws over a list of arrays has no state to load")
+        self._generator.set_state(state["generator"])
+
 
 def _uniform(mask, noise, generator) -> torch.Tensor:
     if noise is not None:

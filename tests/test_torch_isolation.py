@@ -35,13 +35,35 @@ def test_every_port_module_imports_without_jax():
         "wanted = ('ops.cuda._build', 'ops.cuda.multilevel_roi_align', 'ops.cuda.stacked_roi_align',\n"
         "          'ops.cuda.clustered_roi_align', 'ops.cuda.roi_align', 'tools.bench_roi_align',\n"
         "          'ops.deform_conv', 'ops.cuda.deform_sample', 'ops.cuda.crossroi_roi_align',\n"
-        "          'tools.probe_dcn_sampler', 'tools.probe_pooler_crossroi')\n"
+        "          'tools.probe_dcn_sampler', 'tools.probe_pooler_crossroi',\n"
+        "          'data.catalog', 'data.coco_io', 'data.coco', 'data.synthetic_coco',\n"
+        "          'data.transforms', 'data.samplers', 'data.loader', 'engine.checkpoint',\n"
+        "          'engine.test', 'evaluation.coco_eval', 'utils.logger', 'utils.vis',\n"
+        "          'tools.train_net', 'tools.test_net')\n"
         "assert all('cpm_tpu_torch.' + w in names for w in wanted), names\n"
         "print(len(names))\n"
     )
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 51
+    assert int(proc.stdout.split()[-1]) >= 66
+
+
+def test_host_data_modules_import_no_torch():
+    # the loaders run on a thread of their own beside the train step and are
+    # numpy and PIL, as in the JAX package; the evaluator is numpy
+    code = (
+        "import sys, importlib\n"
+        "for m in ('torch', 'jax', 'cpm_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "for n in ('data.catalog', 'data.coco_io', 'data.coco', 'data.synthetic_coco',\n"
+        "          'data.transforms', 'data.samplers', 'data.loader', 'evaluation.coco_eval',\n"
+        "          'utils.logger', 'utils.vis'):\n"
+        "    importlib.import_module('cpm_tpu_torch.' + n)\n"
+        "print('ok')\n"
+    )
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 def test_port_sources_import_no_jax_inside_functions_either():
