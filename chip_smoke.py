@@ -130,6 +130,29 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    bbox.json parses. It prints the step wall time, the loader wait, the peak
    memory, the eval images per second with the first image apart, the AP,
    and how long the phase took.
+13. ms: the paper's _ms YAML, cfgs/rcnn/mscoco/grid_cascade/iou_helper/
+   rescore/e2e_grid_cascade@567_rcnn_R-50-FPN_2x_ms.yaml (the @567 model:
+   CMM with 3 stages, ISM merged, RSM; TTA with the flip and scales 600,
+   1000, 1200 at max size 2000, so 8 passes over 4 buckets up to 1216x2016,
+   merged by soft-NMS), from weights in the reference's layout, over the
+   synthetic set. A seeded model, its frozen affines folded from the
+   loader's first batch, is written as a reference CPM checkpoint
+   (`Conv_Body.*`, `Conv_Body_FPN.*`, `RPN.head.*`, `Grid_Cascade_RCNN.*`,
+   by `reference_state_dict`, the inverse of the port's importer), as a
+   caffe-style trunk and as a port checkpoint. test_net `--range 0 4` from
+   the port checkpoint, synchronised around each forward and merge to time
+   them, then with TEST.WEIGHTS the .pth: each run 5 x 8 x 4 launches of the
+   multilevel forward kernel and none of any other, the merged detections
+   finite, inside their images, labels in 1..80, the imported model holding
+   the tensors to the bit, and the two runs' results equal to the bit. test_net `--shards 2` over the same images: two children, one
+   after the other on one card, whose merged results equal the single
+   process's (categories exactly, boxes 1e-2 px, scores 1e-4) and whose logs
+   name the card. train_net with TRAIN.WEIGHTS the trunk, 2 steps at batch 2
+   on the YAML's multi-scale buckets: finite losses, 5 + 5 launches a step,
+   the frozen trunk bit-equal to the import after the steps. It prints each
+   pass's forward time by bucket (the first of each apart), the merge's
+   time an image, the wall time an image, the peak memory and the phase's
+   time.
 
 Then a JSON line of kernel results and, last, {"ok": true, "device": ...}.
 Random weights give softmax scores near 1/81, below the default 0.03
@@ -1685,6 +1708,305 @@ def phase_cli(dev, card):
     print(f"[cli] phase took {time.perf_counter() - t_phase:.1f} s")
     return (launched["forward"], launched["backward"])
 
+# the port's parameter names -> the reference's (model_builder.py:32-57,
+# grid_cascade_rcnn.py:24-48, rpn/rpn.py:26-66): the inverse of
+# cpm_tpu_torch/utils/weight_import.py, kept here and not in the package
+REFERENCE_NAMES = (
+    (r"^backbone\.", "Conv_Body."),
+    (r"^fpn\.", "Conv_Body_FPN."),
+    (r"^rpn_head\.", "RPN.head."),
+    (r"^roi_head\.cls_head\.", "Grid_Cascade_RCNN.Head_cls."),
+    (r"^roi_head\.cls_output\.", "Grid_Cascade_RCNN.Output_cls."),
+    (r"^roi_head\.rescore_head\.", "Grid_Cascade_RCNN.Head_rescore."),
+    (r"^roi_head\.rescore_output\.", "Grid_Cascade_RCNN.Output_rescore."),
+    (r"^roi_head\.grid_heads\.(\d+)\.convs\.(\d+)\.", r"Grid_Cascade_RCNN.Head_grid_\1.convs.\2.0."),
+    (r"^roi_head\.grid_heads\.(\d+)\.gns\.(\d+)\.", r"Grid_Cascade_RCNN.Head_grid_\1.convs.\2.1."),
+    (r"^roi_head\.grid_outputs\.(\d+)\.deconv(\d)\.", r"Grid_Cascade_RCNN.Output_grid_\1.deconv_\2."),
+    (r"^roi_head\.grid_outputs\.(\d+)\.(norm1|iou_fc1|iou_fc2|iou_pred)\.",
+     r"Grid_Cascade_RCNN.Output_grid_\1.\2."),
+)
+
+
+def reference_state_dict(port_sd, conv1_rgb2bgr=False, pool_hw=(7, 7)):
+    """A port state_dict as a reference CPM checkpoint holds it: the
+    reference's names, BatchNorm as caffe's affine (weight and bias, no
+    running statistics), and the linears over a flattened pool (fc6,
+    iou_fc1) with the reference's (C, H, W) input order, where the port
+    flattens (H, W, C); with conv1_rgb2bgr (cfg.MODEL.CONV1_RGB2BGR) conv1's
+    input channels in the other order. Every other layout is torch's in both."""
+    import re
+
+    out = {}
+    for key, value in port_sd.items():
+        for pattern, repl in REFERENCE_NAMES:
+            ref, n = re.subn(pattern, repl, key)
+            if n:
+                break
+        else:
+            raise KeyError(f"no reference name for {key}")
+        if re.search(r"\.(fc6|iou_fc1)\.weight$", key):
+            h, w = pool_hw
+            value = (value.reshape(value.shape[0], h, w, -1).permute(0, 3, 1, 2)
+                     .reshape(value.shape[0], -1))
+        if key == "backbone.conv1.weight" and conv1_rgb2bgr:
+            value = value.flip(1)
+        out[ref] = value.detach().clone().contiguous()
+    return out
+
+
+def reference_trunk(port_sd, conv1_rgb2bgr=False):
+    """The trunk of a port state_dict as an ImageNet `.pth` holds it
+    (torchvision's names, caffe's affine BatchNorm)."""
+    return {k[len("Conv_Body."):]: v for k, v in reference_state_dict(
+        {k: v for k, v in port_sd.items() if k.startswith("backbone.")}, conv1_rgb2bgr).items()}
+
+
+MS_YAML = "cfgs/rcnn/mscoco/grid_cascade/iou_helper/rescore/e2e_grid_cascade@567_rcnn_R-50-FPN_2x_ms.yaml"
+# the _ms YAML's cuts for one card: the repository's synthetic COCO set, batch
+# 2 at the linearly scaled rate; random weights score near 1/81, below the
+# YAML's GRID_RCNN.SCORE_THRESH 0.03 and the TTA merge's FAST_RCNN one, 0.05
+MS_TRAIN_OPTS = ["TRAIN.DATASETS", "('coco_debug_synthetic',)", "TRAIN.BATCH_SIZE", "2",
+                 "SOLVER.BASE_LR", "0.0025"]
+MS_TEST_OPTS = ["TEST.DATASETS", "('coco_debug_synthetic',)", "GRID_RCNN.SCORE_THRESH", "0.0",
+                "FAST_RCNN.SCORE_THRESH", "0.0"]
+MS_IMAGES = 4
+
+
+def same_results(got, want, what):
+    """Raise unless two lists of COCO result dicts hold the same detections
+    an image: categories exactly, boxes to 1e-2 px and scores to 1e-4
+    (same_detections' tolerances), paired one to one."""
+    def by_image(results):
+        out = {}
+        for r in results:
+            out.setdefault(r["image_id"], []).append((r["category_id"], r["bbox"], r["score"]))
+        return out
+
+    got, want = by_image(got), by_image(want)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: images {sorted(got)} vs {sorted(want)}")
+    for img, rows in want.items():
+        have = list(got[img])
+        if len(have) != len(rows):
+            raise AssertionError(f"{what} image {img}: {len(have)} vs {len(rows)} results")
+        for cw, bw, sw in rows:
+            for j, (ch, bh, sh) in enumerate(have):
+                if ch == cw and max(abs(a - b) for a, b in zip(bw, bh)) <= 1e-2 and abs(sw - sh) <= 1e-4:
+                    del have[j]
+                    break
+            else:
+                raise AssertionError(f"{what} image {img}: no result matches {(cw, bw, sw)}")
+
+
+def phase_ms(dev, card):
+    """Phase 13: the paper's _ms YAML through the CLIs, from reference-layout
+    weights. Returns the launches of kernels 1 and 2 in its in-process runs."""
+    import os
+    import tempfile
+
+    import cpm_tpu_torch.engine.test as engine
+    from cpm_tpu_torch.data.coco import build_dataset
+    from cpm_tpu_torch.data.loader import TrainLoader
+    from cpm_tpu_torch.engine.checkpoint import CheckPointer
+    from cpm_tpu_torch.engine.train import create_train_state
+    from cpm_tpu_torch.tools import test_net, train_net
+    from cpm_tpu_torch.tools.profile_train import fold_batch_statistics
+    from cpm_tpu_torch.utils.weight_import import import_resnet_backbone, trunk_layers
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg_file = os.path.join(repo, MS_YAML)
+    data = ["DATA_DIR", os.path.join(repo, "data")]
+    cfg = train_net.load_config(cfg_file, MS_TRAIN_OPTS + data)
+    test_cfg = train_net.load_config(cfg_file, MS_TEST_OPTS + data)
+    stages = cfg.GRID_RCNN.CASCADE_MAPPING_OPTION.STAGE_NUM
+    sites = 1 + stages + int(cfg.GRID_RCNN.RESCORE_ON)
+    passes = engine.tta_passes(test_cfg)
+    aug = test_cfg.TEST.BBOX_AUG
+    if len(passes) != 8 or not test_cfg.TEST.SOFT_NMS.ENABLED or sites != 5:
+        raise AssertionError(f"[ms] {MS_YAML}: {len(passes)} passes, soft-NMS "
+                             f"{test_cfg.TEST.SOFT_NMS.ENABLED}, {sites} pooler calls a forward")
+    print(f"[ms] {MS_YAML}: ResNet {tuple(cfg.BACKBONE.RESNET.LAYERS)}, CMM {stages} stages, "
+          f"{sites} pooler calls a forward; TTA {len(passes)} passes (flip {aug.H_FLIP}, scales "
+          f"{tuple(aug.SCALES)}, max size {aug.MAX_SIZE}), soft-NMS {test_cfg.TEST.SOFT_NMS.METHOD}, "
+          f"box voting {test_cfg.TEST.BBOX_VOTE.ENABLED}; train scales {tuple(cfg.TRAIN.SCALES)}, "
+          f"max size {cfg.TRAIN.MAX_SIZE}")
+    fwd = ops()["multilevel"].KERNEL
+    launched = dict(forward=0, backward=0)
+
+    def run(what, fn, argv, want_fwd, want_bwd):
+        reset_launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        seconds = time.perf_counter() - t0
+        got = launch_counts()
+        others = {k: v for k, v in got.items() if v and not k.startswith("multilevel_roi_align")}
+        if (fwd.launches, fwd.backward_launches) != (want_fwd, want_bwd) or others:
+            raise AssertionError(f"[ms] {what}: launched {got}, want multilevel_roi_align "
+                                 f"{want_fwd} and its backward {want_bwd}, no other")
+        launched["forward"] += fwd.launches
+        launched["backward"] += fwd.backward_launches
+        print(f"[ms] {what}: {seconds:.2f} s in the call, launches multilevel_roi_align "
+              f"{fwd.launches}, backward {fwd.backward_launches}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (max_memory_allocated) | {card}")
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="cpm_ms_") as tmp:
+        # 1. reference-layout weights from seeded tensors, the frozen affines
+        # folded from the loader's first batch (a random trunk with unit
+        # affines diverges); and a port checkpoint of the same tensors
+        t0 = time.perf_counter()
+        model, optimizer, state = create_train_state(cfg, dev, cfg.SEED)
+        (dataset,) = build_dataset(cfg, cfg.TRAIN.DATASETS, is_train=True)
+        first = next(iter(TrainLoader(cfg, dataset, cfg.TRAIN.BATCH_SIZE, seed=cfg.SEED, prefetch=0)))
+        n_folded = fold_batch_statistics(model, first["images"])
+        port_sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        frozen = {n for n, p in model.named_parameters() if not p.requires_grad}
+        ck_port = os.path.join(tmp, "port")
+        CheckPointer(ck_port).save(state, 0)
+        del model, optimizer, state
+        whole_pth, trunk_pth = os.path.join(tmp, "model_final.pth"), os.path.join(tmp, "trunk.pth")
+        whole = reference_state_dict(port_sd, cfg.MODEL.CONV1_RGB2BGR)
+        families = sorted({k.split(".")[0] for k in whole})
+        if families != ["Conv_Body", "Conv_Body_FPN", "Grid_Cascade_RCNN", "RPN"]:
+            raise AssertionError(f"[ms] reference checkpoint key families {families}")
+        torch.save({"model": whole}, whole_pth)
+        trunk = reference_trunk(port_sd, cfg.MODEL.CONV1_RGB2BGR)
+        torch.save(trunk, trunk_pth)
+        imported = import_resnet_backbone(trunk_pth, trunk_layers(cfg), cfg.MODEL.CONV1_RGB2BGR)
+        wrong = [k for k, v in imported.items() if not torch.equal(v, port_sd[k])]
+        if wrong or len(imported) != sum(k.startswith("backbone.") for k in port_sd):
+            raise AssertionError(f"[ms] the imported trunk differs from its tensors: {wrong[:5]}")
+        print(f"[ms] weights in {time.perf_counter() - t0:.2f} s: {n_folded} frozen affines folded "
+              f"from the loader's first batch {tuple(first['images'].shape)}; {len(whole)} tensors "
+              f"in a reference CPM checkpoint ({os.path.getsize(whole_pth) / 2**20:.1f} MiB, "
+              f"{families}), {len(trunk)} in a caffe-style trunk ({os.path.getsize(trunk_pth) / 2**20:.1f} "
+              f"MiB); the trunk imports to the bit")
+        del whole, trunk, imported
+
+        # 2. test_net over images 0-4, 8 passes each: from the port checkpoint
+        # with each forward and merge timed on its own (a synchronise before
+        # and after; the first forward of a bucket plans cuDNN's algorithms),
+        # then from the .pth as TEST.WEIGHTS, the loop pipelined as it runs
+        want = sites * len(passes) * MS_IMAGES
+        base = ["--cfg", cfg_file, "--device", dev, "--range", "0", str(MS_IMAGES)] + data + MS_TEST_OPTS
+        timed = dict(forward=[], merge=[], merged=[])
+
+        def timing(fn, kind):
+            def wrapped(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if kind == "forward":
+                    timed["forward"].append((tuple(np.shape(args[0])[1:3]), ms))
+                else:
+                    timed["merge"].append(ms)
+                    timed["merged"].append({f: v.cpu() for f, v in out.items()})
+                return out
+            return wrapped
+
+        real_make, real_merge = engine.make_forward_fn, engine.merge_tta_detections
+        engine.make_forward_fn = lambda *a: timing(real_make(*a), "forward")
+        engine.merge_tta_detections = timing(real_merge, "merge")
+        try:
+            from_ckpt = run("test_net CKPT (each forward and merge synchronised)", test_net.main,
+                            base + ["CKPT", ck_port], want, 0)
+        finally:
+            engine.make_forward_fn, engine.merge_tta_detections = real_make, real_merge
+        del from_ckpt["model"]
+        from_pth = run("test_net TEST.WEIGHTS .pth", test_net.main,
+                       base + ["CKPT", os.path.join(tmp, "pth"), "TEST.WEIGHTS", whole_pth], want, 0)
+        got_sd = from_pth["model"].state_dict()
+        wrong = [k for k in port_sd if not torch.equal(got_sd[k].cpu(), port_sd[k])]
+        if wrong or sorted(got_sd) != sorted(port_sd):
+            raise AssertionError(f"[ms] the imported model differs from its tensors: {wrong[:5]}")
+        del from_pth["model"], got_sd
+        seconds = from_pth["seconds"]
+        if from_ckpt["results"] != from_pth["results"]:
+            raise AssertionError("[ms] detections from the imported .pth differ from those of the "
+                                 "port checkpoint of the same tensors")
+        (test_set,) = build_dataset(test_cfg, test_cfg.TEST.DATASETS, is_train=False)
+        n_dets = []
+        for i, merged in enumerate(timed["merged"]):
+            info = test_set.get_img_info(i)
+            m = merged["mask"][0]
+            b, lab = merged["boxes"][0][m], merged["labels"][0][m]
+            # a box clipped to an up-scaled image's last pixel maps back past
+            # the original's last one by less than a pixel
+            inside = ((b[:, 0] >= 0) & (b[:, 1] >= 0) & (b[:, 2] < info["width"])
+                      & (b[:, 3] < info["height"]))
+            if (not m.any() or not torch.isfinite(b).all() or not inside.all()
+                    or not torch.isfinite(merged["scores"][0][m]).all()
+                    or not ((lab >= 1) & (lab <= cfg.MODEL.NUM_CLASSES - 1)).all()):
+                raise AssertionError(f"[ms] image {i}: merged detections {merged}")
+            n_dets.append(int(m.sum()))
+        if len(timed["merged"]) != MS_IMAGES or len(timed["forward"]) != len(passes) * MS_IMAGES:
+            raise AssertionError(f"[ms] {len(timed['forward'])} forwards, {len(timed['merged'])} merges")
+        print(f"[ms] test_net: {len(from_pth['results'])} results over images 0-{MS_IMAGES}, the "
+              f"TEST.WEIGHTS run bit-equal to the CKPT run; merged sets of {n_dets} detections, "
+              f"finite, inside each image, labels in 1..{cfg.MODEL.NUM_CLASSES - 1}")
+        by_bucket = {}
+        for hw, ms in timed["forward"]:
+            by_bucket.setdefault(hw, []).append(ms)
+        for hw, times in by_bucket.items():
+            rest = (f", the other {len(times) - 1} {statistics.median(times[1:]):.1f} ms median "
+                    f"({min(times[1:]):.1f}-{max(times[1:]):.1f})" if len(times) > 1 else "")
+            print(f"[ms] forward at bucket {hw[0]}x{hw[1]} (batch 1): the first {times[0]:.1f} ms "
+                  f"(cuDNN plans){rest} | {card}")
+        print(f"[ms] TTA merge (soft-NMS over {len(passes)} passes' detections, on the card): "
+              f"{statistics.median(timed['merge']):.2f} ms an image median "
+              f"({min(timed['merge']):.2f}-{max(timed['merge']):.2f}) | {card}")
+        print(f"[ms] wall time an image, from loading to results on the host (the pipelined loop, "
+              f"TEST.WEIGHTS run, the buckets planned): {statistics.median(seconds) * 1e3:.1f} ms "
+              f"median ({', '.join(f'{s * 1e3:.1f}' for s in seconds)}) | {card}")
+
+        # 3. --shards 2 over the same images: children of the CLI, in waves
+        # of the card count
+        ck_shard = os.path.join(tmp, "shards")
+        t0 = time.perf_counter()
+        sharded = run("test_net --shards 2", test_net.main,
+                      ["--cfg", cfg_file, "--device", dev, "--shards", "2", "--range", "0",
+                       str(MS_IMAGES)] + data + MS_TEST_OPTS
+                      + ["CKPT", ck_shard, "TEST.WEIGHTS", whole_pth], 0, 0)
+        same_results(sharded["results"], from_pth["results"], "[ms] --shards 2 against one process")
+        name = torch.cuda.get_device_name(0)
+        for s, e in engine.shard_ranges(MS_IMAGES, 2):
+            with open(os.path.join(ck_shard, "test", f"shard_{s}_{e}.log")) as f:
+                log = f.read()
+            if name not in log:
+                raise AssertionError(f"[ms] shard [{s}, {e}) names no {name}:\n{log[-2000:]}")
+        print(f"[ms] --shards 2: {time.perf_counter() - t0:.2f} s for two children run one after "
+              f"the other (one card), results equal the single process's (categories exactly, "
+              f"boxes 1e-2 px, scores 1e-4), each child's log names the {name}")
+
+        # 4. train_net from the caffe-style trunk, 2 steps on the YAML's
+        # multi-scale buckets
+        ck_train = os.path.join(tmp, "train")
+        history = run("train_net TRAIN.WEIGHTS 2 steps", train_net.main,
+                      ["--cfg", cfg_file, "--device", dev] + MS_TRAIN_OPTS + data
+                      + ["CKPT", ck_train, "TRAIN.WEIGHTS", trunk_pth, "SOLVER.MAX_ITER", "2",
+                         "SOLVER.SNAPSHOT_ITERS", "2"], 2 * sites, 2 * sites)
+        losses = [k for k in history[0] if k.startswith("loss_")]
+        for r in history:
+            if len(losses) != 8 or not all(math.isfinite(r[k]) for k in losses + ["total_loss"]):
+                raise AssertionError(f"[ms] train_net iter {r['iter']}: {r}")
+            print(f"[ms] train_net iter {r['iter']}: step {r['step_s'] * 1e3:.1f} ms, total_loss "
+                  f"{r['total_loss']:.4f}, " + ", ".join(f"{k[5:]} {r[k]:.4f}" for k in losses))
+        after = torch.load(os.path.join(ck_train, "model_latest"), map_location="cpu",
+                           weights_only=True)["model"]
+        moved = [k for k in frozen if not torch.equal(after[k], port_sd[k])]
+        if moved or len(history) != 2:
+            raise AssertionError(f"[ms] frozen trunk tensors moved from the import: {moved[:5]}")
+        print(f"[ms] train_net: {len(frozen)} frozen trunk tensors bit-equal to the imported ones "
+              f"after {len(history)} steps")
+    print(f"[ms] phase took {time.perf_counter() - t_phase:.1f} s | {card}")
+    return (launched["forward"], launched["backward"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -1740,15 +2062,17 @@ def main():
     x101_bwd = phase_train(dev, card, "auto", None, config="x101_dcn")
     torch.cuda.empty_cache()
     cli = phase_cli(dev, card)
+    torch.cuda.empty_cache()
+    ms = phase_ms(dev, card)
 
     # launches on the driven paths: eval forwards plus training steps, and
     # the CLIs' runs
     launches = {
         "multilevel_roi_align": (fwd["auto"]["launches"] + bwd["auto"]["launches"][0]
                                  + x101_fwd["pooler_launches"] + x101_bwd["pooler_launches"][0]
-                                 + cli[0]),
+                                 + cli[0] + ms[0]),
         "multilevel_roi_align_backward": (bwd["auto"]["launches"][1] + bwd["clustered"]["launches"][1]
-                                          + x101_bwd["pooler_launches"][1] + cli[1]),
+                                          + x101_bwd["pooler_launches"][1] + cli[1] + ms[1]),
         "clustered_roi_align": fwd["clustered"]["launches"] + bwd["clustered"]["launches"][0],
         "cluster_rois": fwd["clustered"]["grouping"]["launches"] + bwd["clustered"]["grouping_launches"],
         "stacked_roi_align": fwd["stacked"]["launches"] + bwd["stacked"]["launches"][0],

@@ -1,11 +1,18 @@
 """Inference engine: the eval forward, the dataset loop and COCO evaluation.
 
 Port of cpm_tpu/engine/test.py (`make_forward_fn`, `detections_to_coco`,
-`run_inference_on_dataset`, `evaluate_results`), after the reference's
-pet/rcnn/core/test_engine.py and rcnn/datasets/evaluation.py: per image,
-the forward at TEST.SCALE, boxes rescaled to the original image, COCO xywh
-results with json category ids, then the in-repo COCOEvaluator. Test-time
-augmentation (TEST.BBOX_AUG) is not ported yet and raises.
+`run_inference_on_dataset` with its TTA merge, `shard_ranges`,
+`evaluate_results`), after the reference's pet/rcnn/core/test_engine.py,
+core/test.py and rcnn/datasets/evaluation.py: per image, the forward at
+TEST.SCALE, boxes rescaled to the original image, COCO xywh results with
+json category ids, then the in-repo COCOEvaluator.
+
+TTA (TEST.BBOX_AUG): each pass's detections are mapped to the original
+image, concatenated and filtered once by the reference's filter_results
+(core/test.py:44-48, 433-509): label-aware hard NMS, or soft-NMS with
+TEST.SOFT_NMS, then box voting with TEST.BBOX_VOTE, capped at
+FAST_RCNN.DETECTIONS_PER_IMG. The merged set has a fixed size (passes x K
+detections), and the merge runs on the model's device.
 """
 
 import json
@@ -17,6 +24,7 @@ import numpy as np
 import torch
 
 from cpm_tpu_torch.data.loader import TestLoader
+from cpm_tpu_torch.ops.nms import box_ml_voting, ml_soft_nms, multiclass_nms
 from cpm_tpu_torch.utils.amp import cast_floating_to, compute_dtype
 
 
@@ -73,24 +81,111 @@ def make_forward_fn(cfg, model: torch.nn.Module):
     return forward
 
 
+def _merged_filter(
+    boxes, scores, labels, mask, *,
+    score_thresh, nms_thresh, detections_per_img,
+    use_soft_nms=False, soft_nms_sigma=0.5, soft_nms_method="linear",
+    use_box_voting=False, vote_thresh=0.8, vote_scoring_method="ID", vote_beta=1.0,
+):
+    """The reference's filter_results (core/test.py:433-509) over one
+    labelled set a row: boxes [..., N, 4], scores, labels (1..C-1) and mask
+    [..., N]. Returns (boxes, scores, labels, valid) of detections_per_img."""
+    valid = mask & (scores > score_thresh)
+    if use_soft_nms:
+        idx, out_scores, keep = ml_soft_nms(
+            boxes, scores, labels, detections_per_img, sigma=soft_nms_sigma,
+            overlap_thresh=nms_thresh, score_thresh=1e-4, method=soft_nms_method, mask=valid)
+    else:
+        idx, keep = multiclass_nms(boxes, scores, labels, nms_thresh, detections_per_img,
+                                   mask=valid)
+        out_scores = torch.where(keep, torch.gather(scores, -1, idx), 0.0)
+    out_boxes = torch.gather(boxes, -2, idx[..., None].expand(*idx.shape, 4))
+    out_labels = torch.gather(labels, -1, idx)
+    if use_box_voting:
+        voted, vscores = box_ml_voting(
+            out_boxes, out_scores, out_labels, boxes, scores, labels, vote_thresh,
+            scoring_method=vote_scoring_method, beta=vote_beta, top_mask=keep, pool_mask=valid)
+        out_boxes = torch.where(keep[..., None], voted, out_boxes)
+        out_scores = torch.where(keep, vscores, 0.0)
+    return out_boxes, out_scores, out_labels, keep
+
+
+def merge_tta_detections(cfg, per_pass_dets: List[Dict[str, torch.Tensor]]):
+    """Concatenate the passes' detections (tensors [..., K] in one
+    coordinate frame) and filter them once (core/test.py:46-48), on their
+    device. As in the reference, the filter reads FAST_RCNN's thresholds."""
+    cat = {f: torch.cat([d[f] for d in per_pass_dets], dim=-1 if f != "boxes" else -2)
+           for f in ("boxes", "scores", "labels", "mask")}
+    t = cfg.TEST
+    boxes, scores, labels, keep = _merged_filter(
+        cat["boxes"], cat["scores"], cat["labels"], cat["mask"],
+        score_thresh=cfg.FAST_RCNN.SCORE_THRESH,
+        nms_thresh=cfg.FAST_RCNN.NMS,
+        detections_per_img=cfg.FAST_RCNN.DETECTIONS_PER_IMG,
+        use_soft_nms=t.SOFT_NMS.ENABLED,
+        soft_nms_sigma=t.SOFT_NMS.SIGMA,
+        soft_nms_method=t.SOFT_NMS.METHOD,
+        use_box_voting=t.BBOX_VOTE.ENABLED,
+        vote_thresh=t.BBOX_VOTE.VOTE_TH,
+        vote_scoring_method=t.BBOX_VOTE.SCORING_METHOD,
+        vote_beta=t.BBOX_VOTE.SCORING_METHOD_BETA,
+    )
+    return dict(boxes=boxes, scores=scores, labels=labels, mask=keep)
+
+
+def _unflip_boxes(boxes: torch.Tensor, resized_w: torch.Tensor) -> torch.Tensor:
+    """Map boxes [B, K, 4] of h-flipped images of widths resized_w [B] back
+    (BoxList.transpose, TO_REMOVE = 1)."""
+    w = resized_w[:, None]
+    x1 = w - boxes[..., 2] - 1
+    x2 = w - boxes[..., 0] - 1
+    return torch.stack([x1, boxes[..., 1], x2, boxes[..., 3]], dim=-1)
+
+
+def tta_passes(cfg) -> List[dict]:
+    """The eval passes (core/test.py:34-48): the base pass, then with
+    TEST.BBOX_AUG its flip, then each scale and its flip."""
+    passes = [dict(scale=None, max_size=None, hflip=False)]
+    aug = cfg.TEST.BBOX_AUG
+    if aug.ENABLED:
+        if aug.H_FLIP:
+            passes.append(dict(scale=None, max_size=None, hflip=True))
+        for s in aug.SCALES:
+            passes.append(dict(scale=s, max_size=aug.MAX_SIZE, hflip=False))
+            if aug.H_FLIP:
+                passes.append(dict(scale=s, max_size=aug.MAX_SIZE, hflip=True))
+    return passes
+
+
 def run_inference_on_dataset(
     cfg,
     model: torch.nn.Module,
     dataset,
     *,
+    start: int = 0,
+    end: Optional[int] = None,
     progress_every: int = 100,
     logger=print,
     batch_seconds: Optional[list] = None,
 ) -> List[dict]:
-    """COCO-format result dicts for the dataset's images, one pass at
-    TEST.SCALE. With cfg.VIS.ENABLED each image is drawn with its
-    detections under $CKPT/vis/ (the reference's test_engine.py:171-187).
-    `batch_seconds`, when given, receives each batch's wall time: loading,
-    the forward and the conversion, ending with the detections on the host."""
-    if cfg.TEST.BBOX_AUG.ENABLED:
-        raise NotImplementedError("TEST.BBOX_AUG (test-time augmentation) is not ported yet")
+    """COCO-format result dicts for the images [start, end) of the dataset.
+
+    One pass at TEST.SCALE, or with TEST.BBOX_AUG the passes of
+    `tta_passes`, whose detections are mapped to the original image and
+    merged on the model's device. The loop is pipelined: a batch's forwards
+    (and its merge) are queued on the device before the previous batch's
+    detections are read, in one device-to-host copy a batch. With
+    cfg.VIS.ENABLED each image is drawn with its detections under
+    $CKPT/vis/ (the reference's test_engine.py:171-187). `batch_seconds`,
+    when given, receives for each batch the wall time of the loop's turn
+    that loads and queues it and reads the previous batch's detections; the
+    last batch's also holds the read of its own. They sum to the loop's time."""
     forward = make_forward_fn(cfg, model)
-    loader = TestLoader(cfg, dataset)
+    device = next(model.parameters()).device
+    passes = tta_passes(cfg)
+    tta = len(passes) > 1
+    loaders = [TestLoader(cfg, dataset, start=start, end=end, scale=p["scale"],
+                          max_size=p["max_size"], hflip=p["hflip"]) for p in passes]
     c2j = dataset.contiguous_category_id_to_json_id
 
     vis_dir = class_names = None
@@ -102,12 +197,12 @@ def run_inference_on_dataset(
             cat = getattr(dataset.coco, "cats", {}).get(jid, {})
             class_names[cont] = cat.get("name", str(jid))
 
-    def vis_one(dets_np, meta):
+    def vis_one(dets_np, meta, scale_hw):
         """Draw the detections, unscaled to the original image, over the raw
         image and write $CKPT/vis/<file_name>."""
         from cpm_tpu_torch.utils.vis import save_vis
 
-        sh, sw = meta["scale_hw"]
+        sh, sw = scale_hw
         boxes = dets_np["boxes"] / np.array([sw, sh, sw, sh], np.float32)
         keep = dets_np["mask"].astype(bool)
         file_name = os.path.basename(dataset.get_img_info(meta["index"]).get(
@@ -119,29 +214,76 @@ def run_inference_on_dataset(
             num_classes=cfg.MODEL.NUM_CLASSES,
         )
 
+    def dispatch(items):
+        """Queue every pass's forward of one batch, and under TTA the mapping
+        to original coordinates and the merge; returns the detections packed
+        as one [B, K, 7] float32 tensor (box, score, label, mask) and the
+        batch's first item."""
+        def upload(array):
+            # a blocking copy would wait for the forwards queued before it
+            return torch.as_tensor(array).to(device, non_blocking=True)
+
+        per_pass = []
+        for p, item in zip(passes, items):
+            dets = forward(item["images"], item["image_sizes"])
+            d = dict(boxes=dets.boxes.float(), scores=dets.scores.float(),
+                     labels=dets.labels, mask=dets.mask)
+            if p["hflip"]:
+                d["boxes"] = _unflip_boxes(d["boxes"], upload(item["image_sizes"][:, 1]))
+            if tta:
+                # every pass to the original image's frame; a padded slot
+                # repeats the batch's last image
+                metas = item["meta"] + item["meta"][-1:] * (len(d["boxes"]) - item["count"])
+                scale = upload(np.array([[m["scale_hw"][1], m["scale_hw"][0]] * 2 for m in metas],
+                                        np.float32))
+                d["boxes"] = d["boxes"] / scale[:, None, :]
+            per_pass.append(d)
+        d = merge_tta_detections(cfg, per_pass) if tta else per_pass[0]
+        packed = torch.cat([d["boxes"], d["scores"][..., None], d["labels"].float()[..., None],
+                            d["mask"].float()[..., None]], dim=-1)
+        return packed, items[0]
+
+    def collect(pending):
+        packed, item = pending
+        host = packed.cpu().numpy()  # the batch's one device-to-host copy
+        for j, meta in enumerate(item["meta"]):
+            dets_np = dict(boxes=host[j, :, :4], scores=host[j, :, 4],
+                           labels=host[j, :, 5].astype(np.int32), mask=host[j, :, 6] > 0)
+            scale_hw = (1.0, 1.0) if tta else meta["scale_hw"]
+            results.extend(detections_to_coco(dets_np, meta["image_id"], scale_hw, c2j))
+            if vis_dir is not None:
+                vis_one(dets_np, meta, scale_hw)
+        return item["count"]
+
     results: List[dict] = []
     n_done = 0
-    batches = iter(loader)
-    while True:
-        t0 = time.perf_counter()
-        item = next(batches, None)
-        if item is None:
-            break
-        dets = forward(item["images"], item["image_sizes"])
-        fetched = dict(boxes=dets.boxes.float().cpu().numpy(),
-                       scores=dets.scores.float().cpu().numpy(),
-                       labels=dets.labels.cpu().numpy(), mask=dets.mask.cpu().numpy())
-        for j, meta in enumerate(item["meta"]):
-            dets_np = {f: v[j] for f, v in fetched.items()}
-            results.extend(detections_to_coco(dets_np, meta["image_id"], meta["scale_hw"], c2j))
-            if vis_dir is not None:
-                vis_one(dets_np, meta)
+    pending = None
+    t_last = time.perf_counter()
+    for items in zip(*loaders):
+        dispatched = dispatch(items)
+        if pending is not None:
+            n_done += collect(pending)
+            if progress_every and n_done % progress_every < pending[1]["count"]:
+                logger(f"inference: {n_done}/{len(loaders[0])} images")
+        pending = dispatched
         if batch_seconds is not None:
-            batch_seconds.append(time.perf_counter() - t0)
-        n_done += item["count"]
-        if progress_every and n_done % progress_every < item["count"]:
-            logger(f"inference: {n_done}/{len(loader)} images")
+            now = time.perf_counter()
+            batch_seconds.append(now - t_last)
+            t_last = now
+    if pending is not None:
+        collect(pending)
+        if batch_seconds is not None:
+            batch_seconds[-1] += time.perf_counter() - t_last
     return results
+
+
+def shard_ranges(n_images: int, n_shards: int) -> List[tuple]:
+    """Split [0, n_images) into at most n_shards contiguous ranges
+    (multi_gpu_test_net_on_dataset, test_engine.py:60-100)."""
+    n_shards = max(1, min(n_shards, n_images)) if n_images else 1
+    per = (n_images + n_shards - 1) // n_shards
+    return [(i * per, min((i + 1) * per, n_images))
+            for i in range(n_shards) if i * per < n_images]
 
 
 def evaluate_results(cfg, dataset, results, output_dir: Optional[str] = None):

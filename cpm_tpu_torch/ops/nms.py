@@ -1,6 +1,7 @@
-"""Fixed-shape hard NMS.
+"""Fixed-shape NMS: hard, soft, and box voting.
 
-Port of cpm_tpu/ops/nms.py (`nms`, `batched_nms`, `multiclass_nms`). Every
+Port of cpm_tpu/ops/nms.py (`nms`, `batched_nms`, `multiclass_nms`,
+`soft_nms`, `ml_soft_nms`, `box_voting`, `box_ml_voting`). Every
 function takes padded `[..., N]` inputs with a validity mask and returns a
 fixed number of output slots with a validity mask; leading dims are a batch.
 
@@ -8,7 +9,8 @@ The keep mask is the JAX package's fixed point: keep[i] is recomputed as
 "no kept, higher-scored box overlaps me" until it stops changing, which is
 exactly sequential greedy NMS. The JAX `while_loop` becomes a Python loop
 whose convergence test reads one flag from the device per iteration; the
-iteration count is the longest suppression chain.
+iteration count is the longest suppression chain. Soft-NMS is the JAX
+`scan`: a fixed number of steps of device ops, with no read to the host.
 
 IoU convention: standard (x2-x1)*(y2-y1) with no +1 (`legacy_plus1=False`),
 as the reference's NMS kernels use.
@@ -111,3 +113,165 @@ def multiclass_nms(
     return batched_nms(
         boxes, scores, labels, iou_threshold, max_output, mask, legacy_plus1
     )
+
+
+def soft_nms(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    max_output: int,
+    sigma: float = 0.5,
+    overlap_thresh: float = 0.3,
+    score_thresh: float = 0.001,
+    method: str = "linear",
+    mask: torch.Tensor = None,
+    legacy_plus1: bool = False,
+):
+    """Soft-NMS (the reference's csrc/NMS/soft_nms.cpp) over the last box axis.
+
+    `max_output` times: pick the highest remaining score (the first of equal
+    ones), then decay the scores of the boxes that overlap it (linear,
+    gaussian or hard). The steps are device ops with no read to the host.
+    Returns (indices [..., max_output], their scores when picked, valid).
+    """
+    if method not in ("linear", "gaussian", "hard"):
+        raise ValueError(method)
+    if mask is None:
+        mask = torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
+    neg_inf = torch.finfo(scores.dtype).min
+    s = torch.where(mask, scores, torch.full_like(scores, neg_inf))
+    iou = box_iou(boxes, boxes, legacy_plus1=legacy_plus1)  # [..., N, N]
+    # a tensor divisor: CUDA turns a division by a Python number into a
+    # multiplication by its reciprocal, which rounds otherwise
+    sigma_t = torch.tensor(sigma, dtype=iou.dtype, device=iou.device)
+    row = (*s.shape[:-1], 1, s.shape[-1])
+    picked, picked_scores, picked_ok = [], [], []
+    for _ in range(max_output):
+        i = torch.argmax(s, dim=-1, keepdim=True)
+        si = torch.gather(s, -1, i)
+        ok = si > score_thresh
+        ov = torch.gather(iou, -2, i[..., None].expand(row)).squeeze(-2)
+        if method == "linear":
+            decay = torch.where(ov > overlap_thresh, 1.0 - ov, 1.0)
+        elif method == "gaussian":
+            decay = torch.exp(-(ov * ov) / sigma_t)
+        else:
+            decay = torch.where(ov > overlap_thresh, 0.0, 1.0)
+        s_new = torch.where(s > neg_inf / 2, s * decay, s)
+        s_new = s_new.scatter(-1, i, neg_inf)  # the picked box leaves the pool
+        s = torch.where(ok, s_new, s)
+        picked.append(i)
+        picked_scores.append(si)
+        picked_ok.append(ok)
+    idx = torch.cat(picked, -1)
+    out_scores = torch.cat(picked_scores, -1)
+    valid = torch.cat(picked_ok, -1) & (out_scores > score_thresh)
+    return idx, out_scores, valid
+
+
+def ml_soft_nms(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    labels: torch.Tensor,
+    max_output: int,
+    sigma: float = 0.5,
+    overlap_thresh: float = 0.3,
+    score_thresh: float = 0.001,
+    method: str = "linear",
+    mask: torch.Tensor = None,
+    legacy_plus1: bool = False,
+):
+    """Label-aware soft-NMS (csrc/NMS/ml_soft_nms.cpp) by the
+    coordinate-offset trick: boxes of different labels never decay each
+    other. The shifted coordinates round as the JAX package's do."""
+    if mask is None:
+        mask = torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
+    max_coord = torch.amax(torch.where(mask[..., None], boxes, 0.0), dim=(-2, -1),
+                           keepdim=True) + 1.0
+    shifted = boxes + labels.to(boxes.dtype)[..., None] * max_coord
+    return soft_nms(shifted, scores, max_output, sigma, overlap_thresh, score_thresh,
+                    method, mask, legacy_plus1)
+
+
+def _temp_scores(pool_scores: torch.Tensor, beta: float) -> torch.Tensor:
+    """TEMP_AVG's per-neighbour score (box_voting.cu:105-112): s -> 1 / (1 +
+    (1/s - 1)^(1/beta)), sigmoid(logit(s) / beta), with s == 0 passed through."""
+    s = torch.clamp(pool_scores, 0.0, 1.0)  # a negative base to a power is nan
+    pos = s > 0.0
+    base = torch.where(pos, 1.0 / torch.where(pos, s, 1.0) - 1.0, 0.0)
+    t = 1.0 / (1.0 + base ** (1.0 / beta))
+    return torch.where(pos, t, pool_scores)
+
+
+def box_voting(
+    top_boxes: torch.Tensor,
+    top_scores: torch.Tensor,
+    pool_boxes: torch.Tensor,
+    pool_scores: torch.Tensor,
+    thresh: float,
+    scoring_method: str = "ID",
+    beta: float = 1.0,
+    top_mask: torch.Tensor = None,
+    pool_mask: torch.Tensor = None,
+    legacy_plus1: bool = False,
+):
+    """Box voting (csrc/Box_ops/box_voting.cu): each kept box becomes the
+    score-weighted mean of the pool boxes that overlap it by at least
+    `thresh`, and its score is set by `scoring_method`. Returns
+    (voted boxes [..., K, 4], voted scores [..., K])."""
+    return _box_ml_voting_impl(top_boxes, top_scores, pool_boxes, pool_scores, True, thresh,
+                               scoring_method, beta, top_mask, pool_mask, legacy_plus1)
+
+
+def box_ml_voting(
+    top_boxes: torch.Tensor,
+    top_scores: torch.Tensor,
+    top_labels: torch.Tensor,
+    pool_boxes: torch.Tensor,
+    pool_scores: torch.Tensor,
+    pool_labels: torch.Tensor,
+    thresh: float,
+    scoring_method: str = "ID",
+    beta: float = 1.0,
+    top_mask: torch.Tensor = None,
+    pool_mask: torch.Tensor = None,
+    legacy_plus1: bool = False,
+):
+    """Label-aware box voting (csrc/Box_ops/box_ml_voting.cu): only pool
+    boxes of the kept box's label vote."""
+    same = top_labels[..., :, None] == pool_labels[..., None, :]
+    return _box_ml_voting_impl(top_boxes, top_scores, pool_boxes, pool_scores, same, thresh,
+                               scoring_method, beta, top_mask, pool_mask, legacy_plus1)
+
+
+def _box_ml_voting_impl(
+    top_boxes, top_scores, pool_boxes, pool_scores, same, thresh,
+    scoring_method, beta, top_mask, pool_mask, legacy_plus1,
+):
+    if top_mask is None:
+        top_mask = torch.ones(top_boxes.shape[:-1], dtype=torch.bool, device=top_boxes.device)
+    if pool_mask is None:
+        pool_mask = torch.ones(pool_boxes.shape[:-1], dtype=torch.bool, device=pool_boxes.device)
+    iou = box_iou(top_boxes, pool_boxes, legacy_plus1=legacy_plus1)  # [..., K, P]
+    w = (iou >= thresh) & top_mask[..., :, None] & pool_mask[..., None, :] & same
+    pool = pool_scores[..., None, :]
+    wf = w.to(top_boxes.dtype) * torch.clamp(pool, min=0.0)
+    wsum = torch.clamp(wf.sum(-1, keepdim=True), min=1e-12)
+    voted = (wf @ pool_boxes) / wsum
+    nvote = torch.clamp(w.sum(-1), min=1)
+    if scoring_method == "ID":
+        scores = top_scores
+    elif scoring_method == "TEMP_AVG":
+        scores = torch.where(w, _temp_scores(pool_scores, beta)[..., None, :], 0.0).sum(-1) / nvote
+    elif scoring_method == "AVG":
+        scores = torch.where(w, pool, 0.0).sum(-1) / nvote
+    elif scoring_method == "IOU_AVG":
+        wi = torch.where(w, iou, 0.0)
+        scores = (wi * pool).sum(-1) / torch.clamp(wi.sum(-1), min=1e-12)
+    elif scoring_method == "GENERALIZED_AVG":
+        p = torch.where(w, torch.clamp(pool, min=1e-12) ** beta, 0.0)
+        scores = (p.sum(-1) / nvote) ** (1.0 / beta)
+    elif scoring_method == "QUASI_SUM":
+        scores = torch.where(w, pool, 0.0).sum(-1) / nvote.to(top_boxes.dtype) ** beta
+    else:
+        raise ValueError(scoring_method)
+    return voted, scores

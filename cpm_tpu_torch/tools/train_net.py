@@ -6,7 +6,9 @@ The contract of the JAX package's tools/train_net.py and of the reference's
 tools/rcnn/train_net.py: a YAML config and trailing `KEY VALUE` overrides
 (after the options). It copies the YAML into CKPT, builds the dataset and
 the loader (TRAIN.BATCH_SIZE images a step on one device), builds the train
-state from cfg.SEED, resumes from CKPT's `model_latest` when there is one
+state from cfg.SEED, loads the pretrained trunk that an existing
+TRAIN.WEIGHTS file holds (a reference torch checkpoint, imported by
+utils/weight_import.py), resumes from CKPT's `model_latest` when there is one
 (the loader skips to the restored step), and trains to SOLVER.MAX_ITER:
 a log line every DISPLAY_ITER steps, a snapshot every SNAPSHOT_ITERS steps
 and at the last one, `model_latest` at the end. The last line gives the
@@ -29,11 +31,17 @@ import time
 import torch
 
 
-def parse_args(argv=None, description="CPM R-CNN training (PyTorch)"):
+def arg_parser(description="CPM R-CNN training (PyTorch)") -> argparse.ArgumentParser:
+    """The options both CLIs take; `parse_args` adds the trailing overrides."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--cfg", dest="cfg_file", required=True)
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu, where the kernels' plain versions run")
+    return p
+
+
+def parse_args(argv=None, parser=None):
+    p = parser if parser is not None else arg_parser()
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None,
                    help="config overrides, KEY VALUE pairs, after the options")
     return p.parse_args(argv)
@@ -80,12 +88,13 @@ def main(argv=None):
     from cpm_tpu_torch.engine.checkpoint import CheckPointer
     from cpm_tpu_torch.engine.train import create_train_state, make_train_step
     from cpm_tpu_torch.utils.logger import TrainingLogger
+    from cpm_tpu_torch.utils.weight_import import (
+        import_resnet_backbone,
+        merge_backbone_into_model,
+        trunk_layers,
+    )
 
     cfg = load_config(args.cfg_file, args.opts)
-    if cfg.TRAIN.WEIGHTS and os.path.exists(cfg.TRAIN.WEIGHTS):
-        raise NotImplementedError(
-            f"TRAIN.WEIGHTS {cfg.TRAIN.WEIGHTS}: the .pth importer is not ported yet "
-            f"(ROADMAP.md Queue 1, item 5); set TRAIN.WEIGHTS '' to train from seeded weights")
     ckpt_dir = cfg.CKPT
     os.makedirs(ckpt_dir, exist_ok=True)
     shutil.copyfile(args.cfg_file, os.path.join(ckpt_dir, os.path.basename(args.cfg_file)))
@@ -94,6 +103,11 @@ def main(argv=None):
     dataset = datasets[0] if len(datasets) == 1 else ConcatDataset(datasets)
     loader = TrainLoader(cfg, dataset, cfg.TRAIN.BATCH_SIZE, seed=cfg.SEED)
     model, optimizer, state = create_train_state(cfg, device, cfg.SEED)
+    if cfg.TRAIN.WEIGHTS and os.path.exists(cfg.TRAIN.WEIGHTS):
+        # the pretrained trunk; a checkpoint to resume from wins over it
+        merge_backbone_into_model(model, import_resnet_backbone(
+            cfg.TRAIN.WEIGHTS, layers=trunk_layers(cfg), conv1_rgb2bgr=cfg.MODEL.CONV1_RGB2BGR))
+        print(f"loaded pretrained backbone from {cfg.TRAIN.WEIGHTS}", flush=True)
 
     checkpointer = CheckPointer(ckpt_dir, auto_resume=cfg.TRAIN.AUTO_RESUME)
     last_saved = None

@@ -6,7 +6,8 @@ cfgs/debug/tiny_cpm.yaml over the repository's synthetic COCO set trains 4
 steps in one go, and 2 steps then a resume to 4, with bit-equal final
 state_dicts and logged losses, and the snapshot layout of the JAX package;
 the CLI refuses `cuda` where there is no card and an existing TRAIN.WEIGHTS
-file (the .pth importer is not ported).
+file that is no torch checkpoint (tests/test_torch_weight_import.py loads
+real ones).
 
 torch and the port's modules are imported inside the tests, so that
 collecting this file loads no torch into a test worker.
@@ -141,8 +142,8 @@ def test_existing_train_weights_raise(tmp_path):
     from cpm_tpu_torch.tools import train_net
 
     weights = tmp_path / "resnet50_caffe.pth"
-    weights.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+    weights.write_bytes(b"")  # no torch checkpoint: torch.load runs out of input
+    with pytest.raises(EOFError):
         train_net.main(_argv(tmp_path, "TRAIN.WEIGHTS", str(weights)))
     # a TRAIN.WEIGHTS that does not exist is no file to import, as in the JAX CLI
     assert len(train_net.main(_argv(tmp_path / "run", "SOLVER.MAX_ITER", "1",
