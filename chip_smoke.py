@@ -153,6 +153,32 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    pass's forward time by bucket (the first of each apart), the merge's
    time an image, the wall time an image, the peak memory and the phase's
    time.
+14. cascade: the Cascade R-CNN and Fast R-CNN families at full width
+   (ResNet-50, FPN 256, 81 classes, 7x7 pooling). The paper's cascade YAML
+   cfgs/rcnn/mscoco/cascade/ISM+RSM/e2e_cascade_rcnn@2_R-50-FPN_1x.yaml (2
+   stages, ISM merged, RSM: 3 pooler calls a forward) through the CLIs over
+   the synthetic set: train_net from a seeded caffe-style trunk .pth with
+   folded affines (TRAIN.WEIGHTS), batch 2 at SOLVER.BASE_LR 0.0025, 4 steps
+   with snapshots (its 8 losses finite, 3 + 3 launches of kernels 1 and 2 a
+   step and none of any other, the frozen trunk bit-equal to the import
+   after the steps), then test_net from that checkpoint over the 16 images
+   at batch 1 with FAST_RCNN.SCORE_THRESH 0.0 (3 launches of kernel 1 an
+   image; every detection finite, inside its image, labelled 1..80; random
+   weights may leave an image none, since ISM multiplies the score by an
+   IoU logit near 0 of either sign; bbox.json parses). Then the same model
+   through make_forward_fn: 10 timed batch-1 requests at 800x1344 after a
+   warm-up, 3 launches each; and the kernel checks of phases 2 and 2b on
+   the inputs of its 3 pooler calls of one eval forward and of one
+   training step, forward and backward. The Faster R-CNN YAML,
+   cfgs/rcnn/mscoco/faster/e2e_faster_rcnn_R-50-FPN_1x.yaml, through
+   build_model / make_forward_fn / make_train_step: 10 timed batch-1
+   requests (1 launch each), and 2 steps at batch 2 after a warm-up (4
+   finite losses, 1 + 1 launches a step). Last, the tiny Cascade R-CNN (3
+   stages, ISM, RSM) and the tiny Fast R-CNN in f32 on the card against the
+   CPU port: detections (same_detections) and one training forward's
+   losses on the same batch and draws (1e-4 relative). It prints the
+   latencies (median and range), the step times, the peak memory, the eval
+   CLI's images per second after the first image, and the phase's time.
 
 Then a JSON line of kernel results and, last, {"ok": true, "device": ...}.
 Random weights give softmax scores near 1/81, below the default 0.03
@@ -738,7 +764,14 @@ def phase_single_level(dev, rng, card):
     return dict(results[0], launches=launched["roi_align"], err=max(r["err"] for r in results))
 
 
-def check_detections(dets, sizes, batch, num_classes, max_dets):
+def check_detections(dets, sizes, batch, num_classes, max_dets, allow_empty=False):
+    """Raise unless the detections have their fixed shapes and every valid
+    one is finite, inside its image and labelled 1..num_classes - 1; and,
+    unless `allow_empty`, each image has one. Boxes are clipped in their own
+    dtype: the Cascade head's are in the compute dtype (as in the JAX
+    package), so under bf16 a box ends at most at the image's size rounded
+    to bf16, less one, in bf16 (1336 in a 1333-wide image). Returns the
+    images' counts."""
     boxes, scores = dets.boxes.float().cpu(), dets.scores.float().cpu()
     labels, mask = dets.labels.cpu(), dets.mask.cpu()
     if tuple(boxes.shape) != (batch, max_dets, 4) or tuple(scores.shape) != (batch, max_dets):
@@ -747,13 +780,17 @@ def check_detections(dets, sizes, batch, num_classes, max_dets):
         raise AssertionError("label or mask shape")
     if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
         raise AssertionError("non-finite detections")
+
+    def last(n):  # the clip's bound in the boxes' dtype (structures/boxes.py)
+        return float(torch.tensor(float(n), dtype=dets.boxes.dtype) - 1.0)
+
     counts = mask.sum(1).tolist()
     for i, (h, w) in enumerate(sizes.tolist()):
         m = mask[i]
-        if not m.any():
+        if not (m.any() or allow_empty):
             raise AssertionError(f"image {i}: no valid detection")
         b = boxes[i][m]
-        inside = (b[:, 0] >= 0) & (b[:, 2] <= w - 1) & (b[:, 1] >= 0) & (b[:, 3] <= h - 1)
+        inside = (b[:, 0] >= 0) & (b[:, 2] <= last(w)) & (b[:, 1] >= 0) & (b[:, 3] <= last(h))
         if not inside.all():
             raise AssertionError(f"image {i}: valid boxes outside the {h}x{w} image")
         lab = labels[i][m]
@@ -2007,6 +2044,345 @@ def phase_ms(dev, card):
     return (launched["forward"], launched["backward"])
 
 
+CASCADE_YAML = "cfgs/rcnn/mscoco/cascade/ISM+RSM/e2e_cascade_rcnn@2_R-50-FPN_1x.yaml"
+FASTER_YAML = "cfgs/rcnn/mscoco/faster/e2e_faster_rcnn_R-50-FPN_1x.yaml"
+# the YAMLs' cuts for one card: the repository's synthetic COCO set, batch 2
+# at the linearly scaled rate; random weights score near 1/81, below the
+# YAMLs' FAST_RCNN.SCORE_THRESH 0.05
+CASCADE_TRAIN_OPTS = ["TRAIN.DATASETS", "('coco_debug_synthetic',)", "TRAIN.BATCH_SIZE", "2",
+                      "SOLVER.BASE_LR", "0.0025", "SOLVER.MAX_ITER", "4",
+                      "SOLVER.SNAPSHOT_ITERS", "2"]
+CASCADE_TEST_OPTS = ["TEST.DATASETS", "('coco_debug_synthetic',)", "FAST_RCNN.SCORE_THRESH", "0.0"]
+N_LATENCY = 10  # timed batch-1 requests a model, after one warm-up
+
+
+def counted_run(tag, what, fn, want, card):
+    """fn() with the launch counters at 0; raise unless it launched exactly
+    `want` (kernel name -> launches, the others none). Returns (fn's
+    result, its seconds)."""
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = {k: v for k, v in launch_counts().items() if v}
+    if got != want:
+        raise AssertionError(f"{tag} {what}: launched {got}, want {want}")
+    print(f"{tag} {what}: {seconds:.2f} s, launches {got}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (max_memory_allocated) | {card}")
+    return out, seconds
+
+
+def eval_latency(tag, forward, check, sites, card):
+    """The launch counters at 0, then N_LATENCY timed batch-1 requests at
+    800x1344 after a warm-up, each checked by check(dets, sizes) and for
+    `sites` launches of kernel 1 and no other; prints the median and range
+    of their latencies and returns the first request."""
+    from cpm_tpu_torch.tools.profile_eval import make_request
+
+    reset_launch_counts()
+    rng = np.random.RandomState(7)
+    forward(*make_request(rng, [(800, 1333)]))
+    hws = [(800, 1333), (800, 1067), (800, 1200), (750, 1344), (800, 1344)]
+    requests = [make_request(rng, [hws[i % len(hws)]]) for i in range(N_LATENCY)]
+    latencies = []
+    torch.cuda.reset_peak_memory_stats()
+    for images, sizes in requests:
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = forward(images, sizes)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        launched = launched_since(before)
+        if launched != {"multilevel_roi_align": sites}:
+            raise AssertionError(f"{tag} batch-1 request: launched {launched}, want {sites} of "
+                                 f"multilevel_roi_align")
+        check(dets, sizes)
+    print(f"{tag} batch-1 eval latency median {statistics.median(latencies):.2f} ms "
+          f"({min(latencies):.2f}-{max(latencies):.2f}) over {N_LATENCY} requests at 800x1344, "
+          f"{sites} multilevel_roi_align launches each; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB | {card}")
+    return requests[0]
+
+
+def phase_cascade(dev, card):
+    """Phase 14: the Cascade R-CNN ISM+RSM YAML through the CLIs from a
+    caffe-style trunk, then directly with the Faster R-CNN YAML at full
+    width, kernels 1 and 2 checked at the cascade's pooler sites, and both
+    families at a tiny width on the card against the CPU port. Returns the
+    launches of kernels 1 and 2 in its driven runs."""
+    import os
+    import tempfile
+
+    import cpm_tpu_torch.engine.test as engine
+    from cpm_tpu_torch.data.coco import build_dataset
+    from cpm_tpu_torch.data.loader import TrainLoader
+    from cpm_tpu_torch.data.synthetic import synthetic_batch
+    from cpm_tpu_torch.engine.train import create_train_state, make_train_step
+    from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.tools import test_net, train_net
+    from cpm_tpu_torch.tools.profile_train import fold_batch_statistics
+    from cpm_tpu_torch.utils.weight_import import import_resnet_backbone, trunk_layers
+
+    tag = "[cascade]"
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg_file = os.path.join(repo, CASCADE_YAML)
+    data = ["DATA_DIR", os.path.join(repo, "data")]
+    cfg = train_net.load_config(cfg_file, CASCADE_TRAIN_OPTS + data)
+    cc = cfg.CASCADE_RCNN
+    sites = cc.NUM_STAGE + int(cc.RESCORE_ON)
+    losses = (["loss_objectness", "loss_rpn_box_reg"]
+              + [f"s{s + 1}_{k}_loss" for s in range(cc.NUM_STAGE) for k in ("cls", "bbox")]
+              + [f"loss_iou_{cc.NUM_STAGE}", "loss_rescore"])
+    if sites != 3 or len(losses) != 8 or not (cc.IOU_HELPER and cc.IOU_HELPER_MERGE):
+        raise AssertionError(f"{tag} {CASCADE_YAML}: {sites} pooler calls, losses {losses}")
+    print(f"{tag} {CASCADE_YAML}: ResNet {tuple(cfg.BACKBONE.RESNET.LAYERS)}, FPN {cfg.FPN.DIM}, "
+          f"{cfg.MODEL.NUM_CLASSES} classes, {cc.NUM_STAGE} stages at IoU {tuple(cc.FG_IOU_THRESHOLD)}, "
+          f"ISM merged, RSM; {sites} pooler calls a forward at "
+          f"{tuple(cfg.FAST_RCNN.ROI_XFORM_RESOLUTION)}, sampling ratio "
+          f"{cfg.FAST_RCNN.ROI_XFORM_SAMPLING_RATIO}; overrides {CASCADE_TRAIN_OPTS}")
+    launched = dict(forward=0, backward=0)
+
+    def tally(counts):
+        launched["forward"] += counts.get("multilevel_roi_align", 0)
+        launched["backward"] += counts.get("multilevel_roi_align_backward", 0)
+
+    with tempfile.TemporaryDirectory(prefix="cpm_cascade_") as tmp:
+        # 1. a caffe-style trunk .pth from seeded weights, its frozen affines
+        # folded from the loader's first batch
+        model, _, _ = create_train_state(cfg, dev, cfg.SEED)
+        (dataset,) = build_dataset(cfg, cfg.TRAIN.DATASETS, is_train=True)
+        first = next(iter(TrainLoader(cfg, dataset, cfg.TRAIN.BATCH_SIZE, seed=cfg.SEED, prefetch=0)))
+        n_folded = fold_batch_statistics(model, first["images"])
+        port_sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        frozen = sorted(n for n, p in model.named_parameters() if not p.requires_grad)
+        del model
+        trunk_pth = os.path.join(tmp, "trunk.pth")
+        torch.save(reference_trunk(port_sd, cfg.MODEL.CONV1_RGB2BGR), trunk_pth)
+        imported = import_resnet_backbone(trunk_pth, trunk_layers(cfg), cfg.MODEL.CONV1_RGB2BGR)
+        if any(not torch.equal(v, port_sd[k]) for k, v in imported.items()):
+            raise AssertionError(f"{tag} the imported trunk differs from its tensors")
+        print(f"{tag} a caffe-style trunk .pth of {len(imported)} tensors, {n_folded} frozen "
+              f"affines folded from the loader's first batch; it imports to the bit")
+
+        # 2. train_net from the trunk: 4 steps, a snapshot every 2
+        ckpt = os.path.join(tmp, "ckpt")
+        argv = (["--cfg", cfg_file, "--device", dev] + CASCADE_TRAIN_OPTS + data
+                + ["CKPT", ckpt, "TRAIN.WEIGHTS", trunk_pth])
+        history, _ = counted_run(tag, "train_net 4 steps", lambda: train_net.main(argv),
+                                 {"multilevel_roi_align": 4 * sites,
+                                  "multilevel_roi_align_backward": 4 * sites}, card)
+        tally(launch_counts())
+        for r in history:
+            got = sorted(k for k in r if k in losses or k.startswith("loss_"))
+            if got != sorted(losses) or not all(math.isfinite(r[k]) for k in losses):
+                raise AssertionError(f"{tag} train_net iter {r['iter']}: {r}")
+            print(f"{tag} train_net iter {r['iter']}: step {r['step_s'] * 1e3:.1f} ms, loader wait "
+                  f"{r['wait_s'] * 1e3:.1f} ms, total_loss {r['total_loss']:.4f}, "
+                  + ", ".join(f"{k} {r[k]:.4f}" for k in losses))
+        steps = [r["step_s"] * 1e3 for r in history]
+        print(f"{tag} train_net step wall time median {statistics.median(steps):.1f} ms "
+              f"({min(steps):.1f}-{max(steps):.1f}; the first plans cuDNN), batch 2 at 800x1344 "
+              f"| {card}")
+        if sorted(os.listdir(ckpt)) != sorted(["model_iter2", "model_iter4", "model_latest",
+                                               os.path.basename(cfg_file)]):
+            raise AssertionError(f"{tag} {ckpt} holds {sorted(os.listdir(ckpt))}")
+        after = torch.load(os.path.join(ckpt, "model_latest"), map_location="cpu",
+                           weights_only=True)["model"]
+        moved = [k for k in frozen if not torch.equal(after[k], port_sd[k])]
+        if moved or not any(k.startswith("backbone.layer1.") for k in frozen):
+            raise AssertionError(f"{tag} frozen trunk tensors moved from the import: {moved[:5]}")
+        print(f"{tag} train_net: {len(frozen)} frozen trunk tensors bit-equal to the import after "
+              f"4 steps")
+        del after, port_sd
+
+        # 3. test_net from the checkpoint over the 16 images at batch 1,
+        # every forward's detections checked
+        test_cfg = train_net.load_config(cfg_file, CASCADE_TEST_OPTS + data)
+        (test_set,) = build_dataset(test_cfg, test_cfg.TEST.DATASETS, is_train=False)
+        n = len(test_set)
+        checked = []
+        real_make = engine.make_forward_fn
+
+        def checking(cfg_, model_):
+            forward = real_make(cfg_, model_)
+
+            def run(images, sizes):
+                dets = forward(images, sizes)
+                checked.extend(check_detections(
+                    dets, np.asarray(sizes), len(sizes), cfg.MODEL.NUM_CLASSES,
+                    cfg.FAST_RCNN.DETECTIONS_PER_IMG, allow_empty=True))
+                return dets
+            return run
+
+        engine.make_forward_fn = checking
+        try:
+            out, _ = counted_run(tag, "test_net over the 16 images", lambda: test_net.main(
+                ["--cfg", cfg_file, "--device", dev, "CKPT", ckpt] + data + CASCADE_TEST_OPTS),
+                {"multilevel_roi_align": sites * n}, card)
+        finally:
+            engine.make_forward_fn = real_make
+        tally(launch_counts())
+        with open(os.path.join(ckpt, "test", "bbox.json")) as f:
+            if json.load(f) != out["results"]:
+                raise AssertionError(f"{tag} bbox.json does not hold the results")
+        seconds = out["seconds"]
+        if len(checked) != n or len(seconds) != n:
+            raise AssertionError(f"{tag} test_net: {len(checked)} forwards, {len(seconds)} batches")
+        print(f"{tag} test_net: {sum(checked)} detections over {n} images ({checked}), finite, "
+              f"inside each image, labels in 1..{cfg.MODEL.NUM_CLASSES - 1}, bbox.json parses; "
+              f"AP {out['stats']['AP']:.6f} (seeded weights after 4 steps, not a target)")
+        print(f"{tag} test_net: the first image {seconds[0] * 1e3:.1f} ms, the other {n - 1} at "
+              f"{(n - 1) / sum(seconds[1:]):.2f} img/s ({statistics.median(seconds[1:]) * 1e3:.1f} ms "
+              f"median) | {card}")
+        del out
+
+    # 4. the cascade at full width through the entry points: batch-1 eval
+    # latency, then kernel 1 at its three eval sites and kernels 1 and 2 at
+    # its training step's
+    eval_cfg = train_net.load_config(cfg_file, CASCADE_TEST_OPTS)
+    model, optimizer, state = create_train_state(cfg, dev, cfg.SEED)
+    fold_batch_statistics(model, first["images"])
+    forward = engine.make_forward_fn(eval_cfg, model)
+    # ISM merged multiplies a score by an IoU logit near 0 of either sign:
+    # random weights may leave an image no detection
+    request = eval_latency(f"{tag} cascade", forward, lambda d, s: check_detections(
+        d, s, 1, cfg.MODEL.NUM_CLASSES, cfg.FAST_RCNN.DETECTIONS_PER_IMG, allow_empty=True),
+        sites, card)
+    tally(launch_counts())
+    reset_launch_counts()
+
+    def keep_forward(features, rois, levels, valid, output_size, *_):
+        return ([f.detach().clone() for f in features], rois.clone(), levels.clone(),
+                valid.clone(), tuple(output_size))
+
+    def keep_backward(shapes, rois, levels, valid, g, *_):
+        return ([tuple(s) for s in shapes], rois.clone(), levels.clone(), valid.clone(), g.clone())
+
+    with capture_calls(ops()["multilevel"], "multilevel_roi_align", keep_forward) as eval_calls:
+        forward(*request)
+    step_fn = make_train_step(cfg, model, optimizer)
+    batch = synthetic_batch(2, 800, 1344, max_gt=32, num_classes=cfg.MODEL.NUM_CLASSES, seed=100,
+                            uint8=True)
+    with capture_calls(ops()["multilevel"], "multilevel_roi_align", keep_forward) as step_calls, \
+            capture_calls(ops()["multilevel"].KERNEL, "backward", keep_backward) as bwd_calls:
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+    if (len(eval_calls), len(step_calls), len(bwd_calls)) != (sites, sites, sites):
+        raise AssertionError(f"{tag} pooler calls captured: eval {len(eval_calls)}, step "
+                             f"{len(step_calls)}, backward {len(bwd_calls)}; want {sites} each")
+    tally(launch_counts())  # the forward and the step; the checks' own launches count not
+    del model, optimizer, state, step_fn, forward
+    torch.cuda.empty_cache()
+    names = [f"stage {s + 1} 7x7" for s in range(cc.NUM_STAGE)] + ["rescore 7x7"]
+    summed([check_kernel(f"cascade eval {n_}", *c, card, rescale=True)
+            for n_, c in zip(names, eval_calls)], sites,
+           f"{tag} kernel 1: the {sites} pooler calls of one batch-1 eval forward", card)
+    summed([check_kernel(f"cascade step {n_}", *c, card, rescale=True)
+            for n_, c in zip(names, step_calls)], sites,
+           f"{tag} kernel 1: the {sites} pooler calls of one batch-2 training step", card)
+    # autograd runs the sites backwards: rescore first
+    summed([check_backward_kernel(f"cascade step {n_}", *c, card, rescale=True)
+            for n_, c in zip(names, reversed(bwd_calls))], sites,
+           f"{tag} kernel 2: the {sites} backward calls of one batch-2 training step", card)
+    del eval_calls, step_calls, bwd_calls
+
+    # 5. the Faster R-CNN YAML through build_model / make_forward_fn /
+    # make_train_step at 800x1344
+    ftag = "[faster]"
+    fcfg = train_net.load_config(os.path.join(repo, FASTER_YAML),
+                                 ["FAST_RCNN.SCORE_THRESH", "0.0", "SOLVER.BASE_LR", "0.0025"])
+    print(f"{ftag} {FASTER_YAML}: {fcfg.MODEL.NUM_CLASSES} classes, 1 pooler call a forward at "
+          f"{tuple(fcfg.FAST_RCNN.ROI_XFORM_RESOLUTION)}; FAST_RCNN.SCORE_THRESH 0.0, BASE_LR 0.0025")
+    model = build_model(fcfg, dev, seed=0)
+    eval_latency(ftag, engine.make_forward_fn(fcfg, model), lambda d, s: check_detections(
+        d, s, 1, fcfg.MODEL.NUM_CLASSES, fcfg.FAST_RCNN.DETECTIONS_PER_IMG), 1, card)
+    tally(launch_counts())
+    del model
+    model, optimizer, state = create_train_state(fcfg, dev, seed=0)
+    step_fn = make_train_step(fcfg, model, optimizer)
+
+    def batch_for(seed):
+        return synthetic_batch(2, 800, 1344, max_gt=32, num_classes=fcfg.MODEL.NUM_CLASSES,
+                               seed=seed, uint8=True)
+
+    fold_batch_statistics(model, batch_for(99)["images"])
+    state, _ = step_fn(state, batch_for(100))  # warm-up: cuDNN plans the shapes
+    batches = [batch_for(101 + i) for i in range(2)]
+    times = []
+    for i, batch in enumerate(batches):
+        (state, metrics), seconds = counted_run(
+            ftag, f"training step {i}", lambda: step_fn(state, batch),
+            {"multilevel_roi_align": 1, "multilevel_roi_align_backward": 1}, card)
+        tally(launch_counts())
+        times.append(seconds * 1e3)
+        values = {k: float(v) for k, v in metrics.items() if k.startswith("loss_")}
+        if len(values) != 4 or not all(math.isfinite(v) for v in values.values()):
+            raise AssertionError(f"{ftag} step {i}: losses {values}")
+        print(f"{ftag} step {i}: {times[-1]:.1f} ms, total_loss {float(metrics['total_loss']):.4f}, "
+              + ", ".join(f"{k} {v:.4f}" for k, v in values.items()))
+    print(f"{ftag} training step median {statistics.median(times):.1f} ms over 2 after a warm-up, "
+          f"batch 2 at 800x1344 | {card}")
+    del model, optimizer, state, step_fn
+    torch.cuda.empty_cache()
+
+    phase_cascade_reference(dev)
+    print(f"{tag} phase took {time.perf_counter() - t_phase:.1f} s | {card}")
+    return launched["forward"], launched["backward"]
+
+
+def phase_cascade_reference(dev):
+    """The tiny Cascade R-CNN (3 stages, ISM, RSM) and the tiny Fast R-CNN
+    in f32 on the card against the CPU port: eval detections
+    (same_detections), and one training forward's losses on the same batch
+    and draws (1e-4 relative). The CPU port is held against the JAX package
+    by the CPU tests."""
+    import os
+
+    from cpm_tpu_torch.data.synthetic import synthetic_batch
+    from cpm_tpu_torch.engine.test import make_forward_fn
+    from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.tools.profile_eval import make_request
+    from cpm_tpu_torch.tools.train_net import load_config
+    from cpm_tpu_torch.utils.sampler import Draws
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    for name, opts in (
+        ("tiny_cascade", ["CASCADE_RCNN.IOU_HELPER", "True", "CASCADE_RCNN.IOU_HELPER_MERGE", "True",
+                          "CASCADE_RCNN.RESCORE_ON", "True"]),
+        ("tiny_fast_rcnn", []),
+    ):
+        cfg = load_config(os.path.join(repo, "cfgs", "debug", f"{name}.yaml"),
+                          opts + ["TPU.COMPUTE_DTYPE", "float32", "FAST_RCNN.SCORE_THRESH", "0.0"])
+        images, sizes = make_request(np.random.RandomState(1), [(64, 64), (56, 48)], padded_hw=(64, 64))
+        batch = synthetic_batch(2, 64, 64, max_gt=4, num_classes=cfg.MODEL.NUM_CLASSES, seed=5)
+        dets, losses = {}, {}
+        for d in ("cpu", dev):
+            model = build_model(cfg, d, seed=0)
+            if cfg.CASCADE_RCNN.IOU_HELPER:
+                # seeded weights give IoU logits near 0 of either sign; a
+                # positive fg bias keeps ISM's scores above the threshold
+                with torch.no_grad():
+                    model.roi_head.outputs[-1].iou_pred.bias.copy_(torch.tensor([0.0, 0.5]))
+            dets[d] = make_forward_fn(cfg, model)(images, sizes)
+            tb = {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+            out = model(tb["images"], tb["image_sizes"], train=True,
+                        draws=Draws(torch.Generator().manual_seed(3)),
+                        gt=dict(boxes=tb["gt_boxes"], labels=tb["gt_labels"], mask=tb["gt_mask"]))
+            losses[d] = {k: float(v.detach()) for k, v in out.items()}
+        same_detections(dets[dev], dets["cpu"], f"[cascade reference] {name}")
+        worst = max(abs(losses[dev][k] - v) / abs(v) for k, v in losses["cpu"].items())
+        if sorted(losses[dev]) != sorted(losses["cpu"]) or worst > 1e-4:
+            raise AssertionError(f"[cascade reference] {name}: losses {losses[dev]} vs the CPU "
+                                 f"port's {losses['cpu']}")
+        print(f"[cascade reference] {name}: {[int(m.sum()) for m in dets['cpu'].mask]} detections "
+              f"match the CPU port (labels exact, boxes 1e-2 px, scores 1e-4); {len(losses['cpu'])} "
+              f"losses within {worst:.2g} relative (bound 1e-4)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -2064,15 +2440,18 @@ def main():
     cli = phase_cli(dev, card)
     torch.cuda.empty_cache()
     ms = phase_ms(dev, card)
+    torch.cuda.empty_cache()
+    cascade = phase_cascade(dev, card)
 
     # launches on the driven paths: eval forwards plus training steps, and
     # the CLIs' runs
     launches = {
         "multilevel_roi_align": (fwd["auto"]["launches"] + bwd["auto"]["launches"][0]
                                  + x101_fwd["pooler_launches"] + x101_bwd["pooler_launches"][0]
-                                 + cli[0] + ms[0]),
+                                 + cli[0] + ms[0] + cascade[0]),
         "multilevel_roi_align_backward": (bwd["auto"]["launches"][1] + bwd["clustered"]["launches"][1]
-                                          + x101_bwd["pooler_launches"][1] + cli[1] + ms[1]),
+                                          + x101_bwd["pooler_launches"][1] + cli[1] + ms[1]
+                                          + cascade[1]),
         "clustered_roi_align": fwd["clustered"]["launches"] + bwd["clustered"]["launches"][0],
         "cluster_rois": fwd["clustered"]["grouping"]["launches"] + bwd["clustered"]["grouping_launches"],
         "stacked_roi_align": fwd["stacked"]["launches"] + bwd["stacked"]["launches"][0],

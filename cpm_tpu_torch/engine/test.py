@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from cpm_tpu_torch.data.loader import TestLoader
-from cpm_tpu_torch.ops.nms import box_ml_voting, ml_soft_nms, multiclass_nms
+from cpm_tpu_torch.modeling.roi_heads.box_head import detection_filter_kwargs
+from cpm_tpu_torch.ops.nms import filter_results
 from cpm_tpu_torch.utils.amp import cast_floating_to, compute_dtype
 
 
@@ -81,55 +82,14 @@ def make_forward_fn(cfg, model: torch.nn.Module):
     return forward
 
 
-def _merged_filter(
-    boxes, scores, labels, mask, *,
-    score_thresh, nms_thresh, detections_per_img,
-    use_soft_nms=False, soft_nms_sigma=0.5, soft_nms_method="linear",
-    use_box_voting=False, vote_thresh=0.8, vote_scoring_method="ID", vote_beta=1.0,
-):
-    """The reference's filter_results (core/test.py:433-509) over one
-    labelled set a row: boxes [..., N, 4], scores, labels (1..C-1) and mask
-    [..., N]. Returns (boxes, scores, labels, valid) of detections_per_img."""
-    valid = mask & (scores > score_thresh)
-    if use_soft_nms:
-        idx, out_scores, keep = ml_soft_nms(
-            boxes, scores, labels, detections_per_img, sigma=soft_nms_sigma,
-            overlap_thresh=nms_thresh, score_thresh=1e-4, method=soft_nms_method, mask=valid)
-    else:
-        idx, keep = multiclass_nms(boxes, scores, labels, nms_thresh, detections_per_img,
-                                   mask=valid)
-        out_scores = torch.where(keep, torch.gather(scores, -1, idx), 0.0)
-    out_boxes = torch.gather(boxes, -2, idx[..., None].expand(*idx.shape, 4))
-    out_labels = torch.gather(labels, -1, idx)
-    if use_box_voting:
-        voted, vscores = box_ml_voting(
-            out_boxes, out_scores, out_labels, boxes, scores, labels, vote_thresh,
-            scoring_method=vote_scoring_method, beta=vote_beta, top_mask=keep, pool_mask=valid)
-        out_boxes = torch.where(keep[..., None], voted, out_boxes)
-        out_scores = torch.where(keep, vscores, 0.0)
-    return out_boxes, out_scores, out_labels, keep
-
-
 def merge_tta_detections(cfg, per_pass_dets: List[Dict[str, torch.Tensor]]):
     """Concatenate the passes' detections (tensors [..., K] in one
     coordinate frame) and filter them once (core/test.py:46-48), on their
     device. As in the reference, the filter reads FAST_RCNN's thresholds."""
     cat = {f: torch.cat([d[f] for d in per_pass_dets], dim=-1 if f != "boxes" else -2)
            for f in ("boxes", "scores", "labels", "mask")}
-    t = cfg.TEST
-    boxes, scores, labels, keep = _merged_filter(
-        cat["boxes"], cat["scores"], cat["labels"], cat["mask"],
-        score_thresh=cfg.FAST_RCNN.SCORE_THRESH,
-        nms_thresh=cfg.FAST_RCNN.NMS,
-        detections_per_img=cfg.FAST_RCNN.DETECTIONS_PER_IMG,
-        use_soft_nms=t.SOFT_NMS.ENABLED,
-        soft_nms_sigma=t.SOFT_NMS.SIGMA,
-        soft_nms_method=t.SOFT_NMS.METHOD,
-        use_box_voting=t.BBOX_VOTE.ENABLED,
-        vote_thresh=t.BBOX_VOTE.VOTE_TH,
-        vote_scoring_method=t.BBOX_VOTE.SCORING_METHOD,
-        vote_beta=t.BBOX_VOTE.SCORING_METHOD_BETA,
-    )
+    boxes, scores, labels, keep = filter_results(
+        cat["boxes"], cat["scores"], cat["labels"], cat["mask"], **detection_filter_kwargs(cfg))
     return dict(boxes=boxes, scores=scores, labels=labels, mask=keep)
 
 

@@ -1,9 +1,13 @@
-"""Generalized R-CNN for the CPM Grid-Cascade configuration.
+"""Generalized R-CNN: trunk -> FPN -> RPN -> one RoI head family.
 
-Port of cpm_tpu/modeling/model.py (`GeneralizedRCNN`, `_normalize_uint8`,
-`build_model`) for the path the flagship config takes: ResNet or ResNeXt
-trunk (plain or deformable stages) -> FPN (P2..P6) -> RPN ->
-GridCascadeRCNNHead. The forward takes the JAX package's
+Port of cpm_tpu/modeling/model.py (`GeneralizedRCNN`, `FastRCNNHead`,
+`_normalize_uint8`, `build_model`) for the FPN families: ResNet or ResNeXt
+trunk (plain or deformable stages) -> FPN (P2..P6) -> RPN -> the head the
+config selects (model.py:217-233 there): Fast R-CNN (`MODEL.FASTER_RCNN`),
+Cascade R-CNN (with `MODEL.CASCADE_ON`), Grid R-CNN or CPM's grid cascade
+(`MODEL.GRID_ON`), or none (`MODEL.RPN_ONLY`: the RPN's losses, and its
+proposals as the detections). The non-FPN (C4) family is not ported
+(ROADMAP Queue 1, item 7). The forward takes the JAX package's
 layouts: images `[B, H, W, 3]` (uint8 or float) and image sizes `[B, 2]`
 (h, w); the test forward returns fixed-shape `Detections`, the train
 forward the dict of losses.
@@ -21,8 +25,18 @@ from torch import nn
 
 from cpm_tpu_torch.modeling.backbone.resnet import BACKBONES
 from cpm_tpu_torch.modeling.fpn import build_fpn
-from cpm_tpu_torch.modeling.roi_heads.box_head import Detections
+from cpm_tpu_torch.modeling.roi_heads.box_head import (
+    BoxOutput,
+    Detections,
+    build_box_head,
+    decode_boxes_per_class,
+    detection_filter_kwargs,
+    fast_rcnn_losses,
+    filter_detections,
+)
+from cpm_tpu_torch.modeling.roi_heads.cascade_head import CascadeRCNNHead
 from cpm_tpu_torch.modeling.roi_heads.grid_cascade_head import GridCascadeRCNNHead
+from cpm_tpu_torch.modeling.roi_heads.targets import rois_with_batch_index, subsample_rois
 from cpm_tpu_torch.modeling.rpn import AnchorLayout, RPNHead, rpn_losses, select_proposals
 from cpm_tpu_torch.ops import pooler as pooler_mod
 from cpm_tpu_torch.ops.box_coder import BoxCoder
@@ -30,14 +44,80 @@ from cpm_tpu_torch.utils.amp import compute_dtype
 from cpm_tpu_torch.utils.sampler import Draws
 
 
+class FastRCNNHead(nn.Module):
+    """Fast R-CNN RoI family (fast_rcnn/fast_rcnn.py:12-75): one box head
+    over the FPN RoI levels, `BoxOutput`, the sampled-roi losses in
+    training, per-class decode and the detection filter at test."""
+
+    def __init__(self, cfg, in_channels: int, generator: torch.Generator = None):
+        super().__init__()
+        c = cfg
+        self.cfg = cfg
+        self.num_levels = c.FPN.ROI_MAX_LEVEL - c.FPN.ROI_MIN_LEVEL + 1
+        scales = tuple(0.5 ** (c.FPN.ROI_MIN_LEVEL + i) for i in range(self.num_levels))
+        self.head, dim = build_box_head(c, c.FAST_RCNN.ROI_BOX_HEAD, in_channels, scales, generator)
+        self.output = BoxOutput(dim, c.MODEL.NUM_CLASSES, c.MODEL.CLS_AGNOSTIC_BBOX_REG, generator)
+        self.box_coder = BoxCoder(weights=tuple(c.FAST_RCNN.BBOX_REG_WEIGHTS))
+
+    def forward(self, features, proposals, prop_mask, image_sizes, gt=None,
+                train: bool = False, draws=None):
+        c = self.cfg
+        f = c.FAST_RCNN
+        features = list(features[: self.num_levels])
+        if train:
+            sampled = subsample_rois(
+                proposals, prop_mask, gt["boxes"], gt["labels"], gt["mask"],
+                draws(prop_mask.shape, prop_mask.device), draws(prop_mask.shape, prop_mask.device),
+                batch_size_per_image=f.BATCH_SIZE_PER_IMAGE,
+                positive_fraction=f.POSITIVE_FRACTION,
+                fg_iou_threshold=f.FG_IOU_THRESHOLD, bg_iou_threshold=f.BG_IOU_THRESHOLD,
+                box_coder=self.box_coder,
+            )
+            mask = sampled.mask.reshape(-1)
+            x = self.head(features, rois_with_batch_index(sampled.boxes), mask)
+            cls_logits, box_reg = self.output(x)
+            loss_cls, loss_box = fast_rcnn_losses(
+                cls_logits, box_reg, sampled.labels.reshape(-1), sampled.reg_targets.reshape(-1, 4),
+                mask.to(cls_logits.dtype), smooth_l1_beta=f.SMOOTH_L1_BETA,
+                cls_agnostic_bbox_reg=c.MODEL.CLS_AGNOSTIC_BBOX_REG,
+            )
+            return dict(loss_classifier=loss_cls, loss_box_reg=loss_box)
+
+        B, K = proposals.shape[:2]
+        nc = c.MODEL.NUM_CLASSES
+        x = self.head(features, rois_with_batch_index(proposals), prop_mask.reshape(-1))
+        cls_logits, box_reg = self.output(x)
+        probs = torch.softmax(cls_logits, dim=-1).reshape(B, K, nc)
+        boxes_pc = decode_boxes_per_class(box_reg.reshape(B, K, -1), proposals, image_sizes,
+                                          self.box_coder, nc, c.MODEL.CLS_AGNOSTIC_BBOX_REG)
+        return filter_detections(boxes_pc, probs, prop_mask, **detection_filter_kwargs(c))
+
+
+def _roi_head(cfg, generator):
+    """The RoI head family the config selects (cpm_tpu/modeling/model.py:
+    217-233), or None under MODEL.RPN_ONLY (the JAX model sets a head up
+    there too but never calls it, so it has no parameters)."""
+    m = cfg.MODEL
+    if m.RPN_ONLY:
+        return None
+    if m.FASTER_RCNN:
+        family = CascadeRCNNHead if m.CASCADE_ON else FastRCNNHead
+        return family(cfg, cfg.FPN.DIM, generator)
+    if m.GRID_ON:
+        return GridCascadeRCNNHead(cfg, cfg.FPN.DIM, generator)
+    raise ValueError("no RoI head family selected by the config")
+
+
 class GeneralizedRCNN(nn.Module):
-    """Backbone -> FPN -> RPN -> CPM grid-cascade head."""
+    """Backbone -> FPN -> RPN -> RoI head family."""
 
     def __init__(self, cfg, generator: torch.Generator = None):
         super().__init__()
         c = cfg
-        if not (c.MODEL.FPN_ON and c.MODEL.GRID_ON) or c.MODEL.FASTER_RCNN or c.MODEL.RPN_ONLY:
-            raise NotImplementedError("the port runs the FPN grid-cascade family only")
+        if not c.MODEL.FPN_ON:
+            raise NotImplementedError(
+                "MODEL.FPN_ON False: the C4 family (resnet_c4 body, one-level RPN, C5 and 2mlp "
+                "box heads) is not ported (ROADMAP Queue 1, item 7)")
         if c.BACKBONE.CONV_BODY not in BACKBONES:
             raise NotImplementedError(
                 f"BACKBONE.CONV_BODY {c.BACKBONE.CONV_BODY}: the port runs {sorted(BACKBONES)}")
@@ -50,7 +130,7 @@ class GeneralizedRCNN(nn.Module):
         )
         self.rpn_head = RPNHead(c.FPN.DIM, num_cell_anchors, generator)
         self.rpn_box_coder = BoxCoder(weights=(1.0, 1.0, 1.0, 1.0))
-        self.roi_head = GridCascadeRCNNHead(c, c.FPN.DIM, generator)
+        self.roi_head = _roi_head(c, generator)
         self._layouts = {}
 
     def _anchor_layout(self, feats) -> AnchorLayout:
@@ -117,9 +197,13 @@ class GeneralizedRCNN(nn.Module):
         )
         levels_nhwc = [f.permute(0, 2, 3, 1) for f in feats]
         if not train:
-            proposals, _, prop_mask = select_proposals(
+            proposals, scores, prop_mask = select_proposals(
                 layout, objectness, box_reg, image_sizes, **kw
             )
+            if self.roi_head is None:
+                return Detections(boxes=proposals, scores=scores, mask=prop_mask,
+                                  labels=torch.zeros(scores.shape, dtype=torch.int32,
+                                                     device=scores.device))
             return self.roi_head(levels_nhwc, proposals, prop_mask, image_sizes)
 
         if gt is None or draws is None:
@@ -144,6 +228,8 @@ class GeneralizedRCNN(nn.Module):
             smooth_l1_beta=c.RPN.SMOOTH_L1_BETA, box_coder=self.rpn_box_coder,
         )
         losses = dict(loss_objectness=loss_obj, loss_rpn_box_reg=loss_rpn_box)
+        if self.roi_head is None:
+            return losses
         losses.update(self.roi_head(
             levels_nhwc, proposals, prop_mask, image_sizes, gt=gt, train=True, draws=draws,
         ))

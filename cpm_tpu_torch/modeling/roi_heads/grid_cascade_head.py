@@ -2,7 +2,8 @@
 
 Port of cpm_tpu/modeling/roi_heads/grid_cascade_head.py
 (`GridCascadeRCNNHead`: `_train_cls`, `_stage_match`, `_train_cascade`,
-`_train_rescore`, `_test_cls`, `_test_cascade`, `_test_rescore`):
+`_train_rescore`, `_test_cls`, `_test_cascade`; `_test_rescore` is
+grid_modules.py::rescore_detections, which the Cascade head shares):
 
 * cls branch: 7x7 pooling of the RPN proposals, 2 FC, softmax, then the
   fixed-shape multiclass filter (score threshold, NMS, TEST_MAX_DETECTIONS);
@@ -42,6 +43,7 @@ from cpm_tpu_torch.modeling.roi_heads.grid_modules import (
     ClsOutput,
     GridHead,
     GridOutput,
+    rescore_detections,
 )
 from cpm_tpu_torch.modeling.roi_heads.grid_ops import grid_decode, grid_targets
 from cpm_tpu_torch.modeling.roi_heads.targets import (
@@ -309,16 +311,6 @@ class GridCascadeRCNNHead(nn.Module):
             boxes = refined
         return Detections(boxes=boxes, scores=scores, labels=labels, mask=mask)
 
-    def _test_rescore(self, features, dets: Detections):
-        nc = self.cfg.MODEL.NUM_CLASSES
-        B, S = dets.boxes.shape[:2]
-        x = self.rescore_head(features, rois_with_batch_index(dets.boxes), dets.mask.reshape(-1))
-        probs = torch.softmax(self.rescore_output(x), dim=-1).reshape(B, S, nc)
-        rescores = torch.gather(probs, -1, dets.labels.long()[..., None])[..., 0]
-        # score^0.8 * rescore^0.2
-        fused = torch.clamp(dets.scores, min=0.0) ** 0.8 * torch.clamp(rescores, min=1e-12) ** 0.2
-        return dets._replace(scores=torch.where(dets.mask, fused, 0.0))
-
     def forward(self, features, proposals, prop_mask, image_sizes, gt=None,
                 train: bool = False, draws=None):
         """features: NHWC RoI levels [B, H_l, W_l, C] (P2..P5 first).
@@ -330,5 +322,5 @@ class GridCascadeRCNNHead(nn.Module):
         dets = self._test_cls(roi_feats, proposals, prop_mask)
         dets = self._test_cascade(roi_feats, dets, image_sizes)
         if self.rescore_on:
-            dets = self._test_rescore(roi_feats, dets)
+            dets = rescore_detections(self.rescore_head, self.rescore_output, roi_feats, dets)
         return dets

@@ -3,7 +3,9 @@ and the classification head.
 
 Port of cpm_tpu/modeling/roi_heads/grid_modules.py in the untiled form
 (`GridHead`, `GridOutput`, `ClsHead`, `ClsOutput`, `TransitionConv`,
-`get_neighbor_points`). At the module boundaries the layouts are the JAX
+`get_neighbor_points`), and RSM's test-time fusion, `rescore_detections`
+(the `_test_rescore` of the JAX grid-cascade and cascade heads). At the
+module boundaries the layouts are the JAX
 package's: pooled features and tower outputs NHWC `[R, s, s, C]`, heatmaps
 `[R, P, 2s', 2s']`. Inside, convolutions run NCHW on channels_last memory,
 so the permutes between the two are views.
@@ -22,6 +24,7 @@ from torch import nn
 
 from cpm_tpu_torch.modeling import initializers as init
 from cpm_tpu_torch.modeling.norm import GroupNorm
+from cpm_tpu_torch.modeling.roi_heads.targets import rois_with_batch_index
 from cpm_tpu_torch.ops.pooler import Pooler
 
 
@@ -233,3 +236,15 @@ class ClsOutput(nn.Module):
 
     def forward(self, x):
         return self.cls_score(x).float()
+
+
+def rescore_detections(head: ClsHead, output: ClsOutput, features, dets):
+    """RSM at test time: pool the detections with the rescore branch and
+    fuse each detection's score with its class's rescore probability as
+    score^0.8 * rescore^0.2. `dets` is a `Detections`; returns one."""
+    B, S = dets.boxes.shape[:2]
+    x = head(features, rois_with_batch_index(dets.boxes), dets.mask.reshape(-1))
+    probs = torch.softmax(output(x), dim=-1).reshape(B, S, -1)
+    rescores = torch.gather(probs, -1, dets.labels.long()[..., None])[..., 0]
+    fused = torch.clamp(dets.scores, min=0.0) ** 0.8 * torch.clamp(rescores, min=1e-12) ** 0.2
+    return dets._replace(scores=torch.where(dets.mask, fused, 0.0))

@@ -1,7 +1,8 @@
 """Fixed-shape NMS: hard, soft, and box voting.
 
 Port of cpm_tpu/ops/nms.py (`nms`, `batched_nms`, `multiclass_nms`,
-`soft_nms`, `ml_soft_nms`, `box_voting`, `box_ml_voting`). Every
+`soft_nms`, `ml_soft_nms`, `box_voting`, `box_ml_voting`) and of the
+filter both the box head and the TTA merge run (`filter_results`). Every
 function takes padded `[..., N]` inputs with a validity mask and returns a
 fixed number of output slots with a validity mask; leading dims are a batch.
 
@@ -275,3 +276,36 @@ def _box_ml_voting_impl(
     else:
         raise ValueError(scoring_method)
     return voted, scores
+
+
+def filter_results(
+    boxes, scores, labels, mask, *,
+    score_thresh, nms_thresh, detections_per_img,
+    use_soft_nms=False, soft_nms_sigma=0.5, soft_nms_method="linear",
+    use_box_voting=False, vote_thresh=0.8, vote_scoring_method="ID", vote_beta=1.0,
+):
+    """The reference's filter_results (core/test.py:433-509) over one
+    labelled set a row: boxes [..., N, 4], scores, labels (1..C-1) and mask
+    [..., N]. Label-aware hard NMS, or soft-NMS (score floor 1e-4), then
+    optionally box voting against the whole set. Returns (boxes, scores,
+    labels, valid) of detections_per_img; under soft-NMS without voting the
+    scores of invalid slots are left as the NMS returned them. The TTA merge
+    (engine/test.py) and the box head's filter (filter_detections) run it."""
+    valid = mask & (scores > score_thresh)
+    if use_soft_nms:
+        idx, out_scores, keep = ml_soft_nms(
+            boxes, scores, labels, detections_per_img, sigma=soft_nms_sigma,
+            overlap_thresh=nms_thresh, score_thresh=1e-4, method=soft_nms_method, mask=valid)
+    else:
+        idx, keep = multiclass_nms(boxes, scores, labels, nms_thresh, detections_per_img,
+                                   mask=valid)
+        out_scores = torch.where(keep, torch.gather(scores, -1, idx), 0.0)
+    out_boxes = torch.gather(boxes, -2, idx[..., None].expand(*idx.shape, 4))
+    out_labels = torch.gather(labels, -1, idx)
+    if use_box_voting:
+        voted, vscores = box_ml_voting(
+            out_boxes, out_scores, out_labels, boxes, scores, labels, vote_thresh,
+            scoring_method=vote_scoring_method, beta=vote_beta, top_mask=keep, pool_mask=valid)
+        out_boxes = torch.where(keep[..., None], voted, out_boxes)
+        out_scores = torch.where(keep, vscores, 0.0)
+    return out_boxes, out_scores, out_labels, keep

@@ -1,15 +1,18 @@
 """Where a training step's time goes on the card.
 
-    python3 -m cpm_tpu_torch.tools.profile_train [--config flagship|x101_dcn]
+    python3 -m cpm_tpu_torch.tools.profile_train [--config flagship|x101_dcn | --cfg file.yaml]
 
-Runs the training step of the flagship CPM R-50-FPN or of CPM
-X-101-32x4d-FPN-DCN (the operating point of `training_cfg`, batch 2 at
-800x1344, bf16 compute on f32 masters, seeded random weights, the deformable
-convs' offset convs spread from a seed, synthetic uint8 batches) and prints, beside the card's
-name and power limit: the step's wall time, the CUDA kernel time per step
-and the device busy share from `torch.profiler`, the host and device time of
-the step's forward, backward and optimizer spans (`record_function` spans of
-engine/train.py), and the largest kernels by device time.
+Runs the training step of the flagship CPM R-50-FPN, of CPM
+X-101-32x4d-FPN-DCN or of a YAML's model (`--cfg`, any head family the
+port runs, its SOLVER.BASE_LR scaled from 16 images to 2 by the linear
+rule) at the operating point of `training_cfg` (batch 2 at 800x1344, bf16
+compute on f32 masters, seeded random weights, the deformable convs'
+offset convs spread from a seed, synthetic uint8 batches) and prints,
+beside the card's name and power limit: the step's wall time, the CUDA
+kernel time per step and the device busy share from `torch.profiler`, the
+host and device time of the step's forward, backward and optimizer spans
+(`record_function` spans of engine/train.py), and the largest kernels by
+device time.
 """
 
 import argparse
@@ -31,16 +34,21 @@ CONFIGS = ("flagship", "x101_dcn")
 BATCH = 2   # images a step on one card
 
 
-def training_cfg(name: str = "flagship"):
+def training_cfg(name: str = "flagship", cfg_file: str = None):
     """A config of the port at the operating point the JAX package trains and
     benchmarks: 2000 pre-NMS candidates per level, 2 images a step. The
-    X-101-DCN YAML sets SOLVER.BASE_LR 0.02 for its 16 images a step; by the
-    linear scaling rule 2 images take 0.0025."""
+    X-101-DCN YAML sets SOLVER.BASE_LR 0.02 for its 16 images a step, as do
+    the YAMLs that `cfg_file` names (which wins over `name`); by the linear
+    scaling rule 2 images take 0.0025."""
     from cpm_tpu_torch import config
+    from cpm_tpu_torch.tools.train_net import load_config
 
-    cfg = {"flagship": config.flagship_cfg, "x101_dcn": config.x101_dcn_cfg}[name]()
+    if cfg_file:
+        cfg = load_config(cfg_file, [])
+    else:
+        cfg = {"flagship": config.flagship_cfg, "x101_dcn": config.x101_dcn_cfg}[name]()
     cfg.RPN.PRE_NMS_TOP_N_TRAIN = 2000
-    if name == "x101_dcn":
+    if name == "x101_dcn" or cfg_file:
         cfg.SOLVER.BASE_LR = cfg.SOLVER.BASE_LR * BATCH / 16
     return cfg
 
@@ -116,7 +124,9 @@ def fold_batch_statistics(model, images):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", default="flagship", choices=CONFIGS)
+    group = ap.add_mutually_exclusive_group()
+    group.add_argument("--config", default="flagship", choices=CONFIGS)
+    group.add_argument("--cfg", dest="cfg_file", help="a YAML config instead of --config")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_train: needs a CUDA device")
@@ -126,7 +136,8 @@ def main():
     from cpm_tpu_torch.engine.train import create_train_state, make_train_step
 
     card = card_line()
-    cfg = training_cfg(args.config)
+    cfg = training_cfg(args.config, args.cfg_file)
+    what = args.cfg_file or args.config
     model, optimizer, state = create_train_state(cfg, "cuda", seed=0)
     spread_offset_convs(model, seed=1)
     step_fn = make_train_step(cfg, model, optimizer)
@@ -163,7 +174,7 @@ def main():
                and not e.key.startswith(("train_step/", "Optimizer."))]
     device_ms = sum(e.self_device_time_total for e in kernels) / n / 1e3
 
-    print(f"[profile] {args.config} train step, batch 2 at 800x1344: wall {wall_ms:.2f} ms/step (min "
+    print(f"[profile] {what} train step, batch 2 at 800x1344: wall {wall_ms:.2f} ms/step (min "
           f"{min(times):.2f}, max {max(times):.2f} over 5), CUDA kernels {device_ms:.2f} ms/step, "
           f"device busy share {device_ms / wall_ms:.3f}, total_loss "
           f"{float(metrics['total_loss']):.4f} | {card}")

@@ -48,6 +48,12 @@ _RULES = [
     (r"^roi_head/grid_output_(\d+)/(deconv\d)_(kernel|bias)$",
      r"roi_head/grid_outputs/\1/\2/\3"),
     (r"^roi_head/grid_output_(\d+)/", r"roi_head/grid_outputs/\1/"),
+    # Fast R-CNN (head, output) and Cascade R-CNN (box_head_{s}, output_{s},
+    # rescore_head, rescore_output); the ConvFC head's convs are a ModuleList
+    (r"^roi_head/head/conv(\d+)/", r"roi_head/head/convs/\1/"),
+    (r"^roi_head/box_head_(\d+)/conv(\d+)/", r"roi_head/box_heads/\1/convs/\2/"),
+    (r"^roi_head/box_head_(\d+)/", r"roi_head/box_heads/\1/"),
+    (r"^roi_head/output_(\d+)/", r"roi_head/outputs/\1/"),
 ]
 _LEAF = {"kernel": "weight", "weight": "weight", "scale": "weight", "bias": "bias"}
 

@@ -278,6 +278,10 @@ def import_cpm_checkpoint(path_or_sd, cfg) -> Dict[str, torch.Tensor]:
     """A whole reference CPM checkpoint (a path, or its state_dict) -> the
     port's state_dict for GeneralizedRCNN: trunk, FPN, RPN head and the
     grid-cascade head's branches."""
+    if not cfg.MODEL.GRID_ON:
+        raise NotImplementedError(
+            "a whole reference checkpoint is read for the grid-cascade family only "
+            "(Grid_Cascade_RCNN.*), as the JAX package's importer reads it")
     sd = load_torch_state_dict(path_or_sd) if isinstance(path_or_sd, str) else path_or_sd
     trunk = {k[len("Conv_Body."):]: v for k, v in sd.items() if k.startswith("Conv_Body.")}
     tree = {

@@ -317,19 +317,44 @@ def test_two_steps_match_jax(train_outputs):
     assert n > 60
 
 
-def test_optimizer_labels_match_jax(train_outputs):
+def _assert_labels_match(model, params):
+    """The port's parameter groups equal `param_label_tree`'s, parameter by
+    parameter, at every FREEZE_AT."""
     from cpm_tpu_torch.solver.optimizer import classify_params
     from cpm_tpu_torch.utils.param_bridge import name_map
 
-    cfg, _, jx, pt = train_outputs
-    model = pt["model"]
+    names = name_map(params)
     for freeze_at in (0, 1, 2, 3):
-        want = _flat(param_label_tree(jx["params"], freeze_at))
+        want = _flat(param_label_tree(params, freeze_at))
         got = classify_params(model, freeze_at)
-        names = name_map(jx["params"])
         assert set(names.values()) == set(got)
         for path, key in names.items():
             assert got[key] == want[path], (freeze_at, key)
+
+
+def test_optimizer_labels_match_jax(train_outputs):
+    from cpm_tpu.modeling.model import build_model as jax_build_model
+    from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.solver.optimizer import classify_params
+    from tests.test_torch_box_head import REPO, tiny_cfg
+
+    cfg, _, jx, pt = train_outputs
+    model = pt["model"]
+    _assert_labels_match(model, jx["params"])
+    # the Fast R-CNN (with the ConvFC box head) and Cascade R-CNN (ISM, RSM)
+    # families, on the structure of their flax trees
+    images, sizes = np.zeros((1, 64, 64, 3), np.uint8), np.array([[64, 64]], np.int32)
+    for name, over in (
+        ("tiny_fast_rcnn", {"FAST_RCNN.ROI_BOX_HEAD": "roi_xconv1fc_head",
+                            "FAST_RCNN.CONVFC_HEAD.CONV_DIM": 16}),
+        ("tiny_cascade", {"CASCADE_RCNN.IOU_HELPER": True, "CASCADE_RCNN.RESCORE_ON": True}),
+    ):
+        fcfg = tiny_cfg(f"{REPO}/cfgs/debug/{name}.yaml", **over)
+        jm = jax_build_model(fcfg)
+        like = jax.eval_shape(
+            lambda: jm.init({"params": jax.random.PRNGKey(0)}, images, sizes, train=False))
+        params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), like["params"])
+        _assert_labels_match(build_model(fcfg, "cpu"), params)
     groups = {g["name"]: g for g in pt["optimizer"].param_groups}
     assert set(groups) == {"nonbias", "bias", "gn"}
     s = cfg.SOLVER
