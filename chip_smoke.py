@@ -65,10 +65,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    under stacked bit-equal to the multilevel backward.
 6. training reference: two steps of the port on the card against two on the
    CPU at a narrow width in f32, the same seed, batch and draws.
-7. single-level path: no model of the port has a one-level pooler yet, so a
-   `Pooler` over one C4 map is driven directly, forward and backward, and
-   held against the plain version and, bit for bit, against the multilevel
-   kernel at one level on the same f32 map.
+7. single-level path: a `Pooler` over one synthetic C4 map, driven
+   directly forward and backward, held against the plain version and, bit
+   for bit, against the multilevel kernel at one level on the same f32 map
+   (phase 15 drives the models whose paths reach it).
 8. sampler kernels: the deformable-conv sampler's forward and backward
    kernels against their plain versions (`deform_sample_plain` and autograd
    of it) at the geometries of cpm_tpu_torch/tools/probe_dcn_sampler.py (res3
@@ -179,6 +179,29 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    losses on the same batch and draws (1e-4 relative). It prints the
    latencies (median and range), the step times, the peak memory, the eval
    CLI's images per second after the first image, and the phase's time.
+
+15. options: the eleven grid-cascade YAMLs of the paper's ablations as
+   shipped (cfgs/rcnn/mscoco/grid_cascade/ offset_on, enhance_features,
+   extend_roi x2, finest_level_roi, resize_roi, se, random_jitter x2,
+   bretter_roi x2: ResNet-50, FPN 256, 81 classes, the 600x1000 bucket as
+   608x1024 maps) and R-50-C4 Faster R-CNN with resnet_c5_head and
+   resnet_2mlp_head (cfgs/debug/tiny_fast_rcnn_c4.yaml taken to the values
+   of Detectron's e2e_faster_rcnn_R-50-C4_1x.yaml, C4_OPTS; 800x1344), each
+   built from seed 0 in bf16 over f32 masters with folded trunk affines: one
+   batch-1 eval forward and one batch-2 training step, each held to the
+   launches `pooler_sites` predicts (FINEST_LEVEL_ROI's stages and the C4
+   heads pool one level: kernel 5, whose backward is kernel 2 at one level),
+   finite losses and detections inside their images labelled 1..80, frozen
+   tensors bit-equal and a tensor of every group moved. finest_level_roi/
+   and the C5 head also: 10 timed batch-1 requests after a warm-up, 3
+   timed steps, peaks, and kernel 5 at the sites of one eval forward and one
+   step (against its plain version, event and device time, bound, and the
+   wrapper's bf16->f32 cast of the map). Then kernel 5's backward with NaN
+   boxes in masked rows (finite, bit-equal to the gradient without them),
+   resize_roi/ through train_net (4 steps from a caffe-style trunk .pth)
+   and test_net over the 16 synthetic images, and the tiny option and C4
+   models on the card against the CPU port (the C4 ones with their
+   near-tied seeded scores spread from a seed, `spread_c4_scores`).
 
 Then a JSON line of kernel results and, last, {"ok": true, "device": ...}.
 Random weights give softmax scores near 1/81, below the default 0.03
@@ -331,6 +354,15 @@ def cuda_ms(fn, reps: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_text(ms, bound_ms=None):
+    """A device time from `compare_kernels.device_ms(..., or_none=True)` as
+    text, beside its bound where one is given: "not measured" where the
+    profiler recorded nothing."""
+    if ms is None:
+        return "not measured (torch.profiler recorded no device time)"
+    return f"{ms:.4f} ms" + ("" if bound_ms is None else f", {ms / bound_ms:.2f}x its bound")
 
 
 def group_histogram(grouping):
@@ -833,7 +865,7 @@ def capture_calls(owner, name, keep):
     calls, real = [], getattr(owner, name)
 
     def wrapper(*args, **kwargs):
-        calls.append(keep(*args))
+        calls.append(keep(*args, **kwargs))
         return real(*args, **kwargs)
 
     setattr(owner, name, wrapper)
@@ -1507,10 +1539,11 @@ def phase_crossroi(dev, card):
         prep = WindowedRois(*(t.contiguous() for t in crossroi_prep_rois(
             rois, probe.SCALE, feat.shape[1:3], pool, 2)))
         for r in checked:
-            ms = device_ms([(half, prep, r["group"], pool, 2)], ops()["crossroi"].KERNEL)
+            ms = device_ms([(half, prep, r["group"], pool, 2)], ops()["crossroi"].KERNEL,
+                           or_none=True)
             print(f"[cross-roi device] G={r['group']} {pool[0]}x{pool[1]} bf16: device time "
-                  f"{ms:.4f} ms (event {r['ms']:.4f}), bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}: the distinct map cells weighed), {ms / r['bound_ms']:.2f}x "
+                  f"{device_text(ms, r['bound_ms'])} (event {r['ms']:.4f} ms), bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}: the distinct map cells weighed) "
                   f"| {card}")
     reset_launch_counts()
     before = launch_counts()
@@ -1758,6 +1791,12 @@ REFERENCE_NAMES = (
     (r"^roi_head\.rescore_output\.", "Grid_Cascade_RCNN.Output_rescore."),
     (r"^roi_head\.grid_heads\.(\d+)\.convs\.(\d+)\.", r"Grid_Cascade_RCNN.Head_grid_\1.convs.\2.0."),
     (r"^roi_head\.grid_heads\.(\d+)\.gns\.(\d+)\.", r"Grid_Cascade_RCNN.Head_grid_\1.convs.\2.1."),
+    (r"^roi_head\.grid_heads\.(\d+)\.([fs]order)\.(\d+)_(\d+)\.dw\.",
+     r"Grid_Cascade_RCNN.Head_grid_\1.\2_trans.\3.\4.0."),
+    (r"^roi_head\.grid_heads\.(\d+)\.([fs]order)\.(\d+)_(\d+)\.pw\.",
+     r"Grid_Cascade_RCNN.Head_grid_\1.\2_trans.\3.\4.1."),
+    (r"^roi_head\.grid_heads\.(\d+)\.(offset_conv|offset_fc)\.",
+     r"Grid_Cascade_RCNN.Head_grid_\1.\2."),
     (r"^roi_head\.grid_outputs\.(\d+)\.deconv(\d)\.", r"Grid_Cascade_RCNN.Output_grid_\1.deconv_\2."),
     (r"^roi_head\.grid_outputs\.(\d+)\.(norm1|iou_fc1|iou_fc2|iou_pred)\.",
      r"Grid_Cascade_RCNN.Output_grid_\1.\2."),
@@ -1768,9 +1807,10 @@ def reference_state_dict(port_sd, conv1_rgb2bgr=False, pool_hw=(7, 7)):
     """A port state_dict as a reference CPM checkpoint holds it: the
     reference's names, BatchNorm as caffe's affine (weight and bias, no
     running statistics), and the linears over a flattened pool (fc6,
-    iou_fc1) with the reference's (C, H, W) input order, where the port
-    flattens (H, W, C); with conv1_rgb2bgr (cfg.MODEL.CONV1_RGB2BGR) conv1's
-    input channels in the other order. Every other layout is torch's in both."""
+    iou_fc1, and OFFSET_ON's offset_fc over the 7x7 offset conv) with the
+    reference's (C, H, W) input order, where the port flattens (H, W, C);
+    with conv1_rgb2bgr (cfg.MODEL.CONV1_RGB2BGR) conv1's input channels in
+    the other order. Every other layout is torch's in both."""
     import re
 
     out = {}
@@ -1781,8 +1821,8 @@ def reference_state_dict(port_sd, conv1_rgb2bgr=False, pool_hw=(7, 7)):
                 break
         else:
             raise KeyError(f"no reference name for {key}")
-        if re.search(r"\.(fc6|iou_fc1)\.weight$", key):
-            h, w = pool_hw
+        if re.search(r"\.(fc6|iou_fc1)\.weight$", key) or key.endswith(".offset_fc.weight"):
+            h, w = (7, 7) if key.endswith(".offset_fc.weight") else pool_hw
             value = (value.reshape(value.shape[0], h, w, -1).permute(0, 3, 1, 2)
                      .reshape(value.shape[0], -1))
         if key == "backbone.conv1.weight" and conv1_rgb2bgr:
@@ -2074,18 +2114,21 @@ def counted_run(tag, what, fn, want, card):
     return out, seconds
 
 
-def eval_latency(tag, forward, check, sites, card):
-    """The launch counters at 0, then N_LATENCY timed batch-1 requests at
-    800x1344 after a warm-up, each checked by check(dets, sizes) and for
-    `sites` launches of kernel 1 and no other; prints the median and range
-    of their latencies and returns the first request."""
+def eval_latency(tag, forward, check, sites, card, padded=(800, 1344)):
+    """The launch counters at 0, then N_LATENCY timed batch-1 requests (at
+    800x1344, or in the `padded` bucket) after a warm-up, each checked by
+    check(dets, sizes) and for `sites` launches (of kernel 1, or a dict of
+    kernel name -> launches) and no other; prints the median and range of
+    their latencies and returns the first request."""
     from cpm_tpu_torch.tools.profile_eval import make_request
 
+    want = sites if isinstance(sites, dict) else {"multilevel_roi_align": sites}
     reset_launch_counts()
     rng = np.random.RandomState(7)
-    forward(*make_request(rng, [(800, 1333)]))
-    hws = [(800, 1333), (800, 1067), (800, 1200), (750, 1344), (800, 1344)]
-    requests = [make_request(rng, [hws[i % len(hws)]]) for i in range(N_LATENCY)]
+    ph, pw = padded
+    forward(*make_request(rng, [(ph, pw - 11)], padded))
+    hws = [(ph, pw - 11), (ph, pw * 4 // 5), (ph, pw - 144), (ph - 50, pw), (ph, pw)]
+    requests = [make_request(rng, [hws[i % len(hws)]], padded) for i in range(N_LATENCY)]
     latencies = []
     torch.cuda.reset_peak_memory_stats()
     for images, sizes in requests:
@@ -2096,13 +2139,12 @@ def eval_latency(tag, forward, check, sites, card):
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
         launched = launched_since(before)
-        if launched != {"multilevel_roi_align": sites}:
-            raise AssertionError(f"{tag} batch-1 request: launched {launched}, want {sites} of "
-                                 f"multilevel_roi_align")
+        if launched != want:
+            raise AssertionError(f"{tag} batch-1 request: launched {launched}, want {want}")
         check(dets, sizes)
     print(f"{tag} batch-1 eval latency median {statistics.median(latencies):.2f} ms "
-          f"({min(latencies):.2f}-{max(latencies):.2f}) over {N_LATENCY} requests at 800x1344, "
-          f"{sites} multilevel_roi_align launches each; peak device memory "
+          f"({min(latencies):.2f}-{max(latencies):.2f}) over {N_LATENCY} requests at "
+          f"{ph}x{pw}, launches {want} each; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB | {card}")
     return requests[0]
 
@@ -2383,6 +2425,500 @@ def phase_cascade_reference(dev):
               f"losses within {worst:.2g} relative (bound 1e-4)")
 
 
+# Phase 15: the grid-cascade options of the paper's ablation YAMLs, as
+# shipped (R-50-FPN, 81 classes, the 600x1000 bucket: maps of 608x1024)
+OPTION_DIR = "cfgs/rcnn/mscoco/grid_cascade/"
+OPTION_YAMLS = tuple(OPTION_DIR + y for y in (
+    "offset_on/e2e_grid_cascade@56_rcnn_R-50-FPN-600_0.5x.yaml",
+    "enhance_features/e2e_grid_cascade@56_rcnn_R-50-FPN-600_0.5x.yaml",
+    "extend_roi/e2e_grid_cascade@56_rcnn_R-50-FPN-600_0.5x.yaml",
+    "extend_roi/e2e_grid_cascade@5_rcnn_R-50-FPN-600_0.5x.yaml",
+    "finest_level_roi/e2e_grid_cascade@56_rcnn_R-50-FPN-600_0.5x.yaml",
+    "resize_roi/e2e_grid_cascade@56_rcnn_R-50-FPN-600_0.5x.yaml",
+    "se/e2e_grid_cascade@56_rcnn_R-50-FPN-600_0.5x.yaml",
+    "random_jitter/e2e_grid_cascade_rcnn_RJ_R-50-FPN-600_0.5x.yaml",
+    "random_jitter/iou_strategy/e2e_grid_cascade@555_rcnn_RJ_R-50-FPN-600_0.5x.yaml",
+    "bretter_roi/e2e_grid_cascade@56_rcnn_R-50-FPN-600_0.5x.yaml",
+    "bretter_roi/0.125/e2e_grid_cascade@56_rcnn_R-50-FPN-600_0.5x.yaml",
+))
+FINEST_YAML, RESIZE_YAML = OPTION_YAMLS[4], OPTION_YAMLS[5]
+# random weights score near 1/81, below the YAMLs' GRID_RCNN.SCORE_THRESH
+# 0.03; their SOLVER.BASE_LR 0.02 is for 16 images, scaled to 2
+OPTION_OPTS = ["GRID_RCNN.SCORE_THRESH", "0.0", "SOLVER.BASE_LR", "0.0025"]
+OPTION_BUCKET = (608, 1024)
+# R-50-C4 Faster R-CNN: cfgs/debug/tiny_fast_rcnn_c4.yaml taken to the values
+# of Detectron's public configs/12_2017_baselines/e2e_faster_rcnn_R-50-C4_1x.yaml
+# (ResNet-50 to C4 at stride 16, 81 classes, RPN.SIZES (32, 64, 128, 256,
+# 512) at one stride of 16, 14x14 RoIAlign into the res5 head, 512 rois an
+# image, test proposals 6000 before NMS and 1000 after, the 800x1333 scale,
+# caffe's BGR means) and, where that YAML keeps Detectron's defaults, to
+# those (train proposals 12000 / 2000). Cut for one card: batch 2 at
+# SOLVER.BASE_LR 0.0025 (0.02 for 16 images, scaled), FAST_RCNN.SCORE_THRESH
+# 0.0 (random weights score near 1/81, below 0.05). The 2mlp head runs
+# stage 5 at C5_DILATION 2 (stride 1, so its 7x7 pool keeps the C4 scale).
+C4_YAML = "cfgs/debug/tiny_fast_rcnn_c4.yaml"
+C4_OPTS = ["BACKBONE.RESNET.LAYERS", "(3, 4, 6, 3)", "BACKBONE.RESNET.WIDTH", "64",
+           "MODEL.NUM_CLASSES", "81", "RPN.ANCHOR_STRIDE", "(16,)",
+           "RPN.ANCHOR_SIZES", "(32, 64, 128, 256, 512)",
+           "FAST_RCNN.ROI_XFORM_RESOLUTION", "(14, 14)", "FAST_RCNN.BATCH_SIZE_PER_IMAGE", "512",
+           "RPN.PRE_NMS_TOP_N_TEST", "6000", "RPN.POST_NMS_TOP_N_TEST", "1000",
+           "RPN.PRE_NMS_TOP_N_TRAIN", "12000", "RPN.POST_NMS_TOP_N_TRAIN", "2000",
+           "TRAIN.SCALES", "(800,)", "TRAIN.MAX_SIZE", "1333", "TEST.SCALE", "800",
+           "TEST.MAX_SIZE", "1333", "TO_BGR255", "True",
+           "PIXEL_MEANS", "(102.9801, 115.9465, 122.7717)", "PIXEL_STDS", "(1.0, 1.0, 1.0)",
+           "SOLVER.BASE_LR", "0.0025", "FAST_RCNN.SCORE_THRESH", "0.0"]
+C4_HEADS = {
+    "resnet_c5_head": [],
+    "resnet_2mlp_head": ["FAST_RCNN.ROI_BOX_HEAD", "resnet_2mlp_head",
+                         "BACKBONE.RESNET.C5_DILATION", "2", "FAST_RCNN.ROI_XFORM_RESOLUTION",
+                         "(7, 7)"],
+}
+C4_BUCKET = (800, 1344)
+# resize_roi/ through the CLIs over the synthetic set, as phase 14 runs them
+RESIZE_TRAIN_OPTS = ["TRAIN.DATASETS", "('coco_debug_synthetic',)", "TRAIN.BATCH_SIZE", "2",
+                     "SOLVER.BASE_LR", "0.0025", "SOLVER.MAX_ITER", "4",
+                     "SOLVER.SNAPSHOT_ITERS", "2"]
+RESIZE_TEST_OPTS = ["TEST.DATASETS", "('coco_debug_synthetic',)", "GRID_RCNN.SCORE_THRESH", "0.0"]
+
+
+def pooler_sites(cfg):
+    """(eval launches, training-step launches) that one forward of cfg's
+    model makes: the kernel of each pooler call, one a call; a step adds one
+    backward (kernel 2) a call. FINEST_LEVEL_ROI's stages and the C4 heads
+    pool one level (kernel 5); every other site is kernel 1."""
+    if not cfg.MODEL.FPN_ON:
+        return {"roi_align": 1}, {"roi_align": 1, "multilevel_roi_align_backward": 1}
+    g = cfg.GRID_RCNN
+    opt = g.CASCADE_MAPPING_OPTION
+    stages = opt.STAGE_NUM if g.CASCADE_MAPPING_ON else 1
+    test_stages = opt.TEST_STAGE if g.CASCADE_MAPPING_ON else 1
+    branch = 1 + int(g.RESCORE_ON)
+    stage_kernel = "roi_align" if g.FINEST_LEVEL_ROI else "multilevel_roi_align"
+
+    def counts(n):
+        out = {"multilevel_roi_align": branch}
+        out[stage_kernel] = out.get(stage_kernel, 0) + n
+        return out
+
+    return counts(test_stages), dict(counts(stages), multilevel_roi_align_backward=branch + stages)
+
+
+def keep_single_level(features, rois, output_size, spatial_scale, sampling_ratio, roi_mask=None):
+    """What one call of the kernel-5 wrapper was given."""
+    return (features.detach().clone(), rois.detach().clone(), tuple(output_size),
+            float(spatial_scale), sampling_ratio,
+            None if roi_mask is None else roi_mask.detach().clone())
+
+
+def drive_model(tag, cfg, padded, card, timed=False, dev="cuda"):
+    """One of phase 15's models at full width from seed 0 (bf16 over f32
+    masters, the trunk's frozen affines folded from one batch): one batch-1
+    eval forward and one batch-2 training step, each held to its predicted
+    launches; finite losses and detections, boxes inside their images,
+    labels 1..80, frozen tensors bit-equal and a tensor of every group
+    moved. With `timed`: 10 more batch-1 requests, 3 more steps, the peaks,
+    and what the kernel-5 calls of one eval forward and one step were
+    given. Returns (launches of its runs, the captured kernel-5 calls,
+    timings)."""
+    from cpm_tpu_torch.data.synthetic import synthetic_batch
+    from cpm_tpu_torch.engine.test import make_forward_fn
+    from cpm_tpu_torch.engine.train import create_train_state, make_train_step
+    from cpm_tpu_torch.solver.optimizer import classify_params
+    from cpm_tpu_torch.tools.profile_eval import make_request
+    from cpm_tpu_torch.tools.profile_train import fold_batch_statistics
+
+    ph, pw = padded
+    nc = cfg.MODEL.NUM_CLASSES
+    max_dets = cfg.GRID_RCNN.TEST_MAX_DETECTIONS if cfg.MODEL.GRID_ON else cfg.FAST_RCNN.DETECTIONS_PER_IMG
+    eval_want, step_want = pooler_sites(cfg)
+    t0 = time.perf_counter()
+    model, optimizer, state = create_train_state(cfg, dev, seed=0)
+    step_fn = make_train_step(cfg, model, optimizer)
+
+    def batch_for(seed):
+        return synthetic_batch(2, ph, pw, max_gt=32, num_classes=nc, seed=seed, uint8=True)
+
+    fold_batch_statistics(model, batch_for(99)["images"])
+    labels = classify_params(model, int(cfg.BACKBONE.RESNET.FREEZE_AT))
+    forward = make_forward_fn(cfg, model)
+    launched = {}
+
+    def tally():
+        for k, v in launch_counts().items():
+            launched[k] = launched.get(k, 0) + v
+
+    def check(dets, sizes):
+        return check_detections(dets, np.asarray(sizes), len(sizes), nc, max_dets)
+
+    request = make_request(np.random.RandomState(5), [(ph - 8, pw - 24)], padded)
+    dets, eval_s = counted_run(tag, "batch-1 eval forward", lambda: forward(*request), eval_want,
+                               card)
+    tally()
+    counts = check(dets, request[1])
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    (state, metrics), step_s = counted_run(tag, "batch-2 training step",
+                                           lambda: step_fn(state, batch_for(100)), step_want, card)
+    tally()
+    losses = {k: float(v) for k, v in metrics.items() if k.startswith("loss_")}
+    if not losses or not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{tag} losses {losses}")
+    moved = {g["name"]: 0 for g in optimizer.param_groups}
+    group_of = {id(p): g["name"] for g in optimizer.param_groups for p in g["params"]}
+    for k, p in model.named_parameters():
+        if labels[k] == "frozen":
+            if p.requires_grad or not torch.equal(p, before[k]):
+                raise AssertionError(f"{tag} frozen parameter {k} changed")
+            continue
+        if not torch.isfinite(p).all() or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"{tag} parameter or gradient of {k} not finite")
+        moved[group_of[id(p)]] += int(not torch.equal(p, before[k]))
+    if not all(moved.values()):
+        raise AssertionError(f"{tag} a group moved nothing: {moved}")
+    frozen = sum(v == "frozen" for v in labels.values())
+    print(f"{tag} {time.perf_counter() - t0:.1f} s built, folded, run and checked; eval "
+          f"{counts} detections (finite, inside the image, labels 1..{nc - 1}); step losses "
+          + ", ".join(f"{k[5:]} {v:.4f}" for k, v in losses.items())
+          + f"; {frozen} frozen tensors bit-equal, tensors moved by group {moved}")
+    out = dict(launched=launched, sites=[], eval_ms=None, step_ms=None)
+    if timed:
+        single = ops()["single"]
+        with capture_calls(single, "roi_align_cuda", keep_single_level) as eval_calls:
+            forward(*request)
+            torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eval_latency(tag, forward, check, eval_want, card, padded)
+        out["eval_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        tally()
+        with capture_calls(single, "roi_align_cuda", keep_single_level) as step_calls:
+            state, _ = step_fn(state, batch_for(101))
+            torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(3):
+            batch = batch_for(102 + i)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            if {k: v for k, v in launch_counts().items() if v} != step_want:
+                raise AssertionError(f"{tag} timed step {i}: launched {launch_counts()}")
+            tally()
+        out["train_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        print(f"{tag} training step median {statistics.median(times):.1f} ms "
+              f"({min(times):.1f}-{max(times):.1f}) over 3 after a warm-up, batch 2 at {ph}x{pw}; "
+              f"peak device memory {out['train_peak_mib']:.1f} MiB | {card}")
+        out["sites"] = [("eval", c) for c in eval_calls] + [("step", c) for c in step_calls]
+    del model, optimizer, state, step_fn, forward
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_single_level_site(name, site, card):
+    """Kernel 5 on what one model site gave its wrapper: against its plain
+    version (f32, atol 1e-5), its CUDA-event and device time, the plain
+    version's time, its bound (every roi pooled, as the kernel does), and the
+    time of the wrapper's cast of the bf16 map to f32."""
+    from cpm_tpu_torch.ops.roi_align import roi_align as plain
+    from cpm_tpu_torch.tools.bench_roi_align import roi_align_bounds
+    from cpm_tpu_torch.tools.compare_kernels import device_ms
+
+    half, rois, pool, scale, sr, mask = site
+    kernel = ops()["single"].KERNEL
+    feats = half.float().contiguous()
+    got = kernel(feats, rois, pool, scale, sr)
+    want = torch.cat([plain(feats, r, pool, scale, sr) for r in rois.split(256)])
+    err = (got - want).abs().max().item() if len(rois) else 0.0
+    if not torch.isfinite(got).all() or err > F32_ATOL:
+        raise AssertionError(f"{name}: kernel 5 vs plain max |err| {err}")
+    del got, want
+    n = rois.shape[0]
+    everyone = torch.ones(n, dtype=torch.bool, device=rois.device)
+    zeros = torch.zeros(n, dtype=torch.int32, device=rois.device)
+    ms = cuda_ms(lambda: kernel(feats, rois, pool, scale, sr))
+    dev_ms = device_ms([(feats, rois, pool, scale, sr)], kernel, or_none=True)
+    cast_ms = cuda_ms(lambda: half.float())
+    plain_ms = cuda_ms(lambda: torch.cat([plain(feats, r, pool, scale, sr)
+                                          for r in rois.split(256)]), reps=3)
+    (bound_ms, bound_by), _ = roi_align_bounds([tuple(feats.shape)], rois, zeros, everyone, pool, 4,
+                                               scales=(scale,))
+    valid = n if mask is None else int(mask.sum())
+    print(f"[kernel 5 site] {name}: map {tuple(half.shape)} {half.dtype} -> f32, R={n} ({valid} "
+          f"valid) {pool[0]}x{pool[1]} at 1/{round(1 / scale)}: max|err| {err:.3g} (atol "
+          f"{F32_ATOL}); event {ms:.4f} ms, device {device_text(dev_ms, bound_ms)}, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); the wrapper's bf16->f32 cast of "
+          f"the map {cast_ms:.4f} ms; plain {plain_ms:.4f} ms | {card}")
+    return dict(err=err, ms=ms, device_ms=dev_ms, cast_ms=cast_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def masked_row_check(card):
+    """A one-level Pooler on a bf16 C4 map with NaN boxes in masked rows:
+    the forward writes zeros there, and the map's gradient (kernel 2 at one
+    level, handed the mask) is finite and bit-equal to the gradient without
+    those rows."""
+    from cpm_tpu_torch.ops.pooler import Pooler
+
+    rng = np.random.RandomState(13)
+    rois, _ = synthetic_rois(512, rng, "cuda")
+    rois = rois.clone()
+    mask = torch.ones(512, dtype=torch.bool, device="cuda")
+    mask[::7] = False
+    rois[::7, 1:] = float("nan")
+    feats = torch.randn(C4_SHAPE, generator=torch.Generator().manual_seed(8)).cuda().bfloat16()
+    g = torch.randn(512, 14, 14, C4_SHAPE[3], generator=torch.Generator().manual_seed(9))
+    g = g.cuda().bfloat16()
+    pooler = Pooler((14, 14), (C4_SCALE,), 2)
+    grads = []
+    for r, m, gg in ((rois, mask, g), (rois[mask].contiguous(), mask[mask], g[mask])):
+        f = feats.clone().requires_grad_()
+        out = pooler([f], r, m)
+        (out.float() * gg.float()).sum().backward()
+        if not torch.isfinite(out).all() or out[~m].any():
+            raise AssertionError("masked-row check: the forward is not zero on masked rows")
+        grads.append(f.grad)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(grads[0]).all() and grads[0].any() and torch.equal(*grads)):
+        raise AssertionError("masked-row check: a masked row's NaN box reached the map gradient")
+    print(f"[kernel 5 masked rows] one-level Pooler, bf16 map {C4_SHAPE}, 512 rois at 14x14 with "
+          f"{int((~mask).sum())} masked rows holding NaN boxes: forward zero there, map gradient "
+          f"finite and bit-equal to the gradient without those rows | {card}")
+
+
+def phase_options_cli(dev, card):
+    """resize_roi/ through train_net (4 steps at batch 2, from a seeded
+    caffe-style trunk .pth with folded affines) and test_net over the 16
+    synthetic images. Returns the launches of its runs."""
+    import os
+    import tempfile
+
+    from cpm_tpu_torch.data.coco import build_dataset
+    from cpm_tpu_torch.data.loader import TrainLoader
+    from cpm_tpu_torch.engine.train import create_train_state
+    from cpm_tpu_torch.tools import test_net, train_net
+    from cpm_tpu_torch.tools.profile_train import fold_batch_statistics
+
+    tag = "[options cli]"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg_file = os.path.join(repo, RESIZE_YAML)
+    data = ["DATA_DIR", os.path.join(repo, "data")]
+    cfg = train_net.load_config(cfg_file, RESIZE_TRAIN_OPTS + data)
+    eval_want, step_want = pooler_sites(cfg)
+    launched = {}
+
+    def tally():
+        for k, v in launch_counts().items():
+            launched[k] = launched.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="cpm_resize_") as tmp:
+        model, _, _ = create_train_state(cfg, dev, cfg.SEED)
+        (dataset,) = build_dataset(cfg, cfg.TRAIN.DATASETS, is_train=True)
+        first = next(iter(TrainLoader(cfg, dataset, cfg.TRAIN.BATCH_SIZE, seed=cfg.SEED, prefetch=0)))
+        fold_batch_statistics(model, first["images"])
+        port_sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        del model
+        trunk_pth = os.path.join(tmp, "trunk.pth")
+        torch.save(reference_trunk(port_sd, cfg.MODEL.CONV1_RGB2BGR), trunk_pth)
+        ckpt = os.path.join(tmp, "ckpt")
+        argv = (["--cfg", cfg_file, "--device", dev] + RESIZE_TRAIN_OPTS + data
+                + ["CKPT", ckpt, "TRAIN.WEIGHTS", trunk_pth])
+        history, _ = counted_run(tag, "train_net 4 steps", lambda: train_net.main(argv),
+                                 {k: 4 * v for k, v in step_want.items()}, card)
+        tally()
+        names = {"loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_grid_1",
+                 "loss_grid_2"}
+        for r in history:
+            values = {k: r[k] for k in r if k.startswith("loss_")}
+            if set(values) != names or not all(math.isfinite(v) for v in values.values()):
+                raise AssertionError(f"{tag} train_net iter {r['iter']}: {r}")
+        steps = [r["step_s"] * 1e3 for r in history]
+        print(f"{tag} train_net: losses finite, step wall time median {statistics.median(steps):.1f} "
+              f"ms ({min(steps):.1f}-{max(steps):.1f}; the first plans cuDNN) | {card}")
+        n = 16
+        out, _ = counted_run(tag, "test_net over the 16 images", lambda: test_net.main(
+            ["--cfg", cfg_file, "--device", dev, "CKPT", ckpt] + data + RESIZE_TEST_OPTS),
+            {k: n * v for k, v in eval_want.items()}, card)
+        tally()
+        with open(os.path.join(ckpt, "test", "bbox.json")) as f:
+            if json.load(f) != out["results"]:
+                raise AssertionError(f"{tag} bbox.json does not hold the results")
+        sizes = {r["image_id"]: None for r in out["results"]}
+        if not out["results"] or not all(
+                all(math.isfinite(v) for v in r["bbox"]) and r["bbox"][2] >= 0 and r["bbox"][3] >= 0
+                for r in out["results"]):
+            raise AssertionError(f"{tag} test_net results")
+        seconds = out["seconds"]
+        print(f"{tag} test_net: {len(out['results'])} detections over {len(sizes)} of {n} images, "
+              f"bbox.json parses; the other {n - 1} images at {(n - 1) / sum(seconds[1:]):.2f} img/s "
+              f"| {card}")
+    return launched
+
+
+def tiny_option_cfgs():
+    """The tiny models of tests/test_torch_grid_options.py and
+    tests/test_torch_c4.py, in f32, from the port's own configs."""
+    import os
+
+    from cpm_tpu_torch.config import flagship_cfg
+    from cpm_tpu_torch.tools.train_net import load_config
+
+    out = {}
+    for which in ("finest_offset", "enhance_se"):
+        cfg = flagship_cfg(tiny=True)
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+        g = cfg.GRID_RCNN
+        opt = g.CASCADE_MAPPING_OPTION
+        opt.STAGE_NUM = opt.TEST_STAGE = 2
+        opt.STAGE_WEIGHTS, opt.STAGE_MAPPING_RATIO = (1.0, 0.5), (1.0, 0.5)
+        opt.FG_IOU_THRESHOLD = opt.BG_IOU_THRESHOLD = (0.5, 0.6)
+        if which == "finest_offset":
+            opt.GRID_NUM, opt.RESIZE_ROI = (4, 4), True
+            g.FUSED_ON = g.OFFSET_ON = True
+            g.FINEST_LEVEL_ROI = g.EXTEND_ROI = g.BETTER_ROI = g.RANDOM_JITTER = True
+            g.RESCORE_ON = g.RESCORE_OPTION.KEEP_RATIO = True
+        else:
+            opt.GRID_NUM = (9, 9)
+            g.FUSED_ON = False
+            g.ENHANCE_FEATURES = g.SE_ON = True
+        out[which] = cfg
+    repo = os.path.dirname(os.path.abspath(__file__))
+    for head, extra in (("resnet_c5_head", ["FAST_RCNN.ROI_XFORM_RESOLUTION", "(14, 14)"]),
+                        ("resnet_2mlp_head", ["FAST_RCNN.ROI_XFORM_RESOLUTION", "(7, 7)",
+                                              "BACKBONE.RESNET.C5_DILATION", "2"])):
+        out[head] = load_config(os.path.join(repo, C4_YAML), [
+            "FAST_RCNN.ROI_BOX_HEAD", head, "BACKBONE.RESNET.BASE_PLANES", "8",
+            "MODEL.NUM_CLASSES", "5", "FAST_RCNN.MLP_HEAD.MLP_DIM", "64",
+            "FAST_RCNN.SCORE_THRESH", "0.0", "TPU.COMPUTE_DTYPE", "float32"] + extra)
+    return out
+
+
+def spread_c4_scores(model):
+    """Seeded weights leave the tiny C4 models' scores near-tied: the one-level
+    RPN's objectness logits sit within 0.02 of 0 over 144 anchors, and the
+    2mlp head's fcs are drawn N(0, 1e-4), as in the reference, so every roi
+    scores alike to 1e-8. The card's f32 sums then flip the order of
+    near-ties against the CPU's: a proposal set 31 px apart on an H100, which
+    moves a loss by up to 2e-3 (a 3e-5 perturbation of the weights on the
+    CPU does the same). Redrawn from a seed, the RPN's objectness conv at
+    unit scale and the 2mlp head's fcs at the MLP heads' kaiming-uniform
+    scale with a unit-scale classifier, the scores separate."""
+    g = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        w = model.rpn_head.cls_logits.weight
+        w.copy_(torch.randn(w.shape, generator=g))
+        head = model.roi_head.head
+        if hasattr(head, "fc1"):
+            for fc in (head.fc1, head.fc2):
+                bound = math.sqrt(3.0 / fc.in_features)
+                fc.weight.copy_(torch.rand(fc.weight.shape, generator=g) * 2 * bound - bound)
+            w = model.roi_head.output.cls_score.weight
+            w.copy_(torch.randn(w.shape, generator=g))
+
+
+def phase_options_reference(dev):
+    """The tiny option and C4 models in f32 on the card against the CPU
+    port, with phase 14's tolerances: eval detections (same_detections) and
+    one training forward's losses on the same batch and draws (1e-4
+    relative); the C4 models' scores spread first (`spread_c4_scores`). The
+    CPU port is held against the JAX package by the CPU tests."""
+    from cpm_tpu_torch.data.synthetic import synthetic_batch
+    from cpm_tpu_torch.engine.test import make_forward_fn
+    from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.tools.profile_eval import make_request
+    from cpm_tpu_torch.utils.sampler import Draws
+
+    for name, cfg in tiny_option_cfgs().items():
+        size = 128 if cfg.MODEL.GRID_ON else 64
+        images, sizes = make_request(np.random.RandomState(1), [(64, 64), (56, 48)], (64, 64))
+        batch = synthetic_batch(2, size, size, max_gt=4, num_classes=cfg.MODEL.NUM_CLASSES, seed=5)
+        if cfg.MODEL.GRID_ON:
+            # large gt boxes, so that RESIZE_ROI acts on refined boxes
+            batch["gt_boxes"][:, 0] = [[6.0, 9.0, 121.0, 118.0], [12.0, 4.0, 117.0, 124.0]]
+            batch["gt_mask"][:, 0] = True
+            batch["gt_labels"][:, 0] = [3, 5]
+        dets, losses = {}, {}
+        for d in ("cpu", dev):
+            model = build_model(cfg, d, seed=0)
+            if not cfg.MODEL.FPN_ON:
+                spread_c4_scores(model)
+            dets[d] = make_forward_fn(cfg, model)(images, sizes)
+            tb = {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+            out = model(tb["images"], tb["image_sizes"], train=True,
+                        draws=Draws(torch.Generator().manual_seed(3)),
+                        gt=dict(boxes=tb["gt_boxes"], labels=tb["gt_labels"], mask=tb["gt_mask"]))
+            losses[d] = {k: float(v.detach()) for k, v in out.items()}
+        same_detections(dets[dev], dets["cpu"], f"[options reference] {name}")
+        worst = max(abs(losses[dev][k] - v) / abs(v) for k, v in losses["cpu"].items())
+        if sorted(losses[dev]) != sorted(losses["cpu"]) or worst > 1e-4:
+            raise AssertionError(f"[options reference] {name}: losses {losses[dev]} vs the CPU "
+                                 f"port's {losses['cpu']}")
+        print(f"[options reference] {name}: {[int(m.sum()) for m in dets['cpu'].mask]} detections "
+              f"match the CPU port (labels exact, boxes 1e-2 px, scores 1e-4); {len(losses['cpu'])} "
+              f"losses within {worst:.2g} relative (bound 1e-4)")
+
+
+def phase_options(dev, card):
+    """Phase 15: the eleven grid-cascade option YAMLs and R-50-C4 Faster
+    R-CNN with both C4 heads at full width, each through one eval forward
+    and one training step with its launches predicted; FINEST_LEVEL_ROI and
+    the C5 head timed, and kernel 5 checked and timed at their sites; the
+    masked-row check of kernel 5's backward; resize_roi/ through the CLIs;
+    the tiny models on the card against the CPU port. Returns the launches of
+    its driven runs and kernel 5's result at the FINEST_LEVEL_ROI model's
+    eval sites."""
+    import os
+
+    from cpm_tpu_torch.tools.train_net import load_config
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    launched = {}
+    timed = {}
+    for yaml in OPTION_YAMLS:
+        cfg = load_config(os.path.join(repo, yaml), OPTION_OPTS)
+        name = (yaml[len(OPTION_DIR):].replace("e2e_grid_cascade", "").replace("_rcnn", "")
+                .replace("_R-50-FPN-600_0.5x.yaml", ""))
+        out = drive_model(f"[options {name}]", cfg, OPTION_BUCKET, card, timed=yaml == FINEST_YAML,
+                          dev=dev)
+        for k, v in out["launched"].items():
+            launched[k] = launched.get(k, 0) + v
+        if out["sites"]:
+            timed["finest_level_roi"] = out
+    for head, extra in C4_HEADS.items():
+        cfg = load_config(os.path.join(repo, C4_YAML), C4_OPTS + extra)
+        out = drive_model(f"[c4 {head}]", cfg, C4_BUCKET, card, timed=head == "resnet_c5_head",
+                          dev=dev)
+        for k, v in out["launched"].items():
+            launched[k] = launched.get(k, 0) + v
+        if out["sites"]:
+            timed["r50_c4"] = out
+    print(f"[options] launches of the 13 models' runs: "
+          f"{ {k: v for k, v in launched.items() if v} }")
+
+    results = {}
+    for model_name, out in timed.items():
+        per = {"eval": [], "step": []}
+        for i, (where, site) in enumerate(out["sites"]):
+            per[where].append(check_single_level_site(f"{model_name} {where} site {i}", site, card))
+        for where, rs in per.items():
+            total = {k: sum(r[k] for r in rs) for k in ("ms", "cast_ms", "plain_ms", "bound_ms")}
+            devices = [r["device_ms"] for r in rs]
+            total["device_ms"] = None if None in devices else sum(devices)
+            print(f"[kernel 5 sites] {model_name} {where}: {len(rs)} calls, event "
+                  f"{total['ms']:.4f} ms, device {device_text(total['device_ms'])}, bound "
+                  f"{total['bound_ms']:.4f} ms, cast {total['cast_ms']:.4f} ms, plain "
+                  f"{total['plain_ms']:.4f} ms | {card}")
+            results[(model_name, where)] = dict(total, err=max(r["err"] for r in rs),
+                                                 bound_by=rs[0]["bound_by"])
+    masked_row_check(card)
+    for k, v in phase_options_cli(dev, card).items():
+        launched[k] = launched.get(k, 0) + v
+    phase_options_reference(dev)
+    print(f"[options] phase took {time.perf_counter() - t_phase:.1f} s | {card}")
+    return launched, results[("finest_level_roi", "eval")], results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -2442,21 +2978,24 @@ def main():
     ms = phase_ms(dev, card)
     torch.cuda.empty_cache()
     cascade = phase_cascade(dev, card)
+    torch.cuda.empty_cache()
+    options, single_sites, _ = phase_options(dev, card)
 
     # launches on the driven paths: eval forwards plus training steps, and
     # the CLIs' runs
     launches = {
         "multilevel_roi_align": (fwd["auto"]["launches"] + bwd["auto"]["launches"][0]
                                  + x101_fwd["pooler_launches"] + x101_bwd["pooler_launches"][0]
-                                 + cli[0] + ms[0] + cascade[0]),
+                                 + cli[0] + ms[0] + cascade[0] + options["multilevel_roi_align"]),
         "multilevel_roi_align_backward": (bwd["auto"]["launches"][1] + bwd["clustered"]["launches"][1]
                                           + x101_bwd["pooler_launches"][1] + cli[1] + ms[1]
-                                          + cascade[1]),
+                                          + cascade[1] + options["multilevel_roi_align_backward"]),
         "clustered_roi_align": fwd["clustered"]["launches"] + bwd["clustered"]["launches"][0],
         "cluster_rois": fwd["clustered"]["grouping"]["launches"] + bwd["clustered"]["grouping_launches"],
         "stacked_roi_align": fwd["stacked"]["launches"] + bwd["stacked"]["launches"][0],
         "stacked_roi_align_backward": bwd["stacked"]["launches"][1],
-        "roi_align": single["launches"],
+        # phase 7's one-level Pooler and phase 15's model paths
+        "roi_align": single["launches"] + options["roi_align"],
         "deform_sample": x101_fwd["launches"] + x101_bwd["launches"][0],
         "deform_sample_backward": x101_bwd["launches"][1],
         "crossroi_roi_align": crossroi["launches"],
@@ -2469,7 +3008,9 @@ def main():
         "cluster_rois": (fwd["clustered"]["grouping"], [r["grouping"] for r in synthetic["clustered"]]),
         "stacked_roi_align": (fwd["stacked"], synthetic["stacked"]),
         "stacked_roi_align_backward": (bwd["stacked"], synthetic_bwd["stacked"]),
-        "roi_align": (single, []),
+        # timed at the FINEST_LEVEL_ROI model's two eval sites; phase 7's
+        # errors count too
+        "roi_align": (single_sites, [single]),
         # errors in f32, as for the other kernels (the bf16 ones are held to
         # their own tolerance where they are checked)
         "deform_sample": (x101_fwd, [r for r in sampler["forward"] if r["dtype"] == "float32"]),

@@ -73,6 +73,14 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
         with record_function("train_step/backward"):
             optimizer.zero_grad(set_to_none=True)
             total.backward()
+            # a parameter that no loss reaches (OFFSET_ON's offset branch
+            # under FUSED_ON) has a zero gradient in the JAX package, and
+            # its weight decay and momentum still move it; SGD skips a
+            # parameter whose gradient is None
+            for group in optimizer.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
         with record_function("train_step/optimizer"):
             optimizer.step()
         state.step += 1

@@ -1,13 +1,15 @@
 """Generalized R-CNN: trunk -> FPN -> RPN -> one RoI head family.
 
 Port of cpm_tpu/modeling/model.py (`GeneralizedRCNN`, `FastRCNNHead`,
-`_normalize_uint8`, `build_model`) for the FPN families: ResNet or ResNeXt
-trunk (plain or deformable stages) -> FPN (P2..P6) -> RPN -> the head the
-config selects (model.py:217-233 there): Fast R-CNN (`MODEL.FASTER_RCNN`),
-Cascade R-CNN (with `MODEL.CASCADE_ON`), Grid R-CNN or CPM's grid cascade
-(`MODEL.GRID_ON`), or none (`MODEL.RPN_ONLY`: the RPN's losses, and its
-proposals as the detections). The non-FPN (C4) family is not ported
-(ROADMAP Queue 1, item 7). The forward takes the JAX package's
+`_head_scales`, `_head_features`, `_normalize_uint8`, `build_model`):
+ResNet or ResNeXt trunk (plain or deformable stages) -> FPN (P2..P6) -> RPN
+-> the head the config selects (model.py:217-233 there): Fast R-CNN
+(`MODEL.FASTER_RCNN`), Cascade R-CNN (with `MODEL.CASCADE_ON`), Grid R-CNN
+or CPM's grid cascade (`MODEL.GRID_ON`), or none (`MODEL.RPN_ONLY`: the
+RPN's losses, and its proposals as the detections). Without FPN
+(`MODEL.FPN_ON` False, the C4 family) the RPN runs on the trunk's last map
+alone, one anchor stride, and the Fast R-CNN head pools that map at its one
+scale (the C4 heads, roi_heads/c4_heads.py). The forward takes the JAX package's
 layouts: images `[B, H, W, 3]` (uint8 or float) and image sizes `[B, 2]`
 (h, w); the test forward returns fixed-shape `Detections`, the train
 forward the dict of losses.
@@ -44,18 +46,37 @@ from cpm_tpu_torch.utils.amp import compute_dtype
 from cpm_tpu_torch.utils.sampler import Draws
 
 
+def _head_scales(cfg):
+    """The RoI head's pooling scales: the FPN RoI levels', or without FPN
+    the trunk's last map's (1/16 for a `_c4` body, else C5's)."""
+    if cfg.MODEL.FPN_ON:
+        n = cfg.FPN.ROI_MAX_LEVEL - cfg.FPN.ROI_MIN_LEVEL + 1
+        return tuple(0.5 ** (cfg.FPN.ROI_MIN_LEVEL + i) for i in range(n))
+    if cfg.BACKBONE.CONV_BODY.endswith("_c4"):
+        return (1.0 / 16,)
+    return (1.0 / 32 * cfg.BACKBONE.RESNET.C5_DILATION,)
+
+
+def _head_features(cfg, features):
+    """The levels the RoI head pools: the FPN RoI levels, or without FPN
+    the trunk's last map."""
+    if cfg.MODEL.FPN_ON:
+        return list(features[: len(_head_scales(cfg))])
+    return list(features[-1:])
+
+
 class FastRCNNHead(nn.Module):
     """Fast R-CNN RoI family (fast_rcnn/fast_rcnn.py:12-75): one box head
-    over the FPN RoI levels, `BoxOutput`, the sampled-roi losses in
-    training, per-class decode and the detection filter at test."""
+    over the FPN RoI levels (or the C4 map), `BoxOutput`, the sampled-roi
+    losses in training, per-class decode and the detection filter at
+    test."""
 
     def __init__(self, cfg, in_channels: int, generator: torch.Generator = None):
         super().__init__()
         c = cfg
         self.cfg = cfg
-        self.num_levels = c.FPN.ROI_MAX_LEVEL - c.FPN.ROI_MIN_LEVEL + 1
-        scales = tuple(0.5 ** (c.FPN.ROI_MIN_LEVEL + i) for i in range(self.num_levels))
-        self.head, dim = build_box_head(c, c.FAST_RCNN.ROI_BOX_HEAD, in_channels, scales, generator)
+        self.head, dim = build_box_head(c, c.FAST_RCNN.ROI_BOX_HEAD, in_channels,
+                                        _head_scales(c), generator)
         self.output = BoxOutput(dim, c.MODEL.NUM_CLASSES, c.MODEL.CLS_AGNOSTIC_BBOX_REG, generator)
         self.box_coder = BoxCoder(weights=tuple(c.FAST_RCNN.BBOX_REG_WEIGHTS))
 
@@ -63,7 +84,7 @@ class FastRCNNHead(nn.Module):
                 train: bool = False, draws=None):
         c = self.cfg
         f = c.FAST_RCNN
-        features = list(features[: self.num_levels])
+        features = _head_features(c, features)
         if train:
             sampled = subsample_rois(
                 proposals, prop_mask, gt["boxes"], gt["labels"], gt["mask"],
@@ -93,18 +114,22 @@ class FastRCNNHead(nn.Module):
         return filter_detections(boxes_pc, probs, prop_mask, **detection_filter_kwargs(c))
 
 
-def _roi_head(cfg, generator):
+def _roi_head(cfg, in_channels: int, generator):
     """The RoI head family the config selects (cpm_tpu/modeling/model.py:
     217-233), or None under MODEL.RPN_ONLY (the JAX model sets a head up
     there too but never calls it, so it has no parameters)."""
     m = cfg.MODEL
     if m.RPN_ONLY:
         return None
+    if not m.FPN_ON and not (m.FASTER_RCNN and not m.CASCADE_ON):
+        # the JAX Cascade and grid heads pool the FPN RoI levels whatever
+        # FPN_ON says, and a trunk gives them no such levels
+        raise NotImplementedError("without FPN the port runs the Fast R-CNN head (the C4 family)")
     if m.FASTER_RCNN:
         family = CascadeRCNNHead if m.CASCADE_ON else FastRCNNHead
-        return family(cfg, cfg.FPN.DIM, generator)
+        return family(cfg, in_channels, generator)
     if m.GRID_ON:
-        return GridCascadeRCNNHead(cfg, cfg.FPN.DIM, generator)
+        return GridCascadeRCNNHead(cfg, in_channels, generator)
     raise ValueError("no RoI head family selected by the config")
 
 
@@ -114,23 +139,24 @@ class GeneralizedRCNN(nn.Module):
     def __init__(self, cfg, generator: torch.Generator = None):
         super().__init__()
         c = cfg
-        if not c.MODEL.FPN_ON:
-            raise NotImplementedError(
-                "MODEL.FPN_ON False: the C4 family (resnet_c4 body, one-level RPN, C5 and 2mlp "
-                "box heads) is not ported (ROADMAP Queue 1, item 7)")
         if c.BACKBONE.CONV_BODY not in BACKBONES:
             raise NotImplementedError(
                 f"BACKBONE.CONV_BODY {c.BACKBONE.CONV_BODY}: the port runs {sorted(BACKBONES)}")
         self.cfg = cfg
         self.backbone = BACKBONES[c.BACKBONE.CONV_BODY](c, generator)
-        self.fpn = build_fpn(c, self.backbone.dim_out, generator)
+        if c.MODEL.FPN_ON:
+            self.fpn = build_fpn(c, self.backbone.dim_out, generator)
+            dim = c.FPN.DIM
+        else:
+            self.fpn = None
+            dim = self.backbone.dim_out[-1]
         strides = tuple(c.RPN.ANCHOR_STRIDE)
         num_cell_anchors = len(c.RPN.ASPECT_RATIOS) * (
             1 if len(strides) > 1 else len(c.RPN.ANCHOR_SIZES)
         )
-        self.rpn_head = RPNHead(c.FPN.DIM, num_cell_anchors, generator)
+        self.rpn_head = RPNHead(dim, num_cell_anchors, generator)
         self.rpn_box_coder = BoxCoder(weights=(1.0, 1.0, 1.0, 1.0))
-        self.roi_head = _roi_head(c, generator)
+        self.roi_head = _roi_head(c, dim, generator)
         self._layouts = {}
 
     def _anchor_layout(self, feats) -> AnchorLayout:
@@ -184,9 +210,13 @@ class GeneralizedRCNN(nn.Module):
         else:
             images = images.to(compute_dtype(c))
         x = images.permute(0, 3, 1, 2)  # NCHW view of NHWC memory
-        feats = self.fpn(self.backbone(x))
-        objectness, box_reg = self.rpn_head(feats)
-        layout = self._anchor_layout(feats)
+        feats = self.backbone(x)
+        if self.fpn is not None:
+            feats = self.fpn(feats)
+        # without FPN, the RPN runs on the last map alone
+        rpn_feats = feats if self.fpn is not None else feats[-1:]
+        objectness, box_reg = self.rpn_head(rpn_feats)
+        layout = self._anchor_layout(rpn_feats)
         which = "TRAIN" if train else "TEST"
         kw = dict(
             pre_nms_top_n=c.RPN[f"PRE_NMS_TOP_N_{which}"],

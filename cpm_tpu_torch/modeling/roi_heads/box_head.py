@@ -3,7 +3,8 @@ per-class decode and the fixed-shape multiclass detection filter.
 
 Port of cpm_tpu/modeling/roi_heads/box_head.py (`TwoMLPHead`,
 `ConvFCHead`, `BoxOutput`, `fast_rcnn_losses`, `Detections`,
-`decode_boxes_per_class`, `filter_detections`). The filter, per image:
+`decode_boxes_per_class`, `filter_detections`); `build_box_head` also
+builds the C4 heads of roi_heads/c4_heads.py. The filter, per image:
 threshold the foreground class scores, gather the top `pre_nms_candidates`
 candidates, then the reference's filter_results (`ops/nms.py::
 filter_results`, which the TTA merge also runs): label-aware hard NMS or
@@ -21,6 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cpm_tpu_torch.modeling import initializers as init
+from cpm_tpu_torch.modeling.backbone.resnet import check_plain_options
+from cpm_tpu_torch.modeling.roi_heads.c4_heads import ResNet2MLPHead, ResNetC5Head
 from cpm_tpu_torch.modeling.roi_heads.grid_modules import ClsHead
 from cpm_tpu_torch.modeling.roi_heads.targets import gather_rows
 from cpm_tpu_torch.ops.box_coder import BoxCoder
@@ -75,7 +78,9 @@ class ConvFCHead(nn.Module):
 
 class BoxOutput(nn.Module):
     """Linear cls (C) and box deltas (4C, or 8 if class-agnostic); both
-    upcast to f32, since decode and losses are precision-sensitive."""
+    upcast to f32, since decode and losses are precision-sensitive. A 4-D
+    NHWC input (`resnet_c5_head`'s block) is average-pooled over h and w
+    first."""
 
     def __init__(self, in_features: int, num_classes: int, cls_agnostic_bbox_reg: bool = False,
                  generator: torch.Generator = None):
@@ -88,19 +93,29 @@ class BoxOutput(nn.Module):
         nn.init.zeros_(self.bbox_pred.bias)
 
     def forward(self, x):
+        if x.dim() == 4:
+            x = x.mean(dim=(1, 2))
         return self.cls_score(x).float(), self.bbox_pred(x).float()
 
 
 def build_box_head(cfg, name: str, in_channels: int, scales, generator=None,
                    sized_by_cfg: bool = True):
     """(the feature extractor FAST_RCNN / CASCADE_RCNN.ROI_BOX_HEAD names,
-    over the FPN levels of `scales`; its output width). Its widths are
+    over the levels of `scales`; its output width). Its widths are
     FAST_RCNN.MLP_HEAD's / CONVFC_HEAD's, or with `sized_by_cfg` False the
     modules' defaults (1024-wide fcs, four 256-wide convs), which the JAX
-    package's Cascade head uses whatever those keys say."""
+    package's Cascade head uses whatever those keys say. The C4 heads
+    (roi_heads/c4_heads.py) take stage 5's options from BACKBONE.RESNET."""
     f = cfg.FAST_RCNN
     kw = dict(resolution=tuple(f.ROI_XFORM_RESOLUTION), scales=scales,
               sampling_ratio=f.ROI_XFORM_SAMPLING_RATIO, generator=generator)
+    if name in ("resnet_c5_head", "resnet_2mlp_head"):
+        check_plain_options(cfg.BACKBONE.RESNET, "ResNet stage-5")
+        if name == "resnet_c5_head":
+            head = ResNetC5Head(cfg, in_channels, **kw)
+        else:
+            head = ResNet2MLPHead(cfg, in_channels, mlp_dim=f.MLP_HEAD.MLP_DIM, **kw)
+        return head, head.dim_out
     if name == "roi_2mlp_head":
         mlp_dim = f.MLP_HEAD.MLP_DIM if sized_by_cfg else 1024
         return TwoMLPHead(in_channels, mlp_dim=mlp_dim, **kw), mlp_dim
@@ -115,8 +130,7 @@ def build_box_head(cfg, name: str, in_channels: int, scales, generator=None,
                       mlp_dim=h.MLP_DIM, dilation=h.DILATION)
         head = ConvFCHead(in_channels, **kw)
         return head, head.fc.out_features
-    raise NotImplementedError(
-        f"ROI_BOX_HEAD {name}: the C4 heads are not ported (ROADMAP Queue 1, item 7)")
+    raise ValueError(f"unknown ROI_BOX_HEAD {name}")
 
 
 def fast_rcnn_losses(class_logits, box_regression, labels, reg_targets, sample_mask, *,

@@ -23,6 +23,18 @@ under no gradient, gt-identical rows dropped and gt re-added between
 stages); the RSM head is trained on the cls negatives plus the refined
 boxes.
 
+Options (each at its site in the JAX head): ENHANCE_FEATURES mixes the FPN
+levels, P6 included, for the grid stages alone (the cls and RSM branches
+pool the RoI levels as they are); RANDOM_JITTER jitters the cls sample
+before the grid cap; BETTER_ROI clears rois whose centre is far from their
+gt's; EXTEND_ROI doubles the boxes after matching in training and before
+each stage's pooling in eval; FINEST_LEVEL_ROI pools the stages from P2
+alone; CASCADE_MAPPING_OPTION.RESIZE_ROI shrinks large refined boxes
+between stages; RESCORE_OPTION.KEEP_RATIO caps the RSM's negatives at three
+times the grid positives by a random rank. Their uniform draws come from
+`draws` in the JAX package's order: the jitter's before the grid cap's, the
+keep ratio's before the RSM sample's.
+
 The JAX package runs the towers in size buckets (TOWER_BUCKETS /
 EVAL_TOWER_BUCKETS with `nn.switch` and `nn.remat`), a TPU shape device. Here
 the roi set is compacted, valid rois first, and each stage's targets, tower,
@@ -45,7 +57,15 @@ from cpm_tpu_torch.modeling.roi_heads.grid_modules import (
     GridOutput,
     rescore_detections,
 )
-from cpm_tpu_torch.modeling.roi_heads.grid_ops import grid_decode, grid_targets
+from cpm_tpu_torch.modeling.roi_heads.grid_ops import (
+    better_roi_mask,
+    enhance_features,
+    extend_rois,
+    grid_decode,
+    grid_targets,
+    random_jitter_boxes,
+    resize_large_rois,
+)
 from cpm_tpu_torch.modeling.roi_heads.targets import (
     compact_by_mask,
     gather_rows,
@@ -77,17 +97,12 @@ class GridCascadeRCNNHead(nn.Module):
         super().__init__()
         c = cfg
         g = c.GRID_RCNN
-        if g.FUSED_ON and g.OFFSET_ON:
-            raise NotImplementedError("OFFSET_ON is not ported")
-        if g.ENHANCE_FEATURES or g.EXTEND_ROI or g.FINEST_LEVEL_ROI or g.SE_ON:
-            raise NotImplementedError(
-                "ENHANCE_FEATURES, EXTEND_ROI, FINEST_LEVEL_ROI and SE_ON are not ported"
-            )
         self.cfg = cfg
         cascade_on = bool(g.CASCADE_MAPPING_ON)
         opt = g.CASCADE_MAPPING_OPTION
         self.stage_num = opt.STAGE_NUM if cascade_on else 1
-        self.cascade_on = cascade_on
+        self.resize_roi = bool(cascade_on and opt.RESIZE_ROI)
+        self.keep_ratio = bool(g.RESCORE_ON and g.RESCORE_OPTION.KEEP_RATIO)
         self.test_stage = opt.TEST_STAGE if cascade_on else 1
         self.stage_weights = tuple(opt.STAGE_WEIGHTS) if cascade_on else (1.0,)
         self.fg_thresholds = tuple(opt.FG_IOU_THRESHOLD) if cascade_on else (g.FG_IOU_THRESHOLD,)
@@ -113,14 +128,15 @@ class GridCascadeRCNNHead(nn.Module):
                 roi_feat_size=g.ROI_FEAT_SIZE, num_convs=g.GRID_HEAD.NUM_CONVS,
                 point_feat_channels=g.GRID_HEAD.POINT_FEAT_CHANNELS,
                 scales=scales, sampling_ratio=g.ROI_XFORM_SAMPLING_RATIO,
-                fused_on=g.FUSED_ON, generator=gen,
+                fused_on=g.FUSED_ON, finest_level_only=g.FINEST_LEVEL_ROI,
+                offset_on=g.OFFSET_ON, generator=gen,
             ))
             self.grid_outputs.append(GridOutput(
                 grid_points=self.grid_nums[s],
                 point_feat_channels=g.GRID_HEAD.POINT_FEAT_CHANNELS,
                 roi_feat_size=g.ROI_FEAT_SIZE,
                 iou_helper=bool(g.IOU_HELPER and s == self.stage_num - 1),
-                fused_on=g.FUSED_ON, generator=gen,
+                fused_on=g.FUSED_ON, se_on=g.SE_ON, offset_on=g.OFFSET_ON, generator=gen,
             ))
         self.rescore_on = bool(g.RESCORE_ON)
         if self.rescore_on:
@@ -164,10 +180,14 @@ class GridCascadeRCNNHead(nn.Module):
         g = self.cfg.GRID_RCNN
         losses = {}
         # stage-0 input: at most MAX_SAMPLE_NUM_GRID positives of the cls sample
+        boxes = sampled.boxes
+        if g.RANDOM_JITTER:
+            u = draws(boxes.shape[:-1] + (4,), boxes.device)
+            boxes = random_jitter_boxes(boxes, u, image_sizes[:, None, :])
         pos = sampled.is_pos
         capped = sample_k_from_mask(pos, g.MAX_SAMPLE_NUM_GRID, draws(pos.shape, pos.device))
         idx, mask = compact_by_mask(capped, g.MAX_SAMPLE_NUM_GRID)
-        boxes = gather_rows(sampled.boxes, idx)
+        boxes = gather_rows(boxes, idx)
 
         for stage in range(self.stage_num):
             matches, matched_gt, matched_iou = match_to_gt(
@@ -176,9 +196,15 @@ class GridCascadeRCNNHead(nn.Module):
             )
             # stage 0 keeps the whole (positive-capped) set
             stage_mask = mask if stage == 0 else (matches >= 0) & mask
+            if g.BETTER_ROI:
+                stage_mask = stage_mask & better_roi_mask(boxes, matched_gt, g.BETTER_ROI_RATIO)
+            if g.EXTEND_ROI:
+                # after matching, before targets, pooling and decode
+                boxes = extend_rois(boxes, image_sizes[:, None, :])
             B, S = boxes.shape[:2]
-            # valid rois first; the loop-carried (boxes, mask) pair stays
-            # aligned, since the RSM union below indexes boxes by mask bits
+            # valid rois first (BETTER_ROI may clear bits inside the prefix);
+            # the loop-carried (boxes, mask) pair stays aligned, since the
+            # RSM union below indexes boxes by mask bits
             cidx, stage_mask = compact_by_mask(stage_mask, S)
             boxes = gather_rows(boxes, cidx)
             matched_gt = gather_rows(matched_gt, cidx)
@@ -186,7 +212,7 @@ class GridCascadeRCNNHead(nn.Module):
             mask = torch.gather(mask, 1, cidx)
 
             head, out = self.grid_heads[stage], self.grid_outputs[stage]
-            pooled = head.pooler(features, rois_with_batch_index(boxes), stage_mask.reshape(B * S))
+            pooled = head.pool(features, rois_with_batch_index(boxes), stage_mask.reshape(B * S))
             K = self._tower_size(stage_mask, S)
             bK = boxes[:, :K].reshape(B * K, 4)
             mK = stage_mask[:, :K].reshape(B * K)
@@ -197,10 +223,10 @@ class GridCascadeRCNNHead(nn.Module):
                 roi_feat_size=g.ROI_FEAT_SIZE, pos_radius=g.POS_RADIUS,
                 target_refine=g.TARGET_REFINE,
             )
-            x, x_so, _ = head(pooled=pK)
-            heatmaps, iou_logits = out(x, x_so, train=True)
+            x, x_so, x_off = head(pooled=pK)
+            heatmaps, iou_logits = out(x, x_so, x_off, train=True)
             loss_grid = _masked_bce_mean(heatmaps["unfused"], tK, mK)
-            if g.FUSED_ON and heatmaps["fused"] is not None:
+            if heatmaps["fused"] is not None and (g.FUSED_ON or g.OFFSET_ON):
                 loss_grid = loss_grid + _masked_bce_mean(heatmaps["fused"], tK, mK)
             losses[f"loss_grid_{stage + 1}"] = g.LOSS_WEIGHT * self.stage_weights[stage] * loss_grid
 
@@ -218,6 +244,8 @@ class GridCascadeRCNNHead(nn.Module):
                     grid_points=self.grid_nums[stage], roi_feat_size=g.ROI_FEAT_SIZE,
                 ).reshape(B, K, 4)
                 refined = torch.cat([refined, refined.new_zeros(B, S - K, 4)], dim=1)
+                if self.resize_roi:
+                    refined = resize_large_rois(refined)
                 # drop rows equal to a gt box, then re-add the gt boxes
                 same = (boxes[:, :, None, :] - gt["boxes"][:, None, :, :]).abs() < 1e-5
                 eq_gt = (same.all(dim=-1) & gt["mask"][:, None, :]).any(dim=-1)
@@ -229,6 +257,12 @@ class GridCascadeRCNNHead(nn.Module):
         g = self.cfg.GRID_RCNN
         # the negatives of the cls sample plus the grid-refined boxes
         neg_mask = cls_sampled.mask & (cls_sampled.labels == 0)
+        if self.keep_ratio:
+            # at most 3x the grid positives of the negatives, by a random
+            # rank (a stable sort, as jnp.argsort)
+            u = draws(neg_mask.shape, neg_mask.device)
+            n_pos = grid_mask.sum(dim=1, keepdim=True)
+            neg_mask = sample_k_from_mask(neg_mask, 3 * n_pos[:, 0], u)
         union_boxes = torch.cat([cls_sampled.boxes, grid_boxes], dim=1)
         union_mask = torch.cat([neg_mask, grid_mask], dim=1)
         sampled = self._subsample(union_boxes, union_mask, gt, draws)
@@ -238,21 +272,10 @@ class GridCascadeRCNNHead(nn.Module):
         )
         return dict(loss_rescore=g.RESCORE_LOSS_WEIGHT * loss)
 
-    def _train(self, roi_feats, proposals, prop_mask, image_sizes, gt, draws):
-        g = self.cfg.GRID_RCNN
-        unported = [
-            name for name, on in (
-                ("RANDOM_JITTER", g.RANDOM_JITTER), ("BETTER_ROI", g.BETTER_ROI),
-                ("CASCADE_MAPPING_OPTION.RESIZE_ROI",
-                 self.cascade_on and g.CASCADE_MAPPING_OPTION.RESIZE_ROI),
-                ("RESCORE_OPTION.KEEP_RATIO", g.RESCORE_ON and g.RESCORE_OPTION.KEEP_RATIO),
-            ) if on
-        ]
-        if unported:
-            raise NotImplementedError(f"GRID_RCNN training options not ported: {unported}")
+    def _train(self, roi_feats, grid_feats, proposals, prop_mask, image_sizes, gt, draws):
         sampled, losses = self._train_cls(roi_feats, proposals, prop_mask, gt, draws)
         grid_boxes, grid_mask, grid_losses = self._train_cascade(
-            roi_feats, sampled, gt, image_sizes, draws
+            grid_feats, sampled, gt, image_sizes, draws
         )
         losses.update(grid_losses)
         if self.rescore_on:
@@ -289,11 +312,14 @@ class GridCascadeRCNNHead(nn.Module):
         K = max(int(mask.sum(dim=1).max()), 1)
         sizes_k = image_sizes.repeat_interleave(K, dim=0)
         for stage in range(self.test_stage):
+            if g.EXTEND_ROI:
+                # before pooling; the decode below reads the extended boxes
+                boxes = extend_rois(boxes, image_sizes[:, None, :])
             head, out = self.grid_heads[stage], self.grid_outputs[stage]
-            pooled = head.pooler(features, rois_with_batch_index(boxes), mask.reshape(B * S))
+            pooled = head.pool(features, rois_with_batch_index(boxes), mask.reshape(B * S))
             pK = pooled.reshape(B, S, *pooled.shape[1:])[:, :K].reshape(B * K, *pooled.shape[1:])
-            x, x_so, _ = head(pooled=pK)
-            heatmaps, iou_logits = out(x, x_so, train=False)
+            x, x_so, x_off = head(pooled=pK)
+            heatmaps, iou_logits = out(x, x_so, x_off, train=False)
             hm = heatmaps["fused"] if g.FUSED_ON else heatmaps["unfused"]
             refined = grid_decode(
                 boxes[:, :K].reshape(B * K, 4), hm, sizes_k,
@@ -313,14 +339,18 @@ class GridCascadeRCNNHead(nn.Module):
 
     def forward(self, features, proposals, prop_mask, image_sizes, gt=None,
                 train: bool = False, draws=None):
-        """features: NHWC RoI levels [B, H_l, W_l, C] (P2..P5 first).
-        Train (gt: dict of boxes / labels / mask; draws: the sampler's
-        source of uniform draws) returns the loss dict, test `Detections`."""
+        """features: NHWC FPN levels [B, H_l, W_l, C] (P2 first; the RoI
+        levels and, for ENHANCE_FEATURES, P6 after them). Train (gt: dict of
+        boxes / labels / mask; draws: the sampler's source of uniform draws)
+        returns the loss dict, test `Detections`."""
         roi_feats = list(features[: self.num_levels])
+        # the grid stages' levels; the cls and RSM branches pool roi_feats
+        grid_feats = (enhance_features(features) if self.cfg.GRID_RCNN.ENHANCE_FEATURES
+                      else roi_feats)
         if train:
-            return self._train(roi_feats, proposals, prop_mask, image_sizes, gt, draws)
+            return self._train(roi_feats, grid_feats, proposals, prop_mask, image_sizes, gt, draws)
         dets = self._test_cls(roi_feats, proposals, prop_mask)
-        dets = self._test_cascade(roi_feats, dets, image_sizes)
+        dets = self._test_cascade(grid_feats, dets, image_sizes)
         if self.rescore_on:
             dets = rescore_detections(self.rescore_head, self.rescore_output, roi_feats, dets)
         return dets

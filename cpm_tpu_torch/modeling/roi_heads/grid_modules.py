@@ -13,6 +13,15 @@ so the permutes between the two are views.
 The JAX grouped transposed conv (`grouped_deconv`: a flipped kernel over a
 2x-dilated input) is `ConvTranspose2d(k=4, stride=2, padding=1,
 groups=P)`; utils/param_bridge.py maps its kernel.
+
+Options: FINEST_LEVEL_ROI pools the grid stages from P2 alone (a one-level
+`Pooler`, whose kernel is the single-level RoIAlign); OFFSET_ON adds the
+offset branch (a 64-wide 3x3 stride-2 conv, relu, a linear to 4P offsets),
+whose output conditions the output tower through `offset_emb` when
+FUSED_ON is off, and is unused when it is on (its parameters exist and get
+a zero gradient, as in the JAX package); SE_ON puts a
+squeeze-and-excitation block (modeling/context.py) between the output
+tower's GroupNorm and its second deconv.
 """
 
 import math
@@ -23,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cpm_tpu_torch.modeling import initializers as init
+from cpm_tpu_torch.modeling.context import SeBlock
 from cpm_tpu_torch.modeling.norm import GroupNorm
 from cpm_tpu_torch.modeling.roi_heads.targets import rois_with_batch_index
 from cpm_tpu_torch.ops.pooler import Pooler
@@ -78,6 +88,8 @@ class GridHead(nn.Module):
         scales: Sequence[float] = (0.25, 0.125, 0.0625, 0.03125),
         sampling_ratio: int = 2,
         fused_on: bool = True,
+        finest_level_only: bool = False,
+        offset_on: bool = False,
         generator: torch.Generator = None,
     ):
         super().__init__()
@@ -85,7 +97,21 @@ class GridHead(nn.Module):
         cout = c * P
         self.point_feat_channels = c
         self.fused_on = fused_on
+        self.finest_level_only = finest_level_only
+        scales = tuple(scales)[:1] if finest_level_only else tuple(scales)
         self.pooler = Pooler((roi_feat_size, roi_feat_size), scales, sampling_ratio)
+        if offset_on:
+            # kaiming normal (fan out) and zero bias, as make_conv; the
+            # linear reads the (h, w, c) flatten of the stride-2 output
+            self.offset_conv = nn.Conv2d(in_channels, 64, 3, stride=2, padding=1)
+            init.kaiming_normal_fan_out(self.offset_conv.weight, generator)
+            nn.init.zeros_(self.offset_conv.bias)
+            s = (roi_feat_size + 1) // 2
+            self.offset_fc = nn.Linear(s * s * 64, 4 * P)
+            init.kaiming_uniform_a1(self.offset_fc.weight, generator)
+            nn.init.zeros_(self.offset_fc.bias)
+        else:
+            self.offset_conv = self.offset_fc = None
         self.convs = nn.ModuleList(
             _torch_default_conv(
                 nn.Conv2d(in_channels if i == 0 else cout, cout, 3,
@@ -101,16 +127,31 @@ class GridHead(nn.Module):
             self.forder = nn.ModuleDict({k: TransitionConv(c, generator) for k in pairs})
             self.sorder = nn.ModuleDict({k: TransitionConv(c, generator) for k in pairs})
 
+    def pool(self, features, rois, roi_mask=None):
+        """The stage's RoIAlign over the RoI levels (P2 first), or over P2
+        alone under FINEST_LEVEL_ROI: [R, s, s, C]."""
+        if self.finest_level_only:
+            features = features[:1]
+        return self.pooler(features, rois, roi_mask)
+
     def forward(self, features=None, rois=None, roi_mask=None, *, pooled=None):
-        """Returns (x [R, s/2, s/2, P*c], x_so or None, None), NHWC; point p
-        owns channels [p*c, (p+1)*c). `pooled` [R, s, s, C] skips pooling."""
+        """Returns (x [R, s/2, s/2, P*c], x_so or None, offsets [R, 4P] or
+        None), NHWC; point p owns channels [p*c, (p+1)*c). `pooled`
+        [R, s, s, C] skips pooling."""
         if pooled is None:
-            pooled = self.pooler(features, rois, roi_mask)
+            pooled = self.pool(features, rois, roi_mask)
         x = pooled.permute(0, 3, 1, 2)
+        x_offset = None
+        # the offsets feed the output tower only where no fused tower takes
+        # its place; elsewhere the JAX package's compiler drops the unused
+        # branch too, and its parameters get a zero gradient either way
+        if self.offset_conv is not None and not self.fused_on:
+            xo = F.relu(self.offset_conv(x)).permute(0, 2, 3, 1)
+            x_offset = self.offset_fc(xo.reshape(xo.shape[0], -1))
         for conv, gn in zip(self.convs, self.gns):
             x = F.relu(gn(conv(x)))
         if not self.fused_on:
-            return x.permute(0, 2, 3, 1), None, None
+            return x.permute(0, 2, 3, 1), None, x_offset
 
         c = self.point_feat_channels
 
@@ -130,7 +171,7 @@ class GridHead(nn.Module):
                 acc = acc + self.sorder[f"{i}_{j}"](x_fo[p_idx])
             x_so.append(acc)
         x_so = torch.cat(x_so, dim=1)
-        return x.permute(0, 2, 3, 1), x_so.permute(0, 2, 3, 1), None
+        return x.permute(0, 2, 3, 1), x_so.permute(0, 2, 3, 1), x_offset
 
 
 class GridOutput(nn.Module):
@@ -143,6 +184,8 @@ class GridOutput(nn.Module):
         roi_feat_size: int = 14,
         iou_helper: bool = False,
         fused_on: bool = True,
+        se_on: bool = False,
+        offset_on: bool = False,
         generator: torch.Generator = None,
     ):
         super().__init__()
@@ -156,9 +199,17 @@ class GridOutput(nn.Module):
         )
         # flax's GroupNorm default epsilon, which the JAX module keeps here
         self.norm1 = GroupNorm(cout, num_groups=P, eps=1e-6)
+        self.se = SeBlock(cout, max(1, int(cout * 0.0625)), g) if se_on else None
         self.deconv2 = _torch_default_conv(
             nn.ConvTranspose2d(cout, P, 4, stride=2, padding=1, groups=P), g
         )
+        # the offsets condition the tower only where no fused tower takes
+        # its place: the JAX module creates offset_emb there alone
+        self.offset_emb = None
+        if offset_on and not fused_on:
+            self.offset_emb = nn.Linear(4 * P, cout)
+            init.normal_(self.offset_emb.weight, math.sqrt(1.0 / (4 * P)), g)
+            nn.init.zeros_(self.offset_emb.bias)
         if iou_helper:
             s = roi_feat_size // 2
             self.iou_fc1 = nn.Linear(s * s * cout, 1024)
@@ -172,15 +223,20 @@ class GridOutput(nn.Module):
 
     def _decode_tower(self, h):
         h = F.relu(self.norm1(self.deconv1(h)))
+        if self.se is not None:
+            h = self.se(h)
         return self.deconv2(h)
 
-    def forward(self, x, x_so=None, train: bool = False):
-        """x, x_so: NHWC tower outputs. Returns ({'fused', 'unfused'}
-        heatmap logits [R, P, H, W] in f32 (or None), iou logits [R, 2]
-        f32 or None)."""
+    def forward(self, x, x_so=None, x_offset=None, train: bool = False):
+        """x, x_so: NHWC tower outputs; x_offset: the offset branch's
+        [R, 4P] or None. Returns ({'fused', 'unfused'} heatmap logits
+        [R, P, H, W] in f32 (or None), iou logits [R, 2] f32 or None)."""
         fused = None
         if self.fused_on and x_so is not None:
             fused = self._decode_tower(x_so.permute(0, 3, 1, 2))
+        elif self.offset_emb is not None and x_offset is not None:
+            emb = self.offset_emb(x_offset)
+            fused = self._decode_tower(x.permute(0, 3, 1, 2) + emb[:, :, None, None])
         if train or not self.fused_on:
             unfused = self._decode_tower(x.permute(0, 3, 1, 2))
         else:

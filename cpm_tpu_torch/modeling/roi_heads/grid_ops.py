@@ -1,7 +1,10 @@
 """Grid R-CNN heatmap targets and decode.
 
 Port of cpm_tpu/modeling/roi_heads/grid_ops.py (`calc_sub_regions`,
-`_point_factors`, `expand_boxes`, `grid_targets`, `grid_decode`). Targets:
+`_point_factors`, `expand_boxes`, `grid_targets`, `grid_decode`, and the
+grid-cascade options' box and feature transforms `resize_large_rois`,
+`extend_rois`, `enhance_features`, `random_jitter_boxes`,
+`better_roi_mask`). Targets:
 per grid point, a disc of radius POS_RADIUS around the gt point's position
 in the mapping-ratio expansion of the box, cropped to the point's
 sub-region. Decode: per grid point, the argmax of its sub-region heatmap,
@@ -9,7 +12,7 @@ mapped back through the expansion, then confidence-weighted border voting
 and a clamp of the refined box into the image.
 """
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -168,3 +171,105 @@ def grid_decode(
         clip(vote(abs_xs, x2_inds), w),
         clip(vote(abs_ys, y2_inds), h),
     ], dim=-1)
+
+
+def resize_large_rois(boxes: torch.Tensor, thresh: float = 96.0 ** 2,
+                      delta_ratio: float = 0.7) -> torch.Tensor:
+    """CASCADE_MAPPING_OPTION.RESIZE_ROI: a box of area above `thresh`
+    shrinks by delta_ratio * half its extent on each side."""
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    dx = delta_ratio * 0.5 * w
+    dy = delta_ratio * 0.5 * h
+    shrunk = torch.stack([boxes[..., 0] + dx, boxes[..., 1] + dy,
+                          boxes[..., 2] - dx, boxes[..., 3] - dy], dim=-1)
+    return torch.where(((w * h) > thresh)[..., None], shrunk, boxes)
+
+
+def _clip(v: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    return torch.minimum(torch.clamp(v, min=0.0), hi)
+
+
+def extend_rois(boxes: torch.Tensor, image_sizes: torch.Tensor) -> torch.Tensor:
+    """EXTEND_ROI: each side grows by half the box's extent (twice the
+    width and height), clamped to [0, image width or height]. `image_sizes`
+    (h, w) broadcasts against boxes[..., :2]."""
+    w = torch.clamp(boxes[..., 2] - boxes[..., 0], min=0.0)
+    h = torch.clamp(boxes[..., 3] - boxes[..., 1], min=0.0)
+    ih = image_sizes[..., 0].to(boxes.dtype)
+    iw = image_sizes[..., 1].to(boxes.dtype)
+    return torch.stack([
+        _clip(boxes[..., 0] - 0.5 * w, iw), _clip(boxes[..., 1] - 0.5 * h, ih),
+        _clip(boxes[..., 2] + 0.5 * w, iw), _clip(boxes[..., 3] + 0.5 * h, ih),
+    ], dim=-1)
+
+
+def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
+    """The source index of each output row of a nearest resize, with half-pixel
+    centres as jax.image.resize computes them: floor((i + 0.5) * n_in / n_out)
+    in float32. (`F.interpolate(mode="nearest")` reads floor(i * n_in /
+    n_out), a cell off on a 2x downsample.)"""
+    i = np.arange(n_out, dtype=np.float32)
+    idx = np.floor((i + np.float32(0.5)) * np.float32(n_in) / np.float32(n_out)).astype(np.int64)
+    return torch.from_numpy(idx).to(device)
+
+
+def _resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """NHWC [B, H, W, C] -> [B, h, w, C], nearest with half-pixel centres."""
+    if x.shape[1] != h:
+        x = x.index_select(1, _nearest_index(x.shape[1], h, x.device))
+    if x.shape[2] != w:
+        x = x.index_select(2, _nearest_index(x.shape[2], w, x.device))
+    return x
+
+
+def enhance_features(features: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """ENHANCE_FEATURES cross-level mixing over NHWC levels (P2..P6):
+    out[i] = f[i] + nearest_down(out[i - 1]) + nearest_up(f[i + 1]) for every
+    level but the last, which only feeds the one before it; returns the
+    RoI levels (P2..P5)."""
+    out: List[torch.Tensor] = []
+    for i, feat in enumerate(features[:-1]):
+        h, w = feat.shape[1], feat.shape[2]
+        if i > 0:
+            feat = feat + _resize_nearest(out[i - 1], h, w)
+        out.append(feat + _resize_nearest(features[i + 1], h, w))
+    return out
+
+
+def random_jitter_boxes(boxes: torch.Tensor, u: torch.Tensor, image_sizes: torch.Tensor,
+                        amplitude: float = 0.15) -> torch.Tensor:
+    """RANDOM_JITTER: each box's centre moves by up to `amplitude` of its
+    width and height, and its width and height scale by 1 +- amplitude;
+    clamped to the image. `u` [..., 4] holds uniform [0, 1) draws, mapped to
+    [-amplitude, amplitude) as u * 2 * amplitude - amplitude; `image_sizes`
+    (h, w) broadcasts against boxes[..., :2]."""
+    off = u * (2 * amplitude) - amplitude
+    cx = (boxes[..., 0] + boxes[..., 2]) / 2
+    cy = (boxes[..., 1] + boxes[..., 3]) / 2
+    w = (boxes[..., 2] - boxes[..., 0]).abs()
+    h = (boxes[..., 3] - boxes[..., 1]).abs()
+    ncx = cx + w * off[..., 0]
+    ncy = cy + h * off[..., 1]
+    nw = w * (1 + off[..., 2])
+    nh = h * (1 + off[..., 3])
+    ih = image_sizes[..., 0].to(boxes.dtype) - 1
+    iw = image_sizes[..., 1].to(boxes.dtype) - 1
+    return torch.stack([
+        _clip(ncx - nw / 2, iw), _clip(ncy - nh / 2, ih),
+        _clip(ncx + nw / 2, iw), _clip(ncy + nh / 2, ih),
+    ], dim=-1)
+
+
+def better_roi_mask(boxes: torch.Tensor, gt_boxes: torch.Tensor, ratio: float = 0.25
+                    ) -> torch.Tensor:
+    """BETTER_ROI: True where the box's centre lies within `ratio` of its
+    matched gt box's extent (a squared-distance test) of the gt's centre."""
+    bx = (boxes[..., 0] + boxes[..., 2]) * 0.5
+    by = (boxes[..., 1] + boxes[..., 3]) * 0.5
+    gx = (gt_boxes[..., 0] + gt_boxes[..., 2]) * 0.5
+    gy = (gt_boxes[..., 1] + gt_boxes[..., 3]) * 0.5
+    dist = (gx - bx) ** 2 + (gy - by) ** 2
+    max_dist = ((ratio * (gt_boxes[..., 2] - gt_boxes[..., 0])) ** 2
+                + (ratio * (gt_boxes[..., 3] - gt_boxes[..., 1])) ** 2)
+    return (max_dist - dist) >= 0

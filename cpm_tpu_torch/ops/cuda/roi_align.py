@@ -14,6 +14,8 @@ gather formulation. Here it is the multilevel backward kernel
 (`ops/cuda/multilevel_roi_align.py::KERNEL.backward`) called with this one
 level: it takes its cells and weights from the same device functions as this
 forward, so it is the forward's exact transpose, and it stays on the card.
+It is handed the caller's roi mask, so that a masked row adds nothing to
+the map's gradient, whatever its box (a padding row's may be non-finite).
 
 `roi_align_cuda` dispatches on where the tensors lie: on the CPU it runs the
 plain version (`ops/roi_align.py::roi_align` on the float32 map), through
@@ -99,29 +101,29 @@ class _RoIAlign(torch.autograd.Function):
     one level as one differentiable op over the map."""
 
     @staticmethod
-    def forward(ctx, features, rois, output_size, spatial_scale, sampling_ratio):
-        ctx.save_for_backward(rois)
+    def forward(ctx, features, rois, valid, output_size, spatial_scale, sampling_ratio):
+        ctx.save_for_backward(rois, valid)
         ctx.shape = tuple(features.shape)
         ctx.args = ((float(spatial_scale),), sampling_ratio, False)
         return KERNEL(features, rois, output_size, spatial_scale, sampling_ratio)
 
     @staticmethod
     def backward(ctx, g):
-        (rois,) = ctx.saved_tensors
-        n = rois.shape[0]
-        levels = torch.zeros(n, dtype=torch.int32, device=rois.device)
-        valid = torch.ones(n, dtype=torch.bool, device=rois.device)
+        rois, valid = ctx.saved_tensors
+        levels = torch.zeros(rois.shape[0], dtype=torch.int32, device=rois.device)
         (grad,) = multilevel_op.KERNEL.backward([ctx.shape], rois, levels, valid,
                                                 g.contiguous(), *ctx.args)
-        return grad, None, None, None, None
+        return grad, None, None, None, None, None
 
 
 def roi_align_cuda(features: torch.Tensor, rois: torch.Tensor, output_size,
-                   spatial_scale: float, sampling_ratio: int = 0) -> torch.Tensor:
+                   spatial_scale: float, sampling_ratio: int = 0,
+                   roi_mask: torch.Tensor = None) -> torch.Tensor:
     """RoIAlign over one `[B, H, W, C]` map (f32 or bf16) -> `[R, ph, pw, C]`
-    float32: not aligned, no mask. CPU tensors take the plain version; CUDA
-    tensors take the kernel, and the multilevel backward kernel when the map
-    requires a gradient."""
+    float32: not aligned; the forward pools every roi. CPU tensors take the
+    plain version; CUDA tensors take the kernel, and the multilevel backward
+    kernel when the map requires a gradient, where the rows `roi_mask` [R]
+    clears (default none) add nothing."""
     features = features.float()
     rois = rois.float().contiguous()
     if rois.device.type == "cpu":
@@ -129,6 +131,8 @@ def roi_align_cuda(features: torch.Tensor, rois: torch.Tensor, output_size,
     if rois.device.type != "cuda":
         raise ValueError(f"no RoIAlign for device {rois.device}")
     if torch.is_grad_enabled() and features.requires_grad:
-        return _RoIAlign.apply(features.contiguous(), rois, tuple(output_size),
-                               spatial_scale, sampling_ratio)
+        if roi_mask is None:
+            roi_mask = torch.ones(rois.shape[0], dtype=torch.bool, device=rois.device)
+        return _RoIAlign.apply(features.contiguous(), rois, roi_mask.bool().contiguous(),
+                               tuple(output_size), spatial_scale, sampling_ratio)
     return KERNEL(features.contiguous(), rois, output_size, spatial_scale, sampling_ratio)

@@ -160,9 +160,11 @@ class Pooler:
         if len(features) == 1:
             out = single_level_op.roi_align_cuda(
                 features[0], rois, self.output_size, self.scales[0], self.sampling_ratio,
+                roi_mask=roi_mask,
             ).to(out_dtype)
-            # the one-level kernel has no mask: where, not a product, so that
-            # a masked roi's garbage box cannot leave a NaN behind
+            # the one-level forward kernel has no mask: where, not a product,
+            # so that a masked roi's garbage box cannot leave a NaN behind;
+            # its backward takes the mask
             return torch.where(roi_mask[:, None, None, None], out, torch.zeros_like(out))
         levels = assign_fpn_levels(
             rois[:, 1:5], self.k_min, self.k_max,

@@ -280,28 +280,33 @@ def kernel_breakdown(label, sites, run, card):
               f"over {len(sites)} calls, {e.key[:90]} | {card}")
 
 
-def device_ms(sites, run, tries=5, repeat=3):
+def device_ms(sites, run, tries=5, repeat=3, or_none=False):
     """Device time of one run of every site: the CUDA kernels' and memsets'
     time that `torch.profiler` records over `repeat` runs of every site,
     summed and divided by `repeat` (the wrapper's host time between launches
-    is left out). A short session now and then comes back with no device
-    record at all (seen with calls of 0.02-0.1 ms): it is profiled again,
-    and raises after `tries` empty sessions."""
+    is left out). A session now and then comes back with no device record at
+    all (seen with calls of 0.02-1 ms, once five times running late in a long
+    process): it is profiled again with twice the runs, and after `tries`
+    empty sessions this raises, or with `or_none` returns None, for a caller
+    that then reports its CUDA-event time alone."""
     from torch.profiler import ProfilerActivity, profile
 
     for site in sites:
         run(*site)
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for i in range(tries):
+        runs = repeat << i
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(repeat):
+            for _ in range(runs):
                 for site in sites:
                     run(*site)
             torch.cuda.synchronize()
         total = sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
         if total > 0:
-            return total / repeat
+            return total / runs
+    if or_none:
+        return None
     raise RuntimeError(f"torch.profiler recorded no device time in {tries} sessions")
 
 

@@ -1,9 +1,10 @@
 """Where the eval forward's time goes on one NVIDIA GPU.
 
-    python3 -m cpm_tpu_torch.tools.profile_eval [--config flagship|x101_dcn | --cfg file.yaml]
+    python3 -m cpm_tpu_torch.tools.profile_eval [--config flagship|x101_dcn | --cfg file.yaml [KEY VALUE ...]]
 
 Builds the flagship CPM R-50-FPN or CPM X-101-32x4d-FPN-DCN as chip_smoke.py
-does, or the model of a YAML (`--cfg`, any head family the port runs):
+does, or the model of a YAML (`--cfg`, with KEY VALUE overrides after it;
+any head family the port runs, the C4 family too):
 seeded random weights, the deformable convs' offset convs spread from a
 seed, bf16, GRID_RCNN.SCORE_THRESH and FAST_RCNN.SCORE_THRESH 0.0 so that
 every stage pools a full detection set. It warms the model up and prints
@@ -82,7 +83,8 @@ def _instrument(model, laps):
 
     head = model.roi_head
     model.backbone.forward = timed("backbone", model.backbone.forward)
-    model.fpn.forward = timed("fpn", model.fpn.forward)
+    if model.fpn is not None:
+        model.fpn.forward = timed("fpn", model.fpn.forward)
     model.rpn_head.forward = timed("rpn_head", model.rpn_head.forward)
     model_mod.select_proposals = timed("select_proposals", model_mod.select_proposals)
     head_module = sys.modules[type(head).__module__]
@@ -100,6 +102,7 @@ def main():
     group = ap.add_mutually_exclusive_group()
     group.add_argument("--config", default="flagship", choices=("flagship", "x101_dcn"))
     group.add_argument("--cfg", dest="cfg_file", help="a YAML config instead of --config")
+    ap.add_argument("opts", nargs=argparse.REMAINDER, help="KEY VALUE overrides of --cfg")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_eval: needs a CUDA device")
@@ -113,7 +116,7 @@ def main():
 
     card = card_line()
     if args.cfg_file:
-        cfg = load_config(args.cfg_file, [])
+        cfg = load_config(args.cfg_file, args.opts)
     else:
         cfg = {"flagship": config.flagship_cfg, "x101_dcn": config.x101_dcn_cfg}[args.config]()
     cfg.GRID_RCNN.SCORE_THRESH = 0.0
@@ -123,7 +126,7 @@ def main():
         # offsets are conv outputs: they need a trunk whose activations have
         # unit scale, as a pretrained one's are
         fold_batch_statistics(model, make_request(np.random.RandomState(99), [(800, 1344)])[0])
-    print(f"[profile] config {args.cfg_file or args.config}")
+    print(f"[profile] config {args.cfg_file or args.config} {' '.join(args.opts)}")
     forward = make_forward_fn(cfg, model)
     rng = np.random.RandomState(0)
     requests = {1: make_request(rng, [(800, 1333)]),

@@ -21,6 +21,9 @@ momentum tree); `state_dict_to_flax` goes back. Layouts:
   groups=P) with weight [Cin, Cout/P, 4, 4]:
   W[g*Cin/P + i, o, a, b] = kernel[a, b, i, g*Cout/P + o].
 * AffineChannel and GroupNorm `scale` -> `weight`.
+* The C4 heads' stage 5 (`roi_head/head/layer4_{b}`) maps as the trunk's
+  stages do; SE_ON's `se/fc1`, `se/fc2` are 1x1 convs, OFFSET_ON's
+  `offset_conv` a conv and `offset_fc`, `offset_emb` dense layers.
 
 Every flax leaf must land on one port parameter and every port parameter
 must receive one leaf, with matching shapes; anything else raises.
@@ -35,16 +38,19 @@ import torch
 # (pattern, replacement) on the '/'-joined flax path; the first match wins
 _RULES = [
     (r"^backbone/AffineChannel_0/", "backbone/bn1/"),
-    (r"^(backbone/layer\d+)_(\d+)/AffineChannel_3/", r"\1/\2/downsample/1/"),
-    (r"^(backbone/layer\d+)_(\d+)/AffineChannel_([0-2])/",
+    # the trunk's stages, and the C4 heads' stage 5 (roi_head/head/layer4_{b})
+    (r"^((?:backbone|roi_head/head)/layer\d+)_(\d+)/AffineChannel_3/", r"\1/\2/downsample/1/"),
+    (r"^((?:backbone|roi_head/head)/layer\d+)_(\d+)/AffineChannel_([0-2])/",
      lambda m: f"{m[1]}/{m[2]}/bn{int(m[3]) + 1}/"),
-    (r"^(backbone/layer\d+)_(\d+)/downsample_conv/", r"\1/\2/downsample/0/"),
-    (r"^(backbone/layer\d+)_(\d+)/", r"\1/\2/"),
+    (r"^((?:backbone|roi_head/head)/layer\d+)_(\d+)/downsample_conv/", r"\1/\2/downsample/0/"),
+    (r"^((?:backbone|roi_head/head)/layer\d+)_(\d+)/", r"\1/\2/"),
     (r"^fpn/fpn_(in|out)_(\d+)/", r"fpn/fpn_\1/\2/"),
     (r"^roi_head/grid_head_(\d+)/conv(\d+)/", r"roi_head/grid_heads/\1/convs/\2/"),
     (r"^roi_head/grid_head_(\d+)/gn(\d+)/", r"roi_head/grid_heads/\1/gns/\2/"),
     (r"^roi_head/grid_head_(\d+)/([fs]order)_(\d+)_(\d+)/",
      r"roi_head/grid_heads/\1/\2/\3_\4/"),
+    # OFFSET_ON's offset_conv and offset_fc
+    (r"^roi_head/grid_head_(\d+)/", r"roi_head/grid_heads/\1/"),
     (r"^roi_head/grid_output_(\d+)/(deconv\d)_(kernel|bias)$",
      r"roi_head/grid_outputs/\1/\2/\3"),
     (r"^roi_head/grid_output_(\d+)/", r"roi_head/grid_outputs/\1/"),

@@ -17,7 +17,9 @@ folded into the frozen affine (`fold_bn`, in float64), conv1 can swap its
 input channels RGB <-> BGR (cfg.MODEL.CONV1_RGB2BGR, checkpointer.py:74-80),
 and a linear layer over a flattened pooled feature has its input columns
 permuted from the reference's (C, H, W) flatten to the port's (H, W, C)
-(`_fc_after_pool`). The name map is explicit, not suffix matching.
+(`_fc_after_pool`). The name map is explicit, not suffix matching. The C4
+heads' stage 5 and the 2mlp head's conv_new / fc1 / fc2 come in by
+`import_c5_stage` and `import_2mlp_head`.
 """
 
 import os
@@ -138,6 +140,23 @@ def _stage_conv(sd, name):
     return {"kernel": sd[f"{name}.weight"]}
 
 
+def _bottleneck_tree(sd, pref, bn_eps):
+    """One bottleneck block `{pref}.*` (conv1..3 with bn1..3, the
+    downsample conv and BatchNorm), BatchNorm folded."""
+    blk = {}
+    for ci in (1, 2, 3):
+        if f"{pref}.conv{ci}.weight" not in sd:
+            continue
+        blk[f"conv{ci}"] = _stage_conv(sd, f"{pref}.conv{ci}")
+        s, b = fold_bn(sd, f"{pref}.bn{ci}", bn_eps)
+        blk[f"AffineChannel_{ci - 1}"] = {"scale": s, "bias": b}
+    if f"{pref}.downsample.0.weight" in sd:
+        blk["downsample_conv"] = {"kernel": sd[f"{pref}.downsample.0.weight"]}
+        s, b = fold_bn(sd, f"{pref}.downsample.1", bn_eps)
+        blk["AffineChannel_3"] = {"scale": s, "bias": b}
+    return blk
+
+
 def _resnet_tree(sd, layers, conv1_rgb2bgr, bn_eps):
     conv1 = sd["conv1.weight"]
     if conv1_rgb2bgr:
@@ -147,20 +166,33 @@ def _resnet_tree(sd, layers, conv1_rgb2bgr, bn_eps):
     out["AffineChannel_0"] = {"scale": s, "bias": b}
     for li, n_blocks in enumerate(layers):
         for bi in range(n_blocks):
-            pref = f"layer{li + 1}.{bi}"
-            blk = {}
-            for ci in (1, 2, 3):
-                if f"{pref}.conv{ci}.weight" not in sd:
-                    continue
-                blk[f"conv{ci}"] = _stage_conv(sd, f"{pref}.conv{ci}")
-                s, b = fold_bn(sd, f"{pref}.bn{ci}", bn_eps)
-                blk[f"AffineChannel_{ci - 1}"] = {"scale": s, "bias": b}
-            if f"{pref}.downsample.0.weight" in sd:
-                blk["downsample_conv"] = {"kernel": sd[f"{pref}.downsample.0.weight"]}
-                s, b = fold_bn(sd, f"{pref}.downsample.1", bn_eps)
-                blk["AffineChannel_3"] = {"scale": s, "bias": b}
-            out[f"layer{li + 1}_{bi}"] = blk
+            out[f"layer{li + 1}_{bi}"] = _bottleneck_tree(sd, f"layer{li + 1}.{bi}", bn_eps)
     return out
+
+
+def _c5_stage_tree(sd, n_blocks, prefix, bn_eps):
+    return {f"layer4_{bi}": _bottleneck_tree(sd, f"{prefix}layer4.{bi}", bn_eps)
+            for bi in range(n_blocks)}
+
+
+def import_c5_stage(sd, n_blocks: int, prefix: str = "", bn_eps: float = 1e-5
+                    ) -> Dict[str, torch.Tensor]:
+    """The stage-5 stack `{prefix}layer4.{b}.*` of ResNet_C5_Head /
+    ResNet_2mlp_Head (backbone/ResNet.py:151-301) -> the port's
+    `roi_head.head.layer4.*` parameters, BatchNorm folded."""
+    return _named({"roi_head": {"head": _c5_stage_tree(sd, n_blocks, prefix, bn_eps)}})
+
+
+def import_2mlp_head(sd, n_blocks: int, pool_hw=(7, 7), prefix: str = "",
+                     bn_eps: float = 1e-5) -> Dict[str, torch.Tensor]:
+    """ResNet_2mlp_Head (backbone/ResNet.py:210-301): the stage-5 stack,
+    conv_new (Sequential index 0) and fc1 / fc2 -> the port's
+    `roi_head.head.*`; fc1 reads the flattened 256-wide pool."""
+    tree = _c5_stage_tree(sd, n_blocks, prefix, bn_eps)
+    tree["conv_new"] = _conv(sd, f"{prefix}conv_new.0")
+    tree["fc1"] = _fc_after_pool(sd, f"{prefix}fc1", pool_hw)
+    tree["fc2"] = _fc(sd, f"{prefix}fc2")
+    return _named({"roi_head": {"head": tree}})
 
 
 def import_resnet_backbone_sd(sd, layers=(3, 4, 6, 3), conv1_rgb2bgr: bool = False,

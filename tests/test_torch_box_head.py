@@ -15,8 +15,10 @@
   gradients rtol 1e-3 / atol 1e-5; the bridge both ways;
 * `train_net` then `test_net` with `--device cpu` on tiny_fast_rcnn.yaml;
 * MODEL.RPN_ONLY: the proposals as detections and the RPN's losses;
-* what is not ported raises NotImplementedError at build: the C4 family,
-  the C5 box head and the ConvFC head's weight standardisation.
+* what is not ported raises NotImplementedError at build: a C4 model with a
+  head other than Fast R-CNN's, a context module in the C5 head's stage 5
+  and the ConvFC head's weight standardisation (the C4 family itself is
+  held in tests/test_torch_c4.py).
 
 torch and the port's modules are imported inside the tests, so that
 collecting this file loads no torch into a test worker.
@@ -238,19 +240,33 @@ def tiny_cfg(path, **overrides):
     return cfg
 
 
-def model_outputs(cfg, prepare=None):
+def model_outputs(cfg, prepare=None, batch=None, frames=("cpm_tpu.utils.sampler",),
+                  threads=None):
     """The port's seeded weights (passed to `prepare(model)` first, when
     given) bridged into the JAX model; both models' eval detections, and
-    their losses and gradients on a seeded batch with the same recorded
-    draws. Shared by this file and tests/test_torch_cascade.py."""
+    their losses and gradients on a seeded batch (or `batch`) with the same
+    recorded draws (those of the JAX modules in `frames`). With `threads`,
+    the port runs on that many intra-op threads: a model of many tiny convs
+    runs faster on one when several test workers share the cores. Shared by
+    this file, tests/test_torch_cascade.py, tests/test_torch_grid_options.py
+    and tests/test_torch_c4.py."""
     import torch
+
+    if threads is not None:
+        saved = torch.get_num_threads()
+        torch.set_num_threads(threads)
+        try:
+            return model_outputs(cfg, prepare, batch, frames)
+        finally:
+            torch.set_num_threads(saved)
 
     from cpm_tpu_torch.engine.test import make_forward_fn
     from cpm_tpu_torch.modeling.model import build_model
     from cpm_tpu_torch.utils.param_bridge import state_dict_to_flax
     from cpm_tpu_torch.utils.sampler import Draws
 
-    batch = jax_synthetic_batch(2, 64, 64, max_gt=4, num_classes=cfg.MODEL.NUM_CLASSES)
+    if batch is None:
+        batch = jax_synthetic_batch(2, 64, 64, max_gt=4, num_classes=cfg.MODEL.NUM_CLASSES)
     images = np.random.RandomState(0).randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
     sizes = np.array([[64, 64], [56, 48]], np.int32)
     gt = jax_batch_gt(batch)
@@ -276,7 +292,7 @@ def model_outputs(cfg, prepare=None):
         return dets, jax.value_and_grad(loss_fn, has_aux=True)(params)
 
     mp = pytest.MonkeyPatch()
-    draws = RecordedUniform(7)
+    draws = RecordedUniform(7, frames)
     try:
         mp.setattr(jax.random, "uniform", draws)
         dets, ((_, losses), grads) = jax.device_get(run(params, images, sizes))
@@ -319,7 +335,10 @@ def assert_losses_and_gradients_match(out, names):
     for k, p in model.named_parameters():
         if not p.requires_grad:
             continue
-        np.testing.assert_allclose(p.grad.numpy(), want[k], rtol=1e-3, atol=1e-5, err_msg=k)
+        # no gradient reached a parameter that no loss reads (OFFSET_ON's
+        # branch under FUSED_ON): JAX's is zeros there
+        got = np.zeros(tuple(p.shape), np.float32) if p.grad is None else p.grad.numpy()
+        np.testing.assert_allclose(got, want[k], rtol=1e-3, atol=1e-5, err_msg=k)
         n += int(np.abs(want[k]).max() > 0)
     return n
 
@@ -393,14 +412,16 @@ def test_unported_box_head_options_raise(case):
     from cpm_tpu_torch.modeling.model import build_model
 
     if case == "c4_family":
-        cfg = tiny_cfg(os.path.join(REPO, "cfgs", "debug", "tiny_fast_rcnn_c4.yaml"))
+        cfg = tiny_cfg(os.path.join(REPO, "cfgs", "debug", "tiny_fast_rcnn_c4.yaml"),
+                       **{"MODEL.CASCADE_ON": True})
         match = "C4 family"
     elif case == "convfc_ws":
         cfg = tiny_cfg(TINY, **{"FAST_RCNN.ROI_BOX_HEAD": "roi_xconv1fc_head",
                                 "FAST_RCNN.CONVFC_HEAD.USE_WS": True})
         match = "USE_WS"
     else:
-        cfg = tiny_cfg(TINY, **{"FAST_RCNN.ROI_BOX_HEAD": "resnet_c5_head"})
-        match = "C4 heads"
+        cfg = tiny_cfg(TINY, **{"FAST_RCNN.ROI_BOX_HEAD": "resnet_c5_head",
+                                "BACKBONE.RESNET.STAGE_WITH_CONTEXT": ("none",) * 3 + ("se",)})
+        match = "context"
     with pytest.raises(NotImplementedError, match=match):
         build_model(cfg, "cpu")

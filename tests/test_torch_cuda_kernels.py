@@ -828,6 +828,44 @@ def test_cuda_single_level_forward_gives_the_multilevel_bits_at_one_level(num_ro
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_cuda_one_level_pooler_backward_skips_masked_rows(dtype_name):
+    """A one-level `Pooler` (kernel 5 forward, kernel 2 at one level
+    backward) with a NaN box in a masked row: the map's gradient is finite
+    and bit-equal to the gradient without that row, and the forward writes
+    zeros there."""
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import multilevel_roi_align as level_op
+    from cpm_tpu_torch.ops.cuda import roi_align as op
+    from cpm_tpu_torch.ops.pooler import Pooler
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dtype = getattr(torch, dtype_name)
+    rois, _, _ = _pooler_rois(64, seed=9)
+    rois = rois.clone()
+    rois[5, 1:] = float("nan")
+    mask = torch.ones(64, dtype=torch.bool, device=rois.device)
+    mask[5] = False
+    feats = torch.randn(2, 50, 84, 64, generator=torch.Generator().manual_seed(3)).cuda().to(dtype)
+    g = torch.randn(64, 7, 7, 64, generator=torch.Generator().manual_seed(6)).cuda().to(dtype)
+    pooler = Pooler((7, 7), (0.0625,), 2)
+    grads = []
+    for r, m, gg in ((rois, mask, g), (rois[mask].contiguous(), mask[mask], g[mask])):
+        f = feats.clone().requires_grad_()
+        before = (op.KERNEL.launches, level_op.KERNEL.backward_launches)
+        out = pooler([f], r, m)
+        (out * gg).float().sum().backward()
+        assert (op.KERNEL.launches, level_op.KERNEL.backward_launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.isfinite(out).all() and not out[~m].any()
+        grads.append(f.grad)
+    assert torch.isfinite(grads[0]).all() and grads[0].any()
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 def test_cuda_one_pass_stack_gives_stack_levels_bits_once_per_set_of_maps(dtype_name):
     """The card's stack (one pass: levels copied into an empty buffer, only
     the padding columns zeroed) gives `stack_levels`' bits, padding zeros

@@ -55,20 +55,24 @@ _REAL_UNIFORM = jax.random.uniform
 
 
 class RecordedUniform:
-    """Stands in for jax.random.uniform: for the sampler's calls, the next
-    array of a seeded numpy stream for the requested shape, recorded for the
-    port."""
+    """Stands in for jax.random.uniform: for the calls made from the modules
+    named in `frames` (the sampler's by default), the next array `u` of a
+    seeded numpy stream for the requested shape, recorded for the port; a
+    call with minval / maxval gets minval + u * (maxval - minval) in
+    float32, and the port is handed `u` itself."""
 
-    def __init__(self, seed):
+    def __init__(self, seed, frames=("cpm_tpu.utils.sampler",)):
         self.rng = np.random.RandomState(seed)
+        self.frames = tuple(frames)
         self.arrays = []
 
-    def __call__(self, key, shape=(), *args, **kwargs):
-        if sys._getframe(1).f_globals["__name__"] != "cpm_tpu.utils.sampler":
-            return _REAL_UNIFORM(key, shape, *args, **kwargs)
+    def __call__(self, key, shape=(), dtype=None, minval=0.0, maxval=1.0, **kwargs):
+        if sys._getframe(1).f_globals["__name__"] not in self.frames:
+            return _REAL_UNIFORM(key, shape, dtype, minval, maxval, **kwargs)
         a = self.rng.rand(*shape).astype(np.float32)
         self.arrays.append(a)
-        return jnp.asarray(a)
+        lo, hi = np.float32(minval), np.float32(maxval)
+        return jnp.asarray(a if (lo, hi) == (0, 1) else lo + a * (hi - lo))
 
 
 def _flat(tree, prefix=()):
@@ -412,21 +416,15 @@ def test_lr_schedule_matches_jax(policy, warmup):
 
 
 def test_unported_training_options_raise(train_outputs):
-    import torch
-
+    """The optimizers other than SGD (ROADMAP Queue 1, item 5). The grid
+    head's training options (RANDOM_JITTER, BETTER_ROI and the others) are
+    ported: tests/test_torch_grid_options.py and
+    tests/test_torch_configs_build.py train them."""
     from cpm_tpu_torch.modeling.model import build_model
     from cpm_tpu_torch.solver.optimizer import build_optimizer
 
-    _, batch, jx, _ = train_outputs
-    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
-    for key in ("RANDOM_JITTER", "BETTER_ROI"):
+    for name in ("ADAM", "RMSPROP"):
         cfg = _tiny_cfg()
-        cfg.GRID_RCNN[key] = True
-        model = build_model(cfg, "cpu")
-        with pytest.raises(NotImplementedError):
-            model(tb["images"], tb["image_sizes"], train=True, draws=jx["draws"][0],
-                  gt=dict(boxes=tb["gt_boxes"], labels=tb["gt_labels"], mask=tb["gt_mask"]))
-    cfg = _tiny_cfg()
-    cfg.SOLVER.OPTIMIZER = "ADAM"
-    with pytest.raises(NotImplementedError):
-        build_optimizer(cfg, build_model(cfg, "cpu"))
+        cfg.SOLVER.OPTIMIZER = name
+        with pytest.raises(NotImplementedError, match=name):
+            build_optimizer(cfg, build_model(cfg, "cpu"))
