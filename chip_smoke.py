@@ -202,6 +202,26 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    and test_net over the 16 synthetic images, and the tiny option and C4
    models on the card against the CPU port (the C4 ones with their
    near-tied seeded scores spread from a seed, `spread_c4_scores`).
+16. data parallel (cpm_tpu_torch/parallel/): the headline YAML at full width
+   (R-50-FPN, 800x1344, CMM with 2 stages, ISM, RSM) from a step-0 state with
+   the 53 frozen affines folded from the loader's first batch, as phase 12
+   starts. (a) Two ranks spawned (the spawn start method: CUDA is live here)
+   share cuda:0 over an explicit gloo group with a file:// store, one image
+   each, in f32 with TF32 off; their first step is held against this
+   process's batch-2 step on the same two images and draws
+   (cpm_tpu_torch/tools/check_data_parallel.py's `hold_ranks`: LOSS_RTOL,
+   PARAM_RTOL / PARAM_ATOL), their parameters must be bit-equal after each
+   of DP_STEPS steps, each launches kernels 1 and 2 4 + 4 times a step and
+   compiles nothing (it loads phase 1's libraries); it prints the 2-rank
+   step's wall time, the train_step/allreduce span and the step's
+   torch.distributed calls, two ranks sharing one card over gloo, not a
+   scaling figure. (b) train_net.main, 2
+   steps, under torchrun's variables set in this process (WORLD_SIZE 1:
+   an NCCL group on the card), bit-equal to the same 2 steps without a
+   group. (c) ADAM and RMSPROP on the tiny model: two steps on the card
+   against the CPU port (losses 1e-4 relative), and the optimizer alone on
+   the same seeded gradients (OPT_RTOL / OPT_ATOL). A rank that fails, or
+   does not finish in time, fails the phase; the others are killed.
 
 Then a JSON line of kernel results and, last, {"ok": true, "device": ...}.
 Random weights give softmax scores near 1/81, below the default 0.03
@@ -2919,6 +2939,211 @@ def phase_options(dev, card):
     return launched, results[("finest_level_roi", "eval")], results
 
 
+
+# Phase 16: data parallelism (cpm_tpu_torch/parallel/mesh.py) on the headline YAML
+DP_STEPS = 3  # the ranks' steps: the first held against one process, each bit-equal across ranks
+# ADAM and RMSPROP on the card against the CPU port: the losses of two steps
+# (phase 14's 1e-4 relative), and the optimizer alone on the same seeded
+# gradients (tests/test_torch_optimizers.py's rtol 1e-5 / atol 1e-6)
+OPT_RTOL, OPT_ATOL = 1e-5, 1e-6
+
+
+def data_parallel_rank(rank, world_size, workdir, spec):
+    """A spawned rank of phase 16a: loads the libraries phase 1 built (and
+    says which, if any, it had to compile), then the tool's rank_steps on
+    its image, over gloo on cuda:0, with its launch counts."""
+    from cpm_tpu_torch.ops.cuda import _build
+    from cpm_tpu_torch.tools.check_data_parallel import rank_steps
+
+    built = _build.compile_sources([m.SOURCE for m in ops().values()])
+    for m in ops().values():
+        m.KERNEL.build()
+    reset_launch_counts()
+    out = rank_steps(rank, world_size, workdir, spec, backend="gloo", local_rank=0)
+    out["launches"] = {k: v for k, v in launch_counts().items() if v}
+    out["compiled"] = sorted(s.name for s, b in built.items() if b.log)
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_data_parallel(dev, card):
+    """Phase 16: (a) two ranks sharing the card over gloo, one image each,
+    against one process on the batch of two; (b) train_net under a world-1
+    NCCL group against train_net without one, bit for bit; (c) ADAM and
+    RMSPROP on the card against the CPU port. Returns the launches of
+    kernels 1 and 2 in its driven runs."""
+    import os
+    import tempfile
+
+    from cpm_tpu_torch.config import flagship_cfg
+    from cpm_tpu_torch.data.synthetic import synthetic_batch
+    from cpm_tpu_torch.engine.checkpoint import CheckPointer
+    from cpm_tpu_torch.engine.train import create_train_state, make_train_step
+    from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.solver.optimizer import build_optimizer
+    from cpm_tpu_torch.tools import check_data_parallel as dp, train_net
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg_file = os.path.join(repo, HEADLINE_YAML)
+    opts = CLI_TRAIN_OPTS + ["DATA_DIR", os.path.join(repo, "data")]
+    cfg = train_net.load_config(cfg_file, opts + ["TPU.COMPUTE_DTYPE", "float32"])
+    sites = 2 + cfg.GRID_RCNN.CASCADE_MAPPING_OPTION.STAGE_NUM  # cls, the CMM stages, rescore
+    per_step = {"multilevel_roi_align": sites, "multilevel_roi_align_backward": sites}
+    launched = dict(forward=0, backward=0)
+
+    def count(launches, steps, what):
+        want = {k: v * steps for k, v in per_step.items()}
+        if launches != want:
+            raise AssertionError(f"[dp] {what}: launched {launches}, want {want}")
+        launched["forward"] += launches["multilevel_roi_align"]
+        launched["backward"] += launches["multilevel_roi_align_backward"]
+
+    # step-0 weights: seeded, the frozen affines folded from the loader's
+    # first batch, which is also the batch of two that the steps take; (b)
+    # starts from them too, as checkpoints (the compute dtype is the
+    # config's, not the checkpoint's)
+    ckpt_root = tempfile.TemporaryDirectory(prefix="cpm_dp_")
+    ckpts = {name: os.path.join(ckpt_root.name, name) for name in ("plain", "nccl")}
+    state, batch = dp.step0_state(cfg, dev, 2)
+    state_dict = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    for ckpt in ckpts.values():
+        CheckPointer(ckpt).save(state, 0)
+    del state
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter()
+    spec = dict(cfg=cfg, device=dev, seed=cfg.SEED, batch=batch, state_dict=state_dict)
+    n_trainable = sum(t.numel() for g in build_optimizer(cfg, build_model(cfg, "meta")).param_groups
+                      for t in g["params"])
+
+    # (a) one process on the batch of two, then two ranks of one image each
+    # (the parent's launches are the one process's)
+    reset_launch_counts()
+    held = dp.hold_ranks(spec, 2, DP_STEPS, "[dp] two ranks", data_parallel_rank, timeout_s=300)
+    one, ranks = held["one"], held["ranks"]
+    count({k: v for k, v in launch_counts().items() if v}, 1, "one process")
+    for r, out in enumerate(ranks):
+        if out["compiled"]:
+            raise AssertionError(f"[dp] rank {r} compiled {out['compiled']} again")
+        count(out["launches"], DP_STEPS, f"rank {r}")
+    n_losses = sum(k.startswith("loss_") or k == "total_loss" for k in one["metrics"][0])
+    print(f"[dp] two gloo ranks on one card, one image each, against one process on the batch "
+          f"of two (f32, TF32 off): {n_losses} losses of step 1 within {held['worst_loss']:.3g} "
+          f"relative (bound {dp.LOSS_RTOL}), {len(one['params'][1])} parameters within "
+          f"{held['worst_param']:.3g} (rtol {dp.PARAM_RTOL}, atol {dp.PARAM_ATOL}); the ranks' "
+          f"parameters bit-equal after each of {DP_STEPS} steps; each rank launched "
+          f"{ranks[0]['launches']} and loaded the libraries phase 1 built")
+    print(f"[dp] two ranks sharing one card over gloo: not a scaling figure: step 2 wall time "
+          f"{ranks[0]['step_s'][1] * 1e3:.1f} ms (rank 1 {ranks[1]['step_s'][1] * 1e3:.1f} ms), "
+          f"train_step/allreduce span {ranks[0]['allreduce_s'] * 1e3:.1f} ms on the host clock "
+          f"(step {DP_STEPS}, torch.profiler; {n_trainable} f32 gradients), "
+          f"{ranks[0]['collectives']} torch.distributed calls in that step taking "
+          f"{ranks[0]['collective_s'] * 1e3:.1f} ms on the host clock, the one process's "
+          f"batch-2 step {one['step_s'][0] * 1e3:.1f} ms (its first); the ranks' spawn to their "
+          f"results {held['spawn_s']:.1f} s; (a) took {time.perf_counter() - t_a:.1f} s, the "
+          f"step-0 weights and checkpoints before it {t_a - t_phase:.1f} s | {card}")
+    del one, ranks
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+
+    # (b) train_net from the same step-0 weights, 2 steps, without a group
+    # and under torchrun's variables with WORLD_SIZE 1: NCCL on the card
+    env_keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    with ckpt_root:
+        histories, latest = {}, {}
+        for name, ckpt in ckpts.items():
+            argv = (["--cfg", cfg_file, "--device", dev] + opts
+                    + ["CKPT", ckpt, "SOLVER.MAX_ITER", "2"])
+            saved = {k: os.environ.get(k) for k in env_keys}
+            if name == "nccl":
+                os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                                  MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+            try:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                histories[name] = train_net.main(argv)
+                seconds = time.perf_counter() - t0
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            count({k: v for k, v in launch_counts().items() if v}, 2, f"train_net {name}")
+            latest[name] = torch.load(os.path.join(ckpt, "model_latest"), map_location="cpu",
+                                      weights_only=True)
+            print(f"[dp] train_net {name}: 2 steps in {seconds:.2f} s in the call, step wall "
+                  f"times {[round(r['step_s'] * 1e3, 1) for r in histories[name]]} ms | {card}")
+        plain, nccl = ([{k: v for k, v in r.items() if k not in ("step_s", "wait_s")}
+                        for r in histories[name]] for name in ("plain", "nccl"))
+        if plain != nccl:
+            raise AssertionError("[dp] train_net under a world-1 NCCL group: other losses")
+        a, b = latest["plain"], latest["nccl"]
+        differ = [k for k in a["model"] if not torch.equal(a["model"][k], b["model"][k])]
+        differ += [f"optimizer {i}" for i, st in a["optimizer"]["state"].items()
+                   if not torch.equal(st["momentum_buffer"],
+                                      b["optimizer"]["state"][i]["momentum_buffer"])]
+        if differ or a["step"] != b["step"]:
+            raise AssertionError(f"[dp] train_net under a world-1 NCCL group differs: {differ[:5]}")
+        print(f"[dp] train_net under a world-1 NCCL group (torchrun's variables, cuda:0): its 2 "
+              f"steps' losses and its model_latest ({len(a['model'])} tensors, "
+              f"{len(a['optimizer']['state'])} momentum buffers) bit-equal to the run without a "
+              f"group; (b) took {time.perf_counter() - t_b:.1f} s")
+    t_c = time.perf_counter()
+
+    # (c) ADAM and RMSPROP on the tiny model, the card against the CPU port
+    for name in ("ADAM", "RMSPROP"):
+        tiny = flagship_cfg(tiny=True)
+        tiny.TPU.COMPUTE_DTYPE = "float32"
+        tiny.SOLVER.OPTIMIZER = name
+        tiny_batch = synthetic_batch(2, 128, 160, max_gt=4, num_classes=tiny.MODEL.NUM_CLASSES,
+                                     seed=5)
+        losses, stepped = {}, {}
+        for d in ("cpu", dev):
+            model, optimizer, state = create_train_state(tiny, d, seed=0)
+            step_fn = make_train_step(tiny, model, optimizer)
+            ms = []
+            for _ in range(2):
+                state, m = step_fn(state, tiny_batch)
+                ms.append({k: float(v) for k, v in m.items()})
+            losses[d] = ms
+            # the optimizer alone, on the same seeded gradients
+            model = build_model(tiny, d, seed=0)
+            optimizer = build_optimizer(tiny, model)
+            for i, lr in enumerate((1e-3, 2e-3)):
+                rng = np.random.RandomState(i)
+                for group in optimizer.param_groups:
+                    group["lr"] = group["lr_scale"] * lr
+                for p in model.parameters():
+                    g = rng.standard_normal(tuple(p.shape)).astype(np.float32) * 1e-2
+                    p.grad = torch.from_numpy(g).to(d) if p.requires_grad else None
+                optimizer.step()
+            stepped[d] = [p.detach().cpu() for p in model.parameters()] + [
+                v.detach().cpu() for s in optimizer.state.values() for v in s.values() if v.dim()]
+        worst = max(abs(g[k] - c[k]) / abs(c[k]) for c, g in zip(losses["cpu"], losses[dev])
+                    for k in c if k.startswith("loss_") or k == "total_loss")
+        if worst > 1e-4 or not all(math.isfinite(v) for m in losses[dev] for v in m.values()):
+            raise AssertionError(f"[dp] {name}: the card's losses {losses[dev]} vs {losses['cpu']}")
+        diff = max((g - c).abs().max().item() for c, g in zip(stepped["cpu"], stepped[dev]))
+        for c, g in zip(stepped["cpu"], stepped[dev]):
+            if not torch.allclose(g, c, rtol=OPT_RTOL, atol=OPT_ATOL):
+                raise AssertionError(f"[dp] {name}: the optimizer on the card differs by "
+                                     f"{(g - c).abs().max().item()}")
+        print(f"[dp] {name} on the tiny model: 2 steps' losses on the card within {worst:.2g} "
+              f"relative of the CPU port's (bound 1e-4); 2 updates on the same seeded gradients, "
+              f"{len(stepped['cpu'])} parameters and moments within {diff:.3g} (rtol {OPT_RTOL}, "
+              f"atol {OPT_ATOL})")
+    print(f"[dp] (c) took {time.perf_counter() - t_c:.1f} s; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}")
+    return launched["forward"], launched["backward"]
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -2980,16 +3205,20 @@ def main():
     cascade = phase_cascade(dev, card)
     torch.cuda.empty_cache()
     options, single_sites, _ = phase_options(dev, card)
+    torch.cuda.empty_cache()
+    dp = phase_data_parallel(dev, card)
 
     # launches on the driven paths: eval forwards plus training steps, and
     # the CLIs' runs
     launches = {
         "multilevel_roi_align": (fwd["auto"]["launches"] + bwd["auto"]["launches"][0]
                                  + x101_fwd["pooler_launches"] + x101_bwd["pooler_launches"][0]
-                                 + cli[0] + ms[0] + cascade[0] + options["multilevel_roi_align"]),
+                                 + cli[0] + ms[0] + cascade[0] + options["multilevel_roi_align"]
+                                 + dp[0]),
         "multilevel_roi_align_backward": (bwd["auto"]["launches"][1] + bwd["clustered"]["launches"][1]
                                           + x101_bwd["pooler_launches"][1] + cli[1] + ms[1]
-                                          + cascade[1] + options["multilevel_roi_align_backward"]),
+                                          + cascade[1] + options["multilevel_roi_align_backward"]
+                                          + dp[1]),
         "clustered_roi_align": fwd["clustered"]["launches"] + bwd["clustered"]["launches"][0],
         "cluster_rois": fwd["clustered"]["grouping"]["launches"] + bwd["clustered"]["grouping_launches"],
         "stacked_roi_align": fwd["stacked"]["launches"] + bwd["stacked"]["launches"][0],

@@ -3,19 +3,23 @@
 The port of cpm_tpu/engine/checkpoint.py (after the reference's
 pet/utils/checkpointer.py:35-158), where orbax becomes `torch.save`:
   * a checkpoint holds the step, the model's f32 master `state_dict`, the
-    optimizer's `state_dict` (the SGD momentum buffers) and the samplers'
-    `Draws` generator state;
+    optimizer's `state_dict` (SGD's momentum buffers, ADAM's moments and
+    count, RMSPROP's nu and trace) and the samplers' `Draws` generator state;
   * `model_latest` is written at every save, and an iteration-tagged copy
     `model_iter<N>` when a snapshot is asked for (save:124-137);
   * each file is written under a temporary name and then renamed over the
     old one, so that a run stopped mid-save leaves the previous checkpoint;
-  * auto-resume reads `model_latest` when TRAIN.AUTO_RESUME (:47-54).
-Pretrained-weight import (`.pth`) is not ported yet.
+  * auto-resume reads `model_latest` when TRAIN.AUTO_RESUME (:47-54);
+  * under a data-parallel group rank 0 alone writes (every rank holds the
+    same state), and the others wait for the write at a barrier; every rank
+    reads what rank 0 wrote.
 """
 
 import os
 
 import torch
+
+from cpm_tpu_torch.parallel.mesh import barrier, is_main_process, rank0_value
 
 
 class CheckPointer:
@@ -31,13 +35,13 @@ class CheckPointer:
         self.resumed = auto_resume and self._exists
 
     def _collective_exists(self) -> bool:
-        """Whether `model_latest` exists, as every rank must agree. The port
-        trains on one process, so this is the one-rank answer; data-parallel
-        training will broadcast rank 0's answer here."""
-        return os.path.exists(self.latest_path)
+        """Whether `model_latest` exists, as every rank must agree: rank 0's
+        answer, broadcast to every rank."""
+        return rank0_value(os.path.exists(self.latest_path))
 
     def save(self, state, step: int, snapshot: bool = False):
-        """Write model_latest (+ the model_iter<N> snapshot copy)."""
+        """Write model_latest (+ the model_iter<N> snapshot copy); under a
+        group every rank calls it, rank 0 writes and the others wait."""
         payload = {
             "step": int(step),
             "model": state.model.state_dict(),
@@ -47,10 +51,12 @@ class CheckPointer:
         paths = [self.latest_path]
         if snapshot:
             paths.append(os.path.join(self.ckpt_dir, f"model_iter{step}"))
-        for path in paths:
-            tmp = f"{path}.tmp"
-            torch.save(payload, tmp)
-            os.replace(tmp, path)
+        if is_main_process():
+            for path in paths:
+                tmp = f"{path}.tmp"
+                torch.save(payload, tmp)
+                os.replace(tmp, path)
+        barrier()
         self._exists = True
 
     def load(self, state):

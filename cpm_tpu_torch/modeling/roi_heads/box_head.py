@@ -27,7 +27,7 @@ from cpm_tpu_torch.modeling.roi_heads.c4_heads import ResNet2MLPHead, ResNetC5He
 from cpm_tpu_torch.modeling.roi_heads.grid_modules import ClsHead
 from cpm_tpu_torch.modeling.roi_heads.targets import gather_rows
 from cpm_tpu_torch.ops.box_coder import BoxCoder
-from cpm_tpu_torch.ops.losses import smooth_l1_loss, softmax_cross_entropy
+from cpm_tpu_torch.ops.losses import global_count, smooth_l1_loss, softmax_cross_entropy
 from cpm_tpu_torch.ops.nms import filter_results, topk
 from cpm_tpu_torch.ops.pooler import Pooler
 from cpm_tpu_torch.structures.boxes import clip_boxes_to_image
@@ -140,9 +140,10 @@ def fast_rcnn_losses(class_logits, box_regression, labels, reg_targets, sample_m
     class_logits [N, C]; box_regression [N, 4C or 8]; labels [N] (0 = bg);
     reg_targets [N, 4]; sample_mask [N] selects the sampled rois. CE is a
     mean over them; smooth-L1 is summed over the positives' own class
-    columns (columns 4:8 if class-agnostic) over the sampled count."""
-    n_sampled = torch.clamp(sample_mask.float().sum(), min=1.0)
-    loss_cls = softmax_cross_entropy(class_logits, labels, sample_mask.bool())
+    columns (columns 4:8 if class-agnostic) over the sampled count, the
+    global batch's (every rank's)."""
+    n_sampled = global_count(sample_mask.float().sum())
+    loss_cls = softmax_cross_entropy(class_logits, labels, sample_mask.bool(), n_sampled)
     pos = sample_mask.to(class_logits.dtype) * (labels > 0).to(class_logits.dtype)
     if cls_agnostic_bbox_reg:
         pred = box_regression[:, 4:8]

@@ -76,18 +76,21 @@ from cpm_tpu_torch.modeling.roi_heads.targets import (
 from cpm_tpu_torch.ops.box_coder import BoxCoder
 from cpm_tpu_torch.ops.losses import (
     bce_with_logits_elementwise,
+    global_count,
     ism_l2_loss,
     softmax_cross_entropy,
 )
 from cpm_tpu_torch.utils.sampler import sample_k_from_mask
 
 
-def _masked_bce_mean(logits, targets, roi_mask):
-    """BCE-with-logits, mean over the valid rois' elements."""
-    bce = bce_with_logits_elementwise(logits, targets)
-    m = roi_mask.reshape(roi_mask.shape + (1,) * (bce.dim() - 1)).to(bce.dtype)
-    denom = torch.clamp(m.sum() * bce[0].numel(), min=1.0)
-    return (bce * m).sum() / denom
+def _masked_bce_means(logits, targets, roi_mask):
+    """BCE-with-logits of each of `logits` (a list of like tensors), each a
+    mean over the valid rois' elements of the global batch (every rank's):
+    one count for all."""
+    bces = [bce_with_logits_elementwise(x, targets) for x in logits]
+    m = roi_mask.reshape(roi_mask.shape + (1,) * (bces[0].dim() - 1)).to(bces[0].dtype)
+    denom = global_count(m.sum() * bces[0][0].numel())
+    return [(bce * m).sum() / denom for bce in bces]
 
 
 class GridCascadeRCNNHead(nn.Module):
@@ -171,7 +174,9 @@ class GridCascadeRCNNHead(nn.Module):
     def _tower_size(self, stage_mask, S: int) -> int:
         """The prefix length the stage's tower runs on: the largest per-image
         valid count (read on the host), rounded up to a cap of
-        TPU.TOWER_BUCKETS or to S."""
+        TPU.TOWER_BUCKETS or to S. Under data parallelism it is this rank's
+        maximum: it only sets how much padding the tower runs on, and the
+        valid rois' numbers and the masked losses do not depend on it."""
         n_max = int(stage_mask.sum(dim=1).max())
         caps = [k for k in getattr(self.cfg.TPU, "TOWER_BUCKETS", ()) if k < S] + [S]
         return next(k for k in caps if n_max <= k)
@@ -225,9 +230,11 @@ class GridCascadeRCNNHead(nn.Module):
             )
             x, x_so, x_off = head(pooled=pK)
             heatmaps, iou_logits = out(x, x_so, x_off, train=True)
-            loss_grid = _masked_bce_mean(heatmaps["unfused"], tK, mK)
-            if heatmaps["fused"] is not None and (g.FUSED_ON or g.OFFSET_ON):
-                loss_grid = loss_grid + _masked_bce_mean(heatmaps["fused"], tK, mK)
+            fused = heatmaps["fused"] is not None and (g.FUSED_ON or g.OFFSET_ON)
+            loss_grid, *loss_fused = _masked_bce_means(
+                [heatmaps["unfused"]] + ([heatmaps["fused"]] if fused else []), tK, mK)
+            for loss in loss_fused:
+                loss_grid = loss_grid + loss
             losses[f"loss_grid_{stage + 1}"] = g.LOSS_WEIGHT * self.stage_weights[stage] * loss_grid
 
             last = stage == self.stage_num - 1

@@ -18,8 +18,9 @@ from torch import nn
 
 from cpm_tpu_torch.modeling import initializers as init
 from cpm_tpu_torch.ops.box_coder import BoxCoder
-from cpm_tpu_torch.ops.losses import bce_with_logits_elementwise, smooth_l1_loss
+from cpm_tpu_torch.ops.losses import bce_with_logits_elementwise, global_count, smooth_l1_loss
 from cpm_tpu_torch.ops.nms import nms, topk
+from cpm_tpu_torch.parallel.mesh import concat_ranks
 from cpm_tpu_torch.structures.boxes import (
     box_iou,
     clip_boxes_to_image,
@@ -205,12 +206,7 @@ def select_proposals(
         neg_inf = torch.finfo(scores.dtype).min
         masked = torch.where(valid, scores, neg_inf)
         if is_train and fpn_post_nms_per_batch:
-            # Detectron quirk: the train-time top-k runs over the whole
-            # batch. Slots at or above the k-th score stay valid (ties keep
-            # more than k), then each image is compacted as usual.
-            flat = masked.reshape(-1)
-            kth = topk(flat, min(fpn_post_nms_top_n, flat.shape[0]))[0][-1]
-            valid = valid & (masked >= kth)
+            valid = keep_batch_top_k(masked, valid, fpn_post_nms_top_n)
             masked = torch.where(valid, scores, neg_inf)
         k = min(fpn_post_nms_top_n, masked.shape[1])
         _, top_idx = topk(masked, k)
@@ -222,6 +218,26 @@ def select_proposals(
         scores = torch.cat([scores, torch.ones_like(gt_mask, dtype=scores.dtype)], dim=1)
         valid = torch.cat([valid, gt_mask], dim=1)
     return boxes, scores, valid
+
+
+def keep_batch_top_k(masked: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
+    """Detectron's train-time quirk: the top-k runs over the whole batch.
+    Slots at or above the k-th score of the batch stay valid (ties keep more
+    than k); each image is then compacted as usual.
+
+    The batch is the global one, every rank's images (the JAX program's
+    batch is global): each rank's own top-k scores, padded to k with the
+    masked value where it holds fewer slots, are gathered in rank order, and
+    the k-th of them is the k-th of the global batch, whatever the ranks'
+    candidate counts (a padded k-th keeps every valid slot, as the k-th of
+    fewer than k slots does). masked: [B, N] scores, the masked value (the
+    dtype's lowest) at invalid slots; valid: [B, N]. Returns this rank's
+    valid slots."""
+    flat = masked.reshape(-1)
+    top = topk(flat, min(k, flat.shape[0]))[0]
+    top = F.pad(top, (0, k - top.shape[0]), value=torch.finfo(top.dtype).min)
+    kth = topk(concat_ranks(top), k)[0][-1]
+    return valid & (masked >= kth)
 
 
 def rpn_losses(
@@ -245,7 +261,7 @@ def rpn_losses(
     positives and BCE summed over the sampled anchors, both over the total
     sampled count of the batch. noise_pos / noise_neg: [B, N] uniform draws
     for the balanced sampler. Losses and box targets are f32 whatever the
-    compute dtype."""
+    compute dtype. The sampled count is the global batch's (every rank's)."""
     if box_coder is None:
         box_coder = BoxCoder(weights=(1.0, 1.0, 1.0, 1.0))
     B = objectness[0].shape[0]
@@ -270,7 +286,7 @@ def rpn_losses(
         batch_size_per_image, positive_fraction, noise_pos, noise_neg,
     )
     sampled = sel_pos | sel_neg
-    n_sampled = torch.clamp(sampled.sum().to(torch.float32), min=1.0)
+    n_sampled = global_count(sampled.sum().to(torch.float32))
     box_loss = smooth_l1_loss(
         reg_flat, reg_targets, beta=smooth_l1_beta,
         weights=sel_pos[..., None].to(reg_flat.dtype), normalizer=n_sampled,

@@ -3,11 +3,36 @@
 Port of cpm_tpu/ops/losses.py (`smooth_l1_loss`, `l2_loss`, `ism_l2_loss`,
 `softmax_cross_entropy`, `binary_cross_entropy_with_logits`). Every loss
 takes an explicit validity mask and divides by the true count, at least 1.
+
+The count is the global batch's: under data parallelism (parallel/mesh.py)
+each rank sums over its own images and divides by the count over every
+rank's, so that its loss is its share of the global loss, and the shares sum
+to what one process over the global batch computes. With no group the count
+is this process's. This module holds that policy: every count that divides
+a loss, here or in a head, is totalled by `global_count` (one all-reduce a
+count, no host read), and the ISM quirk's rows are found across the ranks in
+`ism_l2_loss`.
 """
 
 from typing import Optional
 
 import torch
+
+from cpm_tpu_torch.parallel.mesh import batch_total, concat_ranks, rank_and_world
+
+
+def global_count(count: torch.Tensor) -> torch.Tensor:
+    """The normaliser of a loss: `count`, a count over this rank's images,
+    totalled over every rank (the global batch's count; `count` itself with
+    no group), at least 1. A head whose losses share a count totals it once
+    and passes it on as their `normalizer`."""
+    return torch.clamp(batch_total(count), min=1.0)
+
+
+def _global_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the global batch's elements: this rank's sum over every
+    rank's element count."""
+    return x.sum() / batch_total(x.new_tensor(float(x.numel())))
 
 
 def smooth_l1_loss(
@@ -18,7 +43,8 @@ def smooth_l1_loss(
     normalizer=1.0,
 ) -> torch.Tensor:
     """Huber loss summed over (optionally weighted) elements, over
-    max(normalizer, 1)."""
+    max(normalizer, 1); `normalizer` is a count over the global batch, from
+    `global_count`."""
     diff = torch.abs(pred - target)
     loss = torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
     if weights is not None:
@@ -33,9 +59,9 @@ def l2_loss(
     """0.5 * (pred - target)^2 averaged over valid entries."""
     err = 0.5 * (pred - target) ** 2
     if mask is None:
-        return err.mean()
+        return _global_mean(err)
     m = mask.to(err.dtype)
-    return (err * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (err * m).sum() / global_count(m.sum())
 
 
 def ism_l2_loss(pred: torch.Tensor, target: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -52,40 +78,52 @@ def ism_l2_loss(pred: torch.Tensor, target: torch.Tensor, valid: torch.Tensor) -
     n_j = #{i : t[i, j] > 0}, K = n0 + n1, and v0 / v1 the first two valid
     rows in flat order; with fewer than two valid rows their terms are zero.
 
+    Over ranks the flat order is the global batch's (rank order), and n0,
+    n1 and K are global counts: the rank that holds v0 (v1) adds its term.
+
     pred / target: [N, 2]; valid: [N] bool.
     """
     v = valid.to(pred.dtype)
     posf = ((target > 0) & valid[:, None]).to(pred.dtype)
     c = posf.sum(dim=-1)
-    n0 = posf[:, 0].sum()
-    n1 = posf[:, 1].sum()
     row_err = 0.5 * ((pred - target) ** 2).sum(dim=-1) * v
     vi = torch.cumsum(valid.to(torch.int32), dim=0)
-    # argmax of an int tensor returns the first maximal index, as jnp.argmax
-    first = torch.argmax(valid.to(torch.int32))
-    second = torch.argmax((vi == 2).to(torch.int32))
+    # every rank's (n0, n1, valid rows) in f32, in rank order: the global
+    # counts, and the valid rows that the ranks before this one hold
+    every = concat_ranks(torch.stack(
+        [posf[:, 0].sum().float(), posf[:, 1].sum().float(), vi[-1].float()])[None])
+    n0, n1 = every[:, :2].sum(dim=0).to(pred.dtype).unbind()
+    before = every[:rank_and_world()[0], 2].sum()
     nvalid = vi[-1]
     zero = row_err.new_zeros(())
-    e0 = torch.where(nvalid >= 1, row_err[first], zero)
-    e1 = torch.where(nvalid >= 2, row_err[second], zero)
+    # the j-th valid row of the global batch is this rank's (j - before)-th;
+    # argmax of an int tensor returns the first maximal index, as jnp.argmax
+    e0, e1 = (
+        torch.where((j >= 1) & (nvalid >= j),
+                    row_err[torch.argmax((vi == j).to(torch.int32))], zero)
+        for j in (1 - before, 2 - before))
     total = (row_err * c).sum() + n0 * e0 + n1 * e1
     return total / torch.clamp(n0 + n1, min=1.0)
 
 
 def softmax_cross_entropy(
-    logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None
+    logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
+    normalizer: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mean cross entropy over valid entries; labels are int class ids.
     Labels are clipped into [0, C) (padding rows carry -1) and masked
     entries are neutralized with `where`, so an infinite nll in a masked row
-    cannot poison the sum."""
+    cannot poison the sum. `normalizer`, where the caller has it, is the
+    mask's `global_count`."""
     labels = torch.clamp(labels.long(), 0, logits.shape[-1] - 1)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     if mask is None:
-        return nll.mean()
+        return _global_mean(nll)
     nll = torch.where(mask, nll, nll.new_zeros(()))
-    return nll.sum() / torch.clamp(mask.to(nll.dtype).sum(), min=1.0)
+    if normalizer is None:
+        normalizer = global_count(mask.to(nll.dtype).sum())
+    return nll.sum() / normalizer
 
 
 def bce_with_logits_elementwise(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -102,6 +140,6 @@ def binary_cross_entropy_with_logits(
     """Mean BCE-with-logits over valid entries (grid heatmap loss)."""
     loss = bce_with_logits_elementwise(logits, targets)
     if mask is None:
-        return loss.mean()
+        return _global_mean(loss)
     m = torch.broadcast_to(mask, loss.shape).to(loss.dtype)
-    return (loss * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (loss * m).sum() / global_count(m.sum())

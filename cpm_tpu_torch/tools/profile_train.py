@@ -10,9 +10,9 @@ compute on f32 masters, seeded random weights, the deformable convs'
 offset convs spread from a seed, synthetic uint8 batches) and prints,
 beside the card's name and power limit: the step's wall time, the CUDA
 kernel time per step and the device busy share from `torch.profiler`, the
-host and device time of the step's forward, backward and optimizer spans
-(`record_function` spans of engine/train.py), and the largest kernels by
-device time.
+host and device time of the step's forward, backward, allreduce (empty in
+one process) and optimizer spans (`record_function` spans of
+engine/train.py), and the largest kernels by device time.
 """
 
 import argparse
@@ -25,7 +25,8 @@ import torch
 
 from cpm_tpu_torch.tools.profile_eval import card_line
 
-SPANS = ("train_step/forward", "train_step/backward", "train_step/optimizer")
+SPANS = ("train_step/forward", "train_step/backward", "train_step/allreduce",
+         "train_step/optimizer")
 
 
 CONFIGS = ("flagship", "x101_dcn")
@@ -182,7 +183,8 @@ def main():
     # backward's are launched by the autograd thread, so it gets the rest
     spans = {e.key: e for e in averages if e.key in SPANS and e.device_type != on_card}
     span_ms = {k: e.device_time_total / n / 1e3 for k, e in spans.items()}
-    span_ms["train_step/backward"] = device_ms - span_ms[SPANS[0]] - span_ms[SPANS[2]]
+    span_ms["train_step/backward"] = device_ms - sum(
+        span_ms[k] for k in SPANS if k != "train_step/backward")
     for k in SPANS:
         print(f"[profile] {k}: host {spans[k].cpu_time_total / n / 1e3:.2f} ms/step, "
               f"device {span_ms[k]:.2f} ms/step")

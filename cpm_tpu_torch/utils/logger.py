@@ -4,7 +4,8 @@ The port's copy of `SmoothedValue` and `TrainingLogger` from
 cpm_tpu/utils/logger.py (after the reference's pet/utils/logger.py:12-184).
 As there, the logger only displays: the train step computes total_loss, and
 the logger is never on the compute path. Beside the step time it keeps the
-time each step waited for its batch (the reference's data timer).
+time each step waited for its batch (the reference's data timer). Under data
+parallelism every rank keeps its statistics and rank 0 alone prints them.
 """
 
 import collections
@@ -42,8 +43,10 @@ class SmoothedValue:
 
 
 class TrainingLogger:
-    def __init__(self, model_name: str = "model", log_period: int = 20, max_iter: int = 0):
+    def __init__(self, model_name: str = "model", log_period: int = 20, max_iter: int = 0,
+                 rank: int = 0):
         self.model_name = model_name
+        self.rank = rank
         self.log_period = log_period
         self.max_iter = max_iter
         self.stats = collections.defaultdict(SmoothedValue)
@@ -64,6 +67,8 @@ class TrainingLogger:
             self.stats[k].update(float(v))
 
     def log_stats(self, iteration: int):
+        if self.rank != 0:
+            return
         eta = ""
         if self.max_iter and self.iter_time.count:
             remain = (self.max_iter - iteration) * self.iter_time.avg

@@ -8,6 +8,9 @@ reproduced here, so each function takes its uniform draws as an argument
 `torch.Generator`. `Draws` hands them out to the train forward: from a
 `torch.Generator` on the CPU, so that the CPU and the card see the same
 numbers, or from a list of arrays consumed in call order, as the tests do.
+Under data parallelism each draw is made at the global batch and the rank
+takes its rows, as the JAX program draws global arrays: N ranks see the
+numbers that one process over their images would.
 """
 
 from typing import Optional, Sequence, Union
@@ -17,24 +20,38 @@ import torch
 
 
 class Draws:
-    """A source of uniform [0, 1) tensors of a given shape on a device."""
+    """A source of uniform [0, 1) tensors of a given shape on a device.
 
-    def __init__(self, source: Union[torch.Generator, Sequence[np.ndarray]]):
+    Every shape asked for has the batch as its leading dimension. Rank
+    `rank` of `world_size` gets its rows of a draw at `world_size` times
+    that dimension (a list's arrays hold the global draws), so that every
+    rank's source advances alike."""
+
+    def __init__(self, source: Union[torch.Generator, Sequence[np.ndarray]],
+                 rank: int = 0, world_size: int = 1):
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} of {world_size}")
         self._generator = source if isinstance(source, torch.Generator) else None
         self._arrays = None if self._generator is not None else list(source)
-        self.shapes = []  # shapes handed out, in order
+        self.rank, self.world_size = rank, world_size
+        self.shapes = []  # shapes handed out (this rank's), in order
 
     def __call__(self, shape, device) -> torch.Tensor:
         shape = tuple(int(d) for d in shape)
         self.shapes.append(shape)
+        full = (shape[0] * self.world_size,) + shape[1:]
         if self._generator is not None:
-            return torch.rand(shape, generator=self._generator).to(device)
-        if len(self.shapes) > len(self._arrays):
-            raise IndexError(f"draw {len(self.shapes)} requested of {len(self._arrays)}")
-        a = np.asarray(self._arrays[len(self.shapes) - 1], np.float32)
-        if a.shape != shape:
-            raise ValueError(f"draw {len(self.shapes)}: array {a.shape}, wanted {shape}")
-        return torch.from_numpy(a).to(device)
+            u = torch.rand(full, generator=self._generator)
+        else:
+            if len(self.shapes) > len(self._arrays):
+                raise IndexError(f"draw {len(self.shapes)} requested of {len(self._arrays)}")
+            a = np.asarray(self._arrays[len(self.shapes) - 1], np.float32)
+            if a.shape != full:
+                raise ValueError(f"draw {len(self.shapes)}: array {a.shape}, wanted {full}")
+            u = torch.from_numpy(a)
+        if self.world_size > 1:
+            u = u[self.rank * shape[0]:(self.rank + 1) * shape[0]]
+        return u.to(device)
 
     def state_dict(self) -> dict:
         """The generator's state, which a checkpoint keeps so that a resumed

@@ -416,15 +416,28 @@ def test_lr_schedule_matches_jax(policy, warmup):
 
 
 def test_unported_training_options_raise(train_outputs):
-    """The optimizers other than SGD (ROADMAP Queue 1, item 5). The grid
-    head's training options (RANDOM_JITTER, BETTER_ROI and the others) are
-    ported: tests/test_torch_grid_options.py and
+    """SOLVER.OPTIMIZER names that the JAX package refuses (ADAM and RMSPROP
+    are ported: tests/test_torch_optimizers.py holds them against optax).
+    The grid head's training options (RANDOM_JITTER, BETTER_ROI and the
+    others) are ported: tests/test_torch_grid_options.py and
     tests/test_torch_configs_build.py train them."""
+    import optax
+
+    from cpm_tpu.solver.optimizer import build_optimizer as jax_build_optimizer
     from cpm_tpu_torch.modeling.model import build_model
     from cpm_tpu_torch.solver.optimizer import build_optimizer
 
-    for name in ("ADAM", "RMSPROP"):
+    _, _, jx, _ = train_outputs
+    for name in ("ADAGRAD", "sgd"):
         cfg = _tiny_cfg()
         cfg.SOLVER.OPTIMIZER = name
-        with pytest.raises(NotImplementedError, match=name):
+        with pytest.raises(ValueError, match=name):
+            jax_build_optimizer(cfg, jx["params"], lambda t: 0.0)
+        with pytest.raises(ValueError, match=name):
             build_optimizer(cfg, build_model(cfg, "cpu"))
+    for name in ("SGD", "ADAM", "RMSPROP"):
+        cfg = _tiny_cfg()
+        cfg.SOLVER.OPTIMIZER = name
+        assert isinstance(jax_build_optimizer(cfg, jx["params"], lambda t: 0.0),
+                          optax.GradientTransformation)
+        assert build_optimizer(cfg, build_model(cfg, "cpu")).param_groups
