@@ -41,6 +41,7 @@ from cpm_tpu.modeling.roi_heads import box_head as jbh
 from cpm_tpu.ops.box_coder import BoxCoder as JaxBoxCoder
 from tests.test_torch_model import assert_same_detection_sets
 from tests.test_torch_train import RecordedUniform, _flat
+from tests.torch_support import memo, one_torch_thread, shared
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA_DIR = os.path.join(REPO, "data")
@@ -61,6 +62,13 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the file's tests (tests/torch_support.py)."""
+    with one_torch_thread():
+        yield
 
 
 def _close(got, want, rtol=1e-5):
@@ -241,7 +249,7 @@ def tiny_cfg(path, **overrides):
 
 
 def model_outputs(cfg, prepare=None, batch=None, frames=("cpm_tpu.utils.sampler",),
-                  threads=None):
+                  threads=None, share=None):
     """The port's seeded weights (passed to `prepare(model)` first, when
     given) bridged into the JAX model; both models' eval detections, and
     their losses and gradients on a seeded batch (or `batch`) with the same
@@ -249,14 +257,17 @@ def model_outputs(cfg, prepare=None, batch=None, frames=("cpm_tpu.utils.sampler"
     the port runs on that many intra-op threads: a model of many tiny convs
     runs faster on one when several test workers share the cores. Shared by
     this file, tests/test_torch_cascade.py, tests/test_torch_grid_options.py
-    and tests/test_torch_c4.py."""
+    and tests/test_torch_c4.py. With `share` (tmp_path_factory, name) the
+    JAX side is computed once a session (tests/torch_support.py::shared):
+    the port's weights are drawn from a seed, so each worker's are the
+    same."""
     import torch
 
     if threads is not None:
         saved = torch.get_num_threads()
         torch.set_num_threads(threads)
         try:
-            return model_outputs(cfg, prepare, batch, frames)
+            return model_outputs(cfg, prepare, batch, frames, share=share)
         finally:
             torch.set_num_threads(saved)
 
@@ -270,43 +281,50 @@ def model_outputs(cfg, prepare=None, batch=None, frames=("cpm_tpu.utils.sampler"
     images = np.random.RandomState(0).randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
     sizes = np.array([[64, 64], [56, 48]], np.int32)
     gt = jax_batch_gt(batch)
-    jm = jax_build_model(cfg)
-    # the flax tree's structure from an abstract init (a compiled init of
-    # the cascade costs about 10 s), its values the port's seeded weights
-    like = jax.eval_shape(
-        lambda: jm.init({"params": jax.random.PRNGKey(0)}, images, sizes, train=False))["params"]
     model = build_model(cfg, "cpu", seed=0)
     if prepare is not None:
         prepare(model)
-    params = state_dict_to_flax(
-        model.state_dict(), jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), like))
 
-    def loss_fn(p):
-        losses = jm.apply({"params": p}, batch["images"], batch["image_sizes"], gt=gt,
-                          train=True, rngs={"sample": jax.random.PRNGKey(1)})
-        return sum(losses.values()), losses
+    def jax_side():
+        jm = jax_build_model(cfg)
+        # the flax tree's structure from an abstract init (a compiled init
+        # of the cascade costs about 10 s), its values the port's seeded
+        # weights
+        like = jax.eval_shape(
+            lambda: jm.init({"params": jax.random.PRNGKey(0)}, images, sizes, train=False))["params"]
+        params = state_dict_to_flax(
+            model.state_dict(), jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), like))
 
-    @jax.jit
-    def run(params, images, sizes):
-        dets = jm.apply({"params": params}, images, sizes, train=False)
-        return dets, jax.value_and_grad(loss_fn, has_aux=True)(params)
+        def loss_fn(p):
+            losses = jm.apply({"params": p}, batch["images"], batch["image_sizes"], gt=gt,
+                              train=True, rngs={"sample": jax.random.PRNGKey(1)})
+            return sum(losses.values()), losses
 
-    mp = pytest.MonkeyPatch()
-    draws = RecordedUniform(7, frames)
-    try:
-        mp.setattr(jax.random, "uniform", draws)
-        dets, ((_, losses), grads) = jax.device_get(run(params, images, sizes))
-    finally:
-        mp.undo()
+        @jax.jit
+        def run(params, images, sizes):
+            dets = jm.apply({"params": params}, images, sizes, train=False)
+            return dets, jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+        mp = pytest.MonkeyPatch()
+        draws = RecordedUniform(7, frames)
+        try:
+            mp.setattr(jax.random, "uniform", draws)
+            dets, ((_, losses), grads) = jax.device_get(run(params, images, sizes))
+        finally:
+            mp.undo()
+        return dict(params=params, dets=dets, losses=losses, grads=grads, draws=draws.arrays)
+
+    jx = jax_side() if share is None else shared(*share, jax_side)
+    params, dets, losses, grads = jx["params"], jx["dets"], jx["losses"], jx["grads"]
 
     got_dets = make_forward_fn(cfg, model)(images, sizes)
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
-    port_draws = Draws(draws.arrays)
+    port_draws = Draws(jx["draws"])
     got_losses = model(tb["images"], tb["image_sizes"], train=True, draws=port_draws,
                        gt=dict(boxes=tb["gt_boxes"], labels=tb["gt_labels"], mask=tb["gt_mask"]))
     sum(got_losses.values()).backward()
     return dict(
-        cfg=cfg, params=params, dets=dets, losses=losses, grads=grads, draws=draws.arrays,
+        cfg=cfg, params=params, dets=dets, losses=losses, grads=grads, draws=jx["draws"],
         model=model, got_dets=got_dets, draw_shapes=port_draws.shapes,
         got_losses={k: float(v.detach()) for k, v in got_losses.items()},
     )
@@ -360,8 +378,9 @@ def assert_bridge_round_trip(out):
 
 
 @pytest.fixture(scope="module")
-def fast_outputs():
-    return model_outputs(tiny_cfg(TINY))
+def fast_outputs(tmp_path_factory):
+    return memo("box_head fast", lambda: model_outputs(
+        tiny_cfg(TINY), share=(tmp_path_factory, "box_head_fast")))
 
 
 def test_fast_rcnn_eval_matches_jax(fast_outputs):

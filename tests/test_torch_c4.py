@@ -35,6 +35,7 @@ from tests.test_torch_box_head import (
     model_outputs,
 )
 from tests.test_torch_train import _flat
+from tests.torch_support import memo, one_torch_thread
 
 HEADS = ("resnet_c5_head", "resnet_2mlp_head")
 LOSSES = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_box_reg")
@@ -53,6 +54,13 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the file's tests (tests/torch_support.py)."""
+    with one_torch_thread():
+        yield
 
 
 def tiny_c4_cfg(head):
@@ -88,8 +96,10 @@ def tiny_c4_cfg(head):
 
 
 @pytest.fixture(scope="module", params=HEADS)
-def c4_outputs(request):
-    return dict(model_outputs(tiny_c4_cfg(request.param), threads=1), head=request.param)
+def c4_outputs(request, tmp_path_factory):
+    return memo(f"c4 {request.param}", lambda: dict(model_outputs(
+        tiny_c4_cfg(request.param), threads=1, share=(tmp_path_factory, f"c4_{request.param}")),
+        head=request.param))
 
 
 def test_c4_eval_matches_jax(c4_outputs):

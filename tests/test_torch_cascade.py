@@ -41,6 +41,7 @@ from tests.test_torch_box_head import (
     model_outputs,
     tiny_cfg,
 )
+from tests.torch_support import memo, one_torch_thread
 
 TINY = os.path.join(REPO, "cfgs", "debug", "tiny_cascade.yaml")
 LOSSES = ("loss_objectness", "loss_rpn_box_reg", "s1_cls_loss", "s1_bbox_loss", "s2_cls_loss",
@@ -62,6 +63,13 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the file's tests (tests/torch_support.py)."""
+    with one_torch_thread():
+        yield
 
 
 def test_stage_output_matches_jax_and_keeps_the_compute_dtype():
@@ -105,8 +113,9 @@ def _positive_iou(model):
 
 
 @pytest.fixture(scope="module")
-def cascade_outputs():
-    return model_outputs(tiny_cfg(TINY, **ISM_RSM), prepare=_positive_iou)
+def cascade_outputs(tmp_path_factory):
+    return memo("cascade", lambda: model_outputs(
+        tiny_cfg(TINY, **ISM_RSM), prepare=_positive_iou, share=(tmp_path_factory, "cascade")))
 
 
 def _without_rescore(params):

@@ -51,6 +51,7 @@ from tests.test_torch_box_head import (
 )
 from tests.test_torch_configs_build import one_thread  # noqa: F401  (a fixture)
 from tests.test_torch_train import RecordedUniform, _flat
+from tests.torch_support import memo, one_torch_thread
 
 FRAMES = ("cpm_tpu.utils.sampler", "cpm_tpu.modeling.roi_heads.grid_ops",
           "cpm_tpu.modeling.roi_heads.grid_cascade_head")
@@ -73,6 +74,13 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the file's tests (tests/torch_support.py)."""
+    with one_torch_thread():
+        yield
 
 
 def _boxes(rng, n, size=120.0):
@@ -242,7 +250,12 @@ def _big_gt_batch():
 
 
 @pytest.fixture(scope="module", params=["finest_offset", "enhance_se"])
-def option_outputs(request):
+def option_outputs(request, tmp_path_factory):
+    return memo(f"options {request.param}", lambda: _option_outputs(request.param,
+                                                                    tmp_path_factory))
+
+
+def _option_outputs(which, tmp_path_factory):
     from cpm_tpu_torch.modeling.roi_heads import grid_cascade_head
 
     real = grid_cascade_head.resize_large_rois
@@ -256,11 +269,11 @@ def option_outputs(request):
     mp = pytest.MonkeyPatch()
     try:
         mp.setattr(grid_cascade_head, "resize_large_rois", counting)
-        out = model_outputs(options_cfg(request.param), batch=_big_gt_batch(), frames=FRAMES,
-                            threads=1)
+        out = model_outputs(options_cfg(which), batch=_big_gt_batch(), frames=FRAMES,
+                            threads=1, share=(tmp_path_factory, f"options_{which}"))
     finally:
         mp.undo()
-    return dict(out, which=request.param, shrunk=shrunk)
+    return dict(out, which=which, shrunk=shrunk)
 
 
 def test_option_models_eval_matches_jax(option_outputs):

@@ -20,6 +20,7 @@ from __graft_entry__ import _flagship_cfg
 from cpm_tpu.engine.test import detections_to_coco as jax_detections_to_coco
 from cpm_tpu.modeling.model import build_model as jax_build_model
 from cpm_tpu_torch.config import flagship_cfg
+from tests.torch_support import memo, one_torch_thread
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -37,6 +38,13 @@ def _drop_stub_modules_that_answer_every_name():
             del sys.modules[name]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the file's tests (tests/torch_support.py)."""
+    with one_torch_thread():
+        yield
+
+
 def _tiny_cfg():
     cfg = _flagship_cfg(tiny=True)
     cfg.TPU.COMPUTE_DTYPE = "float32"
@@ -45,6 +53,10 @@ def _tiny_cfg():
 
 @pytest.fixture(scope="module")
 def slice_outputs():
+    return memo("slice", _slice_outputs)
+
+
+def _slice_outputs():
     from cpm_tpu_torch.engine.test import make_forward_fn
     from cpm_tpu_torch.modeling.model import build_model
     from cpm_tpu_torch.utils.param_bridge import load_flax_params

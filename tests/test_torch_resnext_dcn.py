@@ -43,6 +43,7 @@ from cpm_tpu.modeling.model import build_model as jax_build_model
 from cpm_tpu.solver import build_optimizer as jax_build_optimizer
 from cpm_tpu.solver import make_lr_fn as jax_make_lr_fn
 from cpm_tpu.solver.optimizer import param_label_tree
+from tests.torch_support import memo, one_torch_thread, shared
 
 YAML = ("cfgs/rcnn/mscoco/grid_cascade/iou_helper/rescore/backbone/"
         "e2e_grid_cascade@567_rcnn_X-101-32x4d-FPN-DCN_2x.yaml")
@@ -64,6 +65,13 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the file's tests (tests/torch_support.py)."""
+    with one_torch_thread():
+        yield
 
 
 def _flat(tree, prefix=()):
@@ -124,6 +132,10 @@ def _offset_spread(model, run):
 
 @pytest.fixture(scope="module")
 def trunk():
+    return memo("trunk", _trunk)
+
+
+def _trunk():
     import torch
 
     from cpm_tpu_torch.modeling.backbone.resnet import ResNetBody
@@ -258,24 +270,8 @@ def _resnet_cfgs():
     return jcfg, port
 
 
-def _whole_model(cfgs, with_step):
-    """Both packages on one tiny config: eval detections and training losses;
-    with_step, also every gradient and the parameters after one SGD step."""
-    import torch
-
-    from cpm_tpu_torch.engine.test import make_forward_fn
-    from cpm_tpu_torch.engine.train import create_train_state, make_train_step
-    from cpm_tpu_torch.utils.param_bridge import load_flax_params
-    from cpm_tpu_torch.utils.sampler import Draws
-
-    jcfg, cfg = cfgs
-    for c in (jcfg, cfg):
-        c.TPU.COMPUTE_DTYPE = "float32"
-        c.GRID_RCNN.SCORE_THRESH = 0.0   # random weights score near 1/9
-    batch = jax_synthetic_batch(2, 64, 64, max_gt=4, num_classes=9)
-    rng = np.random.RandomState(0)
-    images = rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
-    sizes = np.array([[64, 64], [56, 48]], np.int32)
+def _jax_whole_model(jcfg, batch, images, sizes, with_step):
+    """The JAX side of `_whole_model`, with the draws its samplers made."""
     jmodel = jax_build_model(jcfg)
 
     # one program: fresh params, the offset convs seeded, the eval forward
@@ -311,12 +307,37 @@ def _whole_model(cfgs, with_step):
     finally:
         mp.undo()
     jx["draws"] = draws.arrays
+    return jx
+
+
+def _whole_model(cfgs, with_step, share):
+    """Both packages on one tiny config: eval detections and training losses;
+    with_step, also every gradient and the parameters after one SGD step.
+    The JAX side is computed once a session (`share`: tmp_path_factory and
+    a name)."""
+    import torch
+
+    from cpm_tpu_torch.engine.test import make_forward_fn
+    from cpm_tpu_torch.engine.train import create_train_state, make_train_step
+    from cpm_tpu_torch.utils.param_bridge import load_flax_params
+    from cpm_tpu_torch.utils.sampler import Draws
+
+    jcfg, cfg = cfgs
+    for c in (jcfg, cfg):
+        c.TPU.COMPUTE_DTYPE = "float32"
+        c.GRID_RCNN.SCORE_THRESH = 0.0   # random weights score near 1/9
+    batch = jax_synthetic_batch(2, 64, 64, max_gt=4, num_classes=9)
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    sizes = np.array([[64, 64], [56, 48]], np.int32)
+    jx = shared(*share, lambda: _jax_whole_model(jcfg, batch, images, sizes, with_step))
+    params = jx["params"]
 
     model, optimizer, state = create_train_state(cfg, "cpu", seed=0)
     load_flax_params(model, params)
     pt = dict(model=model, optimizer=optimizer)
     pt["dets"] = make_forward_fn(cfg, model)(images, sizes)
-    port_draws = Draws(draws.arrays)
+    port_draws = Draws(jx["draws"])
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
 
     def train_forward():
@@ -331,20 +352,22 @@ def _whole_model(cfgs, with_step):
         pt["grads"] = {k: None if p.grad is None else p.grad.clone()
                        for k, p in model.named_parameters()}
         model.zero_grad(set_to_none=True)
-        state.draws = Draws(draws.arrays)
+        state.draws = Draws(jx["draws"])
         state, pt["metrics"] = make_train_step(cfg, model, optimizer)(state, batch)
     pt["losses"] = {k: float(v.detach()) for k, v in pt["losses"].items()}
     return cfg, jx, pt
 
 
 @pytest.fixture(scope="module")
-def resnext_model():
-    return _whole_model(_resnext_cfgs(), with_step=True)
+def resnext_model(tmp_path_factory):
+    return memo("resnext_model", lambda: _whole_model(
+        _resnext_cfgs(), with_step=True, share=(tmp_path_factory, "resnext_model")))
 
 
 @pytest.fixture(scope="module")
-def resnet_dcn_model():
-    return _whole_model(_resnet_cfgs(), with_step=False)
+def resnet_dcn_model(tmp_path_factory):
+    return memo("resnet_dcn_model", lambda: _whole_model(
+        _resnet_cfgs(), with_step=False, share=(tmp_path_factory, "resnet_dcn_model")))
 
 
 def _rows(boxes, scores, labels, mask):

@@ -20,10 +20,13 @@ TINY = os.path.join(REPO, "cfgs", "debug", "tiny_cpm.yaml")
 
 
 def _run_cli(args, ckpt_dir, timeout=300):
+    # one intra-op thread in the CLI and in the shards it starts (which keep
+    # the caller's OMP_NUM_THREADS): several test workers share the cores
     proc = subprocess.run(
         [sys.executable, "-m", "cpm_tpu_torch.tools.test_net", "--cfg", TINY, "--device", "cpu"]
         + args + ["DATA_DIR", os.path.join(REPO, "data"), "CKPT", ckpt_dir],
-        capture_output=True, text=True, timeout=timeout, cwd=REPO)
+        capture_output=True, text=True, timeout=timeout, cwd=REPO,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, (f"CLI failed rc={proc.returncode}\nstdout:\n{proc.stdout[-3000:]}"
                                   f"\nstderr:\n{proc.stderr[-3000:]}")
     return proc

@@ -35,6 +35,7 @@ from cpm_tpu.engine.train import create_train_state as jax_create_train_state
 from cpm_tpu.engine.train import make_train_step as jax_make_train_step
 from cpm_tpu.solver.lr_schedule import make_lr_fn as jax_make_lr_fn
 from cpm_tpu.solver.optimizer import param_label_tree
+from tests.torch_support import memo, one_torch_thread, shared
 
 LOSS_NAMES = (
     "loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_grid_1",
@@ -125,21 +126,21 @@ def _drop_stub_modules_that_answer_every_name():
             del sys.modules[name]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the file's tests (tests/torch_support.py)."""
+    with one_torch_thread():
+        yield
+
+
 @pytest.fixture(scope="module")
-def train_outputs():
-    import torch
+def train_outputs(tmp_path_factory):
+    return memo("train", lambda: _train_outputs(tmp_path_factory))
 
-    from cpm_tpu_torch.data.synthetic import synthetic_batch
-    from cpm_tpu_torch.engine.train import create_train_state, make_train_step
-    from cpm_tpu_torch.utils.param_bridge import load_flax_params
-    from cpm_tpu_torch.utils.sampler import Draws
 
-    cfg = _tiny_cfg()
-    batch = synthetic_batch(2, 64, 64, max_gt=4, num_classes=9)
-    want_batch = jax_synthetic_batch(2, 64, 64, max_gt=4, num_classes=9)
-    for k in batch:
-        np.testing.assert_array_equal(batch[k], want_batch[k])
-
+def _jax_train_side(cfg, batch):
+    """The JAX package's losses, gradients and two steps on the tiny model,
+    with the draws its samplers made."""
     jmodel, tx, jstate = jax_create_train_state(cfg, jax.random.PRNGKey(0), batch)
     params = jax.device_get(jstate.params)
 
@@ -163,7 +164,7 @@ def train_outputs():
         js2, jm2 = jstep(js1, batch)
     finally:
         mp.undo()
-    jax_side = dict(
+    return dict(
         params=params, losses=jax.device_get(jlosses), total=float(jtotal),
         grads=jax.device_get(jgrads), metrics=[jax.device_get(jm1), jax.device_get(jm2)],
         params2=jax.device_get(js2.params),
@@ -172,10 +173,28 @@ def train_outputs():
         draws=(grad_draws.arrays, step_draws.arrays),
     )
 
+
+def _train_outputs(tmp_path_factory):
+    import torch
+
+    from cpm_tpu_torch.data.synthetic import synthetic_batch
+    from cpm_tpu_torch.engine.train import create_train_state, make_train_step
+    from cpm_tpu_torch.utils.param_bridge import load_flax_params
+    from cpm_tpu_torch.utils.sampler import Draws
+
+    cfg = _tiny_cfg()
+    batch = synthetic_batch(2, 64, 64, max_gt=4, num_classes=9)
+    want_batch = jax_synthetic_batch(2, 64, 64, max_gt=4, num_classes=9)
+    for k in batch:
+        np.testing.assert_array_equal(batch[k], want_batch[k])
+    jax_side = shared(tmp_path_factory, "train", lambda: _jax_train_side(cfg, batch))
+    params = jax_side["params"]
+    grad_draws, step_draws = jax_side["draws"]
+
     # the port: losses and gradients on the bridged parameters
     model, optimizer, state = create_train_state(cfg, "cpu", seed=0)
     load_flax_params(model, params)
-    draws = Draws(grad_draws.arrays)
+    draws = Draws(grad_draws)
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     losses = model(
         tb["images"], tb["image_sizes"], train=True, draws=draws,
@@ -190,7 +209,7 @@ def train_outputs():
     step = make_train_step(cfg, model, optimizer)
     metrics = []
     for _ in range(2):
-        state.draws = Draws(step_draws.arrays)
+        state.draws = Draws(step_draws)
         state, m = step(state, batch)
         metrics.append(m)
     port_side = dict(
