@@ -222,6 +222,20 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    against the CPU port (losses 1e-4 relative), and the optimizer alone on
    the same seeded gradients (OPT_RTOL / OPT_ATOL). A rank that fails, or
    does not finish in time, fails the phase; the others are killed.
+17. zoo: the trunk and neck options (ZOO_MODELS: GN+WS, GN+WS Faster R-CNN
+   with the WS 4conv1fc head, NAS-FPN, BiFPN, HRFPN, ResNet-D with GC
+   blocks and extra FPN conv levels, aligned blocks, ResNet-18) at
+   800x1344 (BiFPN at 768x1344: ZOO_BUCKET) from the flagship (or the
+   Faster R-CNN YAML), bf16, seeded
+   weights with the frozen affines folded: one batch-1 eval forward and
+   one batch-2 step each, launching exactly what `pooler_sites` predicts
+   (kernel 1 a pooler call, kernel 2 a call of a step); finite losses that
+   sum to total_loss, detections inside their images with labels 1..80,
+   frozen tensors bit-equal and a tensor of every parameter group (and of
+   each model's new modules: the FPN's norms, the fusion weights, the GC
+   blocks, ...) moved; gn_ws, nasfpn and bifpn timed over 10 batch-1
+   requests; each step's peak memory; the tiny twins on the card against
+   the CPU port.
 
 Then a JSON line of kernel results and, last, {"ok": true, "device": ...}.
 Random weights give softmax scores near 1/81, below the default 0.03
@@ -2508,6 +2522,9 @@ def pooler_sites(cfg):
     pool one level (kernel 5); every other site is kernel 1."""
     if not cfg.MODEL.FPN_ON:
         return {"roi_align": 1}, {"roi_align": 1, "multilevel_roi_align_backward": 1}
+    if cfg.MODEL.FASTER_RCNN and not cfg.MODEL.CASCADE_ON:
+        return ({"multilevel_roi_align": 1},
+                {"multilevel_roi_align": 1, "multilevel_roi_align_backward": 1})
     g = cfg.GRID_RCNN
     opt = g.CASCADE_MAPPING_OPTION
     stages = opt.STAGE_NUM if g.CASCADE_MAPPING_ON else 1
@@ -2530,16 +2547,17 @@ def keep_single_level(features, rois, output_size, spatial_scale, sampling_ratio
             None if roi_mask is None else roi_mask.detach().clone())
 
 
-def drive_model(tag, cfg, padded, card, timed=False, dev="cuda"):
-    """One of phase 15's models at full width from seed 0 (bf16 over f32
-    masters, the trunk's frozen affines folded from one batch): one batch-1
-    eval forward and one batch-2 training step, each held to its predicted
-    launches; finite losses and detections, boxes inside their images,
-    labels 1..80, frozen tensors bit-equal and a tensor of every group
-    moved. With `timed`: 10 more batch-1 requests, 3 more steps, the peaks,
-    and what the kernel-5 calls of one eval forward and one step were
-    given. Returns (launches of its runs, the captured kernel-5 calls,
-    timings)."""
+def drive_model(tag, cfg, padded, card, timed=False, dev="cuda", latency=False, must_move=()):
+    """One of phase 15's or 17's models at full width from seed 0 (bf16 over
+    f32 masters, the trunk's frozen affines folded from one batch): one
+    batch-1 eval forward and one batch-2 training step, each held to its
+    predicted launches; finite losses that sum to total_loss, finite
+    detections, boxes inside their images, labels 1..80, frozen tensors
+    bit-equal, a tensor of every group moved and one whose name holds each
+    of `must_move`. With `latency`: 10 more batch-1 requests timed. With
+    `timed`: those, 3 more steps, the peaks, and what the kernel-5 calls of
+    one eval forward and one step were given. Returns (launches of its runs,
+    the captured kernel-5 calls, timings, the step's peak memory)."""
     from cpm_tpu_torch.data.synthetic import synthetic_batch
     from cpm_tpu_torch.engine.test import make_forward_fn
     from cpm_tpu_torch.engine.train import create_train_state, make_train_step
@@ -2579,9 +2597,13 @@ def drive_model(tag, cfg, padded, card, timed=False, dev="cuda"):
     (state, metrics), step_s = counted_run(tag, "batch-2 training step",
                                            lambda: step_fn(state, batch_for(100)), step_want, card)
     tally()
+    step_peak = torch.cuda.max_memory_allocated() / 2**20
     losses = {k: float(v) for k, v in metrics.items() if k.startswith("loss_")}
     if not losses or not all(math.isfinite(v) for v in losses.values()):
         raise AssertionError(f"{tag} losses {losses}")
+    total = float(metrics["total_loss"])
+    if abs(sum(losses.values()) - total) > 1e-5 * abs(total):
+        raise AssertionError(f"{tag} losses {losses} do not sum to total_loss {total}")
     moved = {g["name"]: 0 for g in optimizer.param_groups}
     group_of = {id(p): g["name"] for g in optimizer.param_groups for p in g["params"]}
     for k, p in model.named_parameters():
@@ -2594,12 +2616,20 @@ def drive_model(tag, cfg, padded, card, timed=False, dev="cuda"):
         moved[group_of[id(p)]] += int(not torch.equal(p, before[k]))
     if not all(moved.values()):
         raise AssertionError(f"{tag} a group moved nothing: {moved}")
+    for part in must_move:
+        if not any(part in k and labels[k] != "frozen" and not torch.equal(p, before[k])
+                   for k, p in model.named_parameters()):
+            raise AssertionError(f"{tag} no parameter of {part} moved")
     frozen = sum(v == "frozen" for v in labels.values())
     print(f"{tag} {time.perf_counter() - t0:.1f} s built, folded, run and checked; eval "
           f"{counts} detections (finite, inside the image, labels 1..{nc - 1}); step losses "
           + ", ".join(f"{k[5:]} {v:.4f}" for k, v in losses.items())
-          + f"; {frozen} frozen tensors bit-equal, tensors moved by group {moved}")
-    out = dict(launched=launched, sites=[], eval_ms=None, step_ms=None)
+          + f"; {frozen} frozen tensors bit-equal, tensors moved by group {moved}"
+          + (f", and of each of {list(must_move)}" if must_move else ""))
+    out = dict(launched=launched, sites=[], eval_ms=None, step_ms=None, step_peak_mib=step_peak)
+    if latency and not timed:
+        eval_latency(tag, forward, check, eval_want, card, padded)
+        tally()
     if timed:
         single = ops()["single"]
         with capture_calls(single, "roi_align_cuda", keep_single_level) as eval_calls:
@@ -3144,6 +3174,176 @@ def phase_data_parallel(dev, card):
           f"{time.perf_counter() - t_phase:.1f} s | {card}")
     return launched["forward"], launched["backward"]
 
+# Phase 17: the trunk and neck zoo (modeling/backbone/resnet.py, modeling/ws.py,
+# modeling/context.py, modeling/fpn.py, modeling/necks_extra.py) at full width:
+# name -> (base, keys over it, parameters that must move in the step).
+# "flagship" is config.flagship_cfg() (CPM R-50-FPN, 81 classes, CMM, ISM,
+# RSM, bf16); "faster" is FASTER_YAML.
+ZOO_MODELS = {
+    # Qiao et al., Weight Standardization, arXiv 1903.10520 (mmdetection gn+ws)
+    "gn_ws": ("flagship", {"BACKBONE.RESNET.USE_GN": True, "BACKBONE.RESNET.USE_WS": True,
+                           "FPN.USE_GN": True, "FPN.USE_WS": True}, ("fpn.norms.",)),
+    # the same paper's "GN+WS all" Faster R-CNN, with the 4conv1fc head
+    "faster_gn_ws_convfc": ("faster", {
+        "BACKBONE.RESNET.USE_GN": True, "BACKBONE.RESNET.USE_WS": True, "FPN.USE_GN": True,
+        "FPN.USE_WS": True, "FAST_RCNN.ROI_BOX_HEAD": "roi_xconv1fc_head",
+        "FAST_RCNN.CONVFC_HEAD.USE_WS": True}, ("roi_head.head.convs.",)),
+    # Ghiasi et al., NAS-FPN, arXiv 1904.07392 (7 stacks at 256, the JAX defaults)
+    "nasfpn": ("flagship", {"FPN.BODY": "nasfpn"}, ("fpn.stage6_sum_77_7.",)),
+    # Tan et al., EfficientDet, arXiv 1911.09070 (7 stacks at 256, EPS 1e-4)
+    "bifpn": ("flagship", {"FPN.BODY": "bifpn"}, ("_fusion.w",)),
+    # Sun et al., HRNet, arXiv 1904.04514 (AVG, one extra pooling)
+    "hrfpn": ("flagship", {"FPN.BODY": "hrfpn"}, ("fpn.reduction_conv.",)),
+    # He et al., Bag of Tricks (ResNet-D), arXiv 1812.01187; Cao et al.,
+    # GCNet r16 c3-c5, arXiv 1904.11492
+    "r50d_gcb": ("flagship", {"BACKBONE.RESNET.USE_3x3x3HEAD": True,
+                              "BACKBONE.RESNET.AVG_DOWN": True,
+                              "BACKBONE.RESNET.STAGE_WITH_CONTEXT": ("none", "gcb", "gcb", "gcb"),
+                              "BACKBONE.RESNET.CTX_RATIO": 0.0625,
+                              "FPN.EXTRA_CONV_LEVELS": True}, (".context.", "fpn.extra_p6.")),
+    # Pet's AlignedResNet
+    "aligned": ("flagship", {"BACKBONE.RESNET.USE_ALIGN": True}, (".conv2_3.",)),
+    # the ResNet-18 trunk
+    "r18": ("flagship", {"BACKBONE.RESNET.BOTTLENECK": False,
+                         "BACKBONE.RESNET.LAYERS": (2, 2, 2, 2)}, ("backbone.layer4.",)),
+}
+ZOO_LATENCY = ("gn_ws", "nasfpn", "bifpn")  # batch-1 latency timed
+# BiFPN's resizes (the JAX package's and the reference's formula) need every
+# level to halve exactly: an 800-row batch's 25-row C5 pools to a 12-row P6
+# that the bottom-up path cannot reach again (ceil(25 / 12) = 3 gives 9
+# rows). EfficientDet's inputs are multiples of 128; BiFPN runs at 768x1344.
+ZOO_BUCKET = {"bifpn": (768, 1344)}
+
+
+def _set_keys(cfg, keys):
+    for key, value in keys.items():
+        node = cfg
+        *parents, leaf = key.split(".")
+        for p in parents:
+            node = node[p]
+        node[leaf] = value
+    return cfg
+
+
+def zoo_cfg(name, tiny=False):
+    """Phase 17's model `name` on the port's config; with `tiny`, its twin
+    at the widths of tests/test_torch_zoo.py::zoo_cfg, in f32."""
+    import os
+
+    from cpm_tpu_torch.config import flagship_cfg
+    from cpm_tpu_torch.tools.train_net import load_config
+
+    base, keys, _ = ZOO_MODELS[name]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    if base == "faster":
+        yaml = "cfgs/debug/tiny_fast_rcnn.yaml" if tiny else FASTER_YAML
+        cfg = load_config(os.path.join(repo, yaml), ["FAST_RCNN.SCORE_THRESH", "0.0"])
+    else:
+        cfg = flagship_cfg(tiny=tiny)
+        cfg.GRID_RCNN.SCORE_THRESH = 0.0   # random weights score near 1/81
+    cfg.SOLVER.BASE_LR = 0.0025
+    cfg = _set_keys(cfg, keys)
+    if tiny:
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+        cfg.FPN.DIM = cfg.FPN.NASFPN.DIM = cfg.FPN.BIFPN.DIM = cfg.FPN.HRFPN.DIM = 32
+        cfg.FPN.NASFPN.NUM_STACK = cfg.FPN.BIFPN.NUM_STACK = 2
+        r = cfg.BACKBONE.RESNET
+        if base == "faster":
+            cfg.FAST_RCNN.MLP_HEAD.MLP_DIM = 64
+            r.WIDTH = 32
+            h = cfg.FAST_RCNN.CONVFC_HEAD
+            h.CONV_DIM, h.NUM_STACKED_CONVS, h.MLP_DIM = 32, 2, 64
+        elif r.USE_GN:
+            r.BASE_PLANES = 32
+        if not r.BOTTLENECK:
+            r.LAYERS = (2, 1, 1, 1)
+    return cfg
+
+
+def fold_images():
+    """The seeded batch whose statistics the tiny twins' affines are folded
+    from (tests/test_torch_zoo.py folds from the same)."""
+    return np.random.RandomState(9).randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+
+
+def phase_zoo_reference(dev):
+    """The tiny twins in f32 on the card against the CPU port, with phase
+    14's tolerances: eval detections (same_detections) and one training
+    forward's losses on the same batch and draws (1e-4 relative). Each twin
+    is built on the CPU with its frozen affines folded from a seeded batch
+    (as tests/test_torch_zoo.py folds them), and the card's copy
+    takes the same state. A random tiny CPM model scores many detections
+    exactly 0 (its IoU branch's prediction clamped), the aligned and
+    ResNet-18 twins every one: each device breaks those ties its own way, so
+    the detections are matched among those that score above 0, and their
+    counts in all. The CPU port is held against the JAX package by
+    tests/test_torch_zoo.py."""
+    from cpm_tpu_torch.data.synthetic import synthetic_batch
+    from cpm_tpu_torch.engine.test import make_forward_fn
+    from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.tools.profile_eval import make_request
+    from cpm_tpu_torch.tools.profile_train import fold_batch_statistics
+    from cpm_tpu_torch.utils.sampler import Draws
+
+    for name in ZOO_MODELS:
+        cfg = zoo_cfg(name, tiny=True)
+        images, sizes = make_request(np.random.RandomState(1), [(64, 64), (56, 48)], (64, 64))
+        batch = synthetic_batch(2, 64, 64, max_gt=4, num_classes=cfg.MODEL.NUM_CLASSES, seed=5)
+        dets, losses, state = {}, {}, None
+        for d in ("cpu", dev):
+            model = build_model(cfg, d, seed=0)
+            if state is None:
+                fold_batch_statistics(model, fold_images())
+                state = model.state_dict()
+            else:
+                model.load_state_dict(state)
+            dets[d] = make_forward_fn(cfg, model)(images, sizes)
+            tb = {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+            out = model(tb["images"], tb["image_sizes"], train=True,
+                        draws=Draws(torch.Generator().manual_seed(3)),
+                        gt=dict(boxes=tb["gt_boxes"], labels=tb["gt_labels"], mask=tb["gt_mask"]))
+            losses[d] = {k: float(v.detach()) for k, v in out.items()}
+        for i in range(len(sizes)):
+            if int(dets[dev].mask[i].sum()) != int(dets["cpu"].mask[i].sum()):
+                raise AssertionError(f"[zoo reference] {name} image {i}: detection counts differ")
+        scored = {d: v._replace(mask=v.mask & (v.scores > 0)) for d, v in dets.items()}
+        same_detections(scored[dev], scored["cpu"], f"[zoo reference] {name}")
+        worst = max(abs(losses[dev][k] - v) / abs(v) for k, v in losses["cpu"].items())
+        if sorted(losses[dev]) != sorted(losses["cpu"]) or worst > 1e-4:
+            raise AssertionError(f"[zoo reference] {name}: losses {losses[dev]} vs the CPU "
+                                 f"port's {losses['cpu']}")
+        print(f"[zoo reference] {name}: {[int(m.sum()) for m in dets['cpu'].mask]} detections, "
+              f"as many as the CPU port's; those scoring above 0 "
+              f"({[int(m.sum()) for m in scored['cpu'].mask]}) match it (labels exact, boxes "
+              f"1e-2 px, scores 1e-4); {len(losses['cpu'])} losses within {worst:.2g} relative "
+              f"(bound 1e-4)")
+
+
+def phase_zoo(dev, card):
+    """Phase 17: the eight trunk and neck models of ZOO_MODELS at 800x1344,
+    each through one batch-1 eval forward and one batch-2 training step with
+    its launches predicted by `pooler_sites` (kernel 1 at every pooler call,
+    kernel 2 at every call of a step), its losses, detections and parameters
+    checked; three of them timed at batch 1; the tiny twins on the card
+    against the CPU port. Returns the launches of its driven runs."""
+    t_phase = time.perf_counter()
+    launched = {}
+    for name, (_, _, must_move) in ZOO_MODELS.items():
+        cfg = zoo_cfg(name)
+        tag = f"[zoo {name}]"
+        out = drive_model(tag, cfg, ZOO_BUCKET.get(name, (800, 1344)), card, dev=dev,
+                          latency=name in ZOO_LATENCY, must_move=must_move)
+        print(f"{tag} peak device memory of the training step {out['step_peak_mib']:.1f} MiB "
+              f"(max_memory_allocated) | {card}")
+        for k, v in out["launched"].items():
+            launched[k] = launched.get(k, 0) + v
+    print(f"[zoo] launches of the {len(ZOO_MODELS)} models' runs: "
+          f"{ {k: v for k, v in launched.items() if v} }")
+    phase_zoo_reference(dev)
+    print(f"[zoo] phase took {time.perf_counter() - t_phase:.1f} s | {card}")
+    return launched
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -3207,6 +3407,8 @@ def main():
     options, single_sites, _ = phase_options(dev, card)
     torch.cuda.empty_cache()
     dp = phase_data_parallel(dev, card)
+    torch.cuda.empty_cache()
+    zoo = phase_zoo(dev, card)
 
     # launches on the driven paths: eval forwards plus training steps, and
     # the CLIs' runs
@@ -3214,11 +3416,11 @@ def main():
         "multilevel_roi_align": (fwd["auto"]["launches"] + bwd["auto"]["launches"][0]
                                  + x101_fwd["pooler_launches"] + x101_bwd["pooler_launches"][0]
                                  + cli[0] + ms[0] + cascade[0] + options["multilevel_roi_align"]
-                                 + dp[0]),
+                                 + dp[0] + zoo["multilevel_roi_align"]),
         "multilevel_roi_align_backward": (bwd["auto"]["launches"][1] + bwd["clustered"]["launches"][1]
                                           + x101_bwd["pooler_launches"][1] + cli[1] + ms[1]
                                           + cascade[1] + options["multilevel_roi_align_backward"]
-                                          + dp[1]),
+                                          + dp[1] + zoo["multilevel_roi_align_backward"]),
         "clustered_roi_align": fwd["clustered"]["launches"] + bwd["clustered"]["launches"][0],
         "cluster_rois": fwd["clustered"]["grouping"]["launches"] + bwd["clustered"]["grouping_launches"],
         "stacked_roi_align": fwd["stacked"]["launches"] + bwd["stacked"]["launches"][0],

@@ -1,12 +1,14 @@
-"""Generalized R-CNN: trunk -> FPN -> RPN -> one RoI head family.
+"""Generalized R-CNN: trunk -> neck -> RPN -> one RoI head family.
 
 Port of cpm_tpu/modeling/model.py (`GeneralizedRCNN`, `FastRCNNHead`,
 `_head_scales`, `_head_features`, `_normalize_uint8`, `build_model`):
-ResNet or ResNeXt trunk (plain or deformable stages) -> FPN (P2..P6) -> RPN
--> the head the config selects (model.py:217-233 there): Fast R-CNN
-(`MODEL.FASTER_RCNN`), Cascade R-CNN (with `MODEL.CASCADE_ON`), Grid R-CNN
-or CPM's grid cascade (`MODEL.GRID_ON`), or none (`MODEL.RPN_ONLY`: the
-RPN's losses, and its proposals as the detections). Without FPN
+ResNet or ResNeXt trunk (any of its block, stem, norm, conv and context
+options) -> the neck FPN.BODY names (FPN, HRFPN, NAS-FPN or BiFPN, from the
+table `NECKS`; the heads take its width) -> RPN -> the head the config
+selects (model.py:217-233 there): Fast R-CNN (`MODEL.FASTER_RCNN`),
+Cascade R-CNN (with `MODEL.CASCADE_ON`), Grid R-CNN or CPM's grid cascade
+(`MODEL.GRID_ON`), or none (`MODEL.RPN_ONLY`: the RPN's losses, and its
+proposals as the detections). Without FPN
 (`MODEL.FPN_ON` False, the C4 family) the RPN runs on the trunk's last map
 alone, one anchor stride, and the Fast R-CNN head pools that map at its one
 scale (the C4 heads, roi_heads/c4_heads.py). The forward takes the JAX package's
@@ -16,7 +18,8 @@ forward the dict of losses.
 
 Inside, images become an NCHW view of their NHWC memory (channels_last), so
 every convolution stays channels_last and each FPN level's NHWC view
-`[B, H, W, C]` is contiguous: the pooler kernel reads it without a copy.
+`[B, H, W, C]` is contiguous: the pooler kernel reads it without a copy (a
+level that a GroupNorm left NCHW is made channels_last once).
 """
 
 import contextlib
@@ -26,7 +29,7 @@ import torch
 from torch import nn
 
 from cpm_tpu_torch.modeling.backbone.resnet import BACKBONES
-from cpm_tpu_torch.modeling.fpn import build_fpn
+from cpm_tpu_torch.modeling.necks_extra import NECKS
 from cpm_tpu_torch.modeling.roi_heads.box_head import (
     BoxOutput,
     Detections,
@@ -134,7 +137,7 @@ def _roi_head(cfg, in_channels: int, generator):
 
 
 class GeneralizedRCNN(nn.Module):
-    """Backbone -> FPN -> RPN -> RoI head family."""
+    """Backbone -> neck -> RPN -> RoI head family."""
 
     def __init__(self, cfg, generator: torch.Generator = None):
         super().__init__()
@@ -145,8 +148,10 @@ class GeneralizedRCNN(nn.Module):
         self.cfg = cfg
         self.backbone = BACKBONES[c.BACKBONE.CONV_BODY](c, generator)
         if c.MODEL.FPN_ON:
-            self.fpn = build_fpn(c, self.backbone.dim_out, generator)
-            dim = c.FPN.DIM
+            if c.FPN.BODY not in NECKS:
+                raise NotImplementedError(f"FPN.BODY {c.FPN.BODY}: the port runs {sorted(NECKS)}")
+            self.fpn = NECKS[c.FPN.BODY](c, self.backbone.dim_out, generator)
+            dim = self.fpn.dim_out
         else:
             self.fpn = None
             dim = self.backbone.dim_out[-1]
@@ -213,6 +218,10 @@ class GeneralizedRCNN(nn.Module):
         feats = self.backbone(x)
         if self.fpn is not None:
             feats = self.fpn(feats)
+        # the pooler kernels read each level's NHWC view in place; a level
+        # that leaves a GroupNorm or a resize in another layout (CUDA's
+        # GroupNorm returns NCHW-contiguous maps) is copied once here
+        feats = [f.contiguous(memory_format=torch.channels_last) for f in feats]
         # without FPN, the RPN runs on the last map alone
         rpn_feats = feats if self.fpn is not None else feats[-1:]
         objectness, box_reg = self.rpn_head(rpn_feats)

@@ -2,7 +2,8 @@
 
 Port of cpm_tpu/modeling/norm.py. Detection trunks run frozen BatchNorm,
 which is a per-channel affine (`AffineChannel`). `GroupNorm` keeps the
-reference's group-count rule. Tensors are NCHW (in channels_last memory).
+reference's group-count rule. `make_norm` picks one by the reference's norm
+strings. Tensors are NCHW (in channels_last memory).
 """
 
 import torch
@@ -27,3 +28,18 @@ class GroupNorm(nn.GroupNorm):
 
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5):
         super().__init__(num_groups, num_channels, eps=eps)
+
+
+def make_norm(num_channels: int, norm: str = "affine") -> nn.Module:
+    """'bn' / 'affine' / 'freeze' -> AffineChannel (detection-time BN is
+    frozen), 'gn' -> GroupNorm, 'none' -> identity; a prefix before the last
+    '_' is ignored, as in the JAX package. Its GroupNorm takes 32 groups
+    whatever the width (ROADMAP Queue 3)."""
+    key = norm.split("_")[-1]
+    if key in ("bn", "affine", "freeze"):
+        return AffineChannel(num_channels)
+    if key == "gn":
+        return GroupNorm(num_channels)
+    if key == "none":
+        return nn.Identity()
+    raise ValueError(f"unsupported norm: {norm}")

@@ -22,10 +22,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from cpm_tpu_torch.modeling import initializers as init
-from cpm_tpu_torch.modeling.backbone.resnet import check_plain_options
+from cpm_tpu_torch.modeling.backbone.resnet import check_options
 from cpm_tpu_torch.modeling.roi_heads.c4_heads import ResNet2MLPHead, ResNetC5Head
 from cpm_tpu_torch.modeling.roi_heads.grid_modules import ClsHead
 from cpm_tpu_torch.modeling.roi_heads.targets import gather_rows
+from cpm_tpu_torch.modeling.ws import maybe_ws
 from cpm_tpu_torch.ops.box_coder import BoxCoder
 from cpm_tpu_torch.ops.losses import global_count, smooth_l1_loss, softmax_cross_entropy
 from cpm_tpu_torch.ops.nms import filter_results, topk
@@ -110,26 +111,24 @@ def build_box_head(cfg, name: str, in_channels: int, scales, generator=None,
     kw = dict(resolution=tuple(f.ROI_XFORM_RESOLUTION), scales=scales,
               sampling_ratio=f.ROI_XFORM_SAMPLING_RATIO, generator=generator)
     if name in ("resnet_c5_head", "resnet_2mlp_head"):
-        check_plain_options(cfg.BACKBONE.RESNET, "ResNet stage-5")
+        r = cfg.BACKBONE.RESNET
+        check_options(r, "ResNet stage-5")
         if name == "resnet_c5_head":
             head = ResNetC5Head(cfg, in_channels, **kw)
         else:
             head = ResNet2MLPHead(cfg, in_channels, mlp_dim=f.MLP_HEAD.MLP_DIM, **kw)
-        return head, head.dim_out
+        return maybe_ws(head, r.USE_WS), head.dim_out
     if name == "roi_2mlp_head":
         mlp_dim = f.MLP_HEAD.MLP_DIM if sized_by_cfg else 1024
         return TwoMLPHead(in_channels, mlp_dim=mlp_dim, **kw), mlp_dim
     if name == "roi_xconv1fc_head":
         h = f.CONVFC_HEAD
-        if h.USE_WS:
-            raise NotImplementedError(
-                "FAST_RCNN.CONVFC_HEAD.USE_WS: weight standardisation (cpm_tpu/modeling/ws.py) "
-                "is not ported (ROADMAP Queue 1, item 8)")
         if sized_by_cfg:
             kw.update(conv_dim=h.CONV_DIM, num_stacked_convs=h.NUM_STACKED_CONVS,
                       mlp_dim=h.MLP_DIM, dilation=h.DILATION)
         head = ConvFCHead(in_channels, **kw)
-        return head, head.fc.out_features
+        # USE_WS standardises the stacked convs, in the Cascade's heads too
+        return maybe_ws(head, h.USE_WS), head.fc.out_features
     raise ValueError(f"unknown ROI_BOX_HEAD {name}")
 
 

@@ -16,8 +16,11 @@ Both pool one level, so their pooler calls go to the single-level RoIAlign
 kernel (ops/cuda/roi_align.py) on the card. Stage 5's blocks are the
 trunk's (`layer4`, names as in the trunk, so the bridge and the importer
 map them alike) and take its options: BASE_PLANES, WIDTH, STRIDE_3X3,
-STAGE_WITH_CONV[3] and C5_DILATION; its AffineChannels are frozen like the
-trunk's. Pooled features enter and leave NHWC.
+STAGE_WITH_CONV[3], STAGE_WITH_CONTEXT[3], CTX_RATIO, USE_GN, AVG_DOWN and
+C5_DILATION, and USE_WS standardises the head's convs (the 2mlp head's
+`conv_new` too); its AffineChannels are frozen like the trunk's. Stage 5 is
+made of bottleneck blocks whatever USE_ALIGN and BOTTLENECK say, as in the
+JAX package. Pooled features enter and leave NHWC.
 """
 
 from typing import Sequence
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cpm_tpu_torch.modeling import initializers as init
-from cpm_tpu_torch.modeling.backbone.resnet import Bottleneck, make_stage
+from cpm_tpu_torch.modeling.backbone.resnet import Bottleneck, block_options, make_stage
 from cpm_tpu_torch.ops.pooler import Pooler
 
 
@@ -36,7 +39,8 @@ def _stage5(cfg, in_channels: int, stride: int, generator) -> nn.Sequential:
     r = cfg.BACKBONE.RESNET
     bp = getattr(r, "BASE_PLANES", 64)
     return make_stage(in_channels, bp * 8, r.LAYERS[3], stride, r.WIDTH, 1,
-                      r.STAGE_WITH_CONV[3], r.STRIDE_3X3, r.C5_DILATION, generator)
+                      r.STAGE_WITH_CONV[3], r.STRIDE_3X3, r.C5_DILATION, generator,
+                      context=r.STAGE_WITH_CONTEXT[3], **block_options(r))
 
 
 class ResNetC5Head(nn.Module):

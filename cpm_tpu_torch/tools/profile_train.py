@@ -96,11 +96,13 @@ def fold_batch_statistics(model, images):
     """Set the trunk's frozen AffineChannels from the statistics of one
     batch, as a pretrained checkpoint's folded BatchNorm does: each becomes
     (x - mean) / std per channel of what it is fed, the last one of every
-    residual block times 0.25. With the fresh unit affines the untrained
+    residual block (a bottleneck's bn3, an aligned block's bn, a basic
+    block's bn2) times 0.25. With the fresh unit affines the untrained
     trunk's activations grow by orders of magnitude from block to block, the
     first losses are in the tens of thousands, and SGD at the schedule's
     rate diverges within two steps; a trained trunk never looks like that.
     One f32 forward of the trunk, each affine set just before it runs."""
+    from cpm_tpu_torch.modeling.backbone.resnet import AlignedBottleneck, BasicBlock, Bottleneck
     from cpm_tpu_torch.modeling.norm import AffineChannel
 
     def fold(module, args):
@@ -111,7 +113,8 @@ def fold_batch_statistics(model, images):
         module.bias.copy_(-mean * gamma / std)
 
     affines = [(n, m) for n, m in model.backbone.named_modules() if isinstance(m, AffineChannel)]
-    last_of_block = {m for n, m in affines if n.endswith("bn3")}
+    last = {Bottleneck: "bn3", AlignedBottleneck: "bn", BasicBlock: "bn2"}
+    last_of_block = {getattr(b, last[type(b)]) for b in model.backbone.modules() if type(b) in last}
     hooks = [m.register_forward_pre_hook(fold) for _, m in affines]
     try:
         with torch.no_grad():

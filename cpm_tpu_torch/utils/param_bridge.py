@@ -24,6 +24,14 @@ momentum tree); `state_dict_to_flax` goes back. Layouts:
 * The C4 heads' stage 5 (`roi_head/head/layer4_{b}`) maps as the trunk's
   stages do; SE_ON's `se/fc1`, `se/fc2` are 1x1 convs, OFFSET_ON's
   `offset_conv` a conv and `offset_fc`, `offset_emb` dense layers.
+* flax auto-names the norms (`AffineChannel_k`, or `GroupNorm_k/gn` under
+  GN) in call order. In the stem they are `bn1`..`bn3`; in a block they map
+  by the block's kind (`BLOCK_NORMS`), which its convs tell: `conv1_1` is an
+  aligned block, no `conv3` a basic one; a block's `SeBlock_0` /
+  `GlobalContextBlock_0` is its `context` (a LayerNorm's `scale` is its
+  `weight`). The FPN's own norms are the ModuleList `fpn.norms`; a neck's
+  `RefConv` norm is its `norm`; BiFPN's fusion weights `w1`..`w3` keep their
+  names, as do the other necks' modules.
 
 Every flax leaf must land on one port parameter and every port parameter
 must receive one leaf, with matching shapes; anything else raises.
@@ -37,14 +45,16 @@ import torch
 
 # (pattern, replacement) on the '/'-joined flax path; the first match wins
 _RULES = [
-    (r"^backbone/AffineChannel_0/", "backbone/bn1/"),
-    # the trunk's stages, and the C4 heads' stage 5 (roi_head/head/layer4_{b})
-    (r"^((?:backbone|roi_head/head)/layer\d+)_(\d+)/AffineChannel_3/", r"\1/\2/downsample/1/"),
-    (r"^((?:backbone|roi_head/head)/layer\d+)_(\d+)/AffineChannel_([0-2])/",
-     lambda m: f"{m[1]}/{m[2]}/bn{int(m[3]) + 1}/"),
+    (r"^backbone/(?:AffineChannel|GroupNorm)_(\d)/(?:gn/)?", lambda m: f"backbone/bn{int(m[1]) + 1}/"),
+    # the trunk's stages, and the C4 heads' stage 5 (roi_head/head/layer4_{b}),
+    # whose norms torch_key has named by BLOCK_NORMS
     (r"^((?:backbone|roi_head/head)/layer\d+)_(\d+)/downsample_conv/", r"\1/\2/downsample/0/"),
+    (r"^((?:backbone|roi_head/head)/layer\d+)_(\d+)/(?:SeBlock|GlobalContextBlock)_0/",
+     r"\1/\2/context/"),
     (r"^((?:backbone|roi_head/head)/layer\d+)_(\d+)/", r"\1/\2/"),
     (r"^fpn/fpn_(in|out)_(\d+)/", r"fpn/fpn_\1/\2/"),
+    (r"^fpn/(?:AffineChannel|GroupNorm)_(\d+)/(?:gn/)?", r"fpn/norms/\1/"),
+    (r"^fpn/(.+?)/(?:AffineChannel|GroupNorm)_0/(?:gn/)?", r"fpn/\1/norm/"),
     (r"^roi_head/grid_head_(\d+)/conv(\d+)/", r"roi_head/grid_heads/\1/convs/\2/"),
     (r"^roi_head/grid_head_(\d+)/gn(\d+)/", r"roi_head/grid_heads/\1/gns/\2/"),
     (r"^roi_head/grid_head_(\d+)/([fs]order)_(\d+)_(\d+)/",
@@ -61,7 +71,15 @@ _RULES = [
     (r"^roi_head/box_head_(\d+)/", r"roi_head/box_heads/\1/"),
     (r"^roi_head/output_(\d+)/", r"roi_head/outputs/\1/"),
 ]
-_LEAF = {"kernel": "weight", "weight": "weight", "scale": "weight", "bias": "bias"}
+_LEAF = {"kernel": "weight", "weight": "weight", "scale": "weight", "bias": "bias",
+         "w1": "w1", "w2": "w2", "w3": "w3"}
+# a trunk block's norms in flax's call order, by the block's kind
+BLOCK_NORMS = {
+    "bottleneck": ("bn1", "bn2", "bn3", "downsample/1"),
+    "aligned": ("bn1_1", "bn2_1", "bn2_2", "bn_concat", "bn", "downsample/1"),
+    "basic": ("bn1", "bn2", "downsample/1"),
+}
+_BLOCK = r"^((?:backbone|roi_head/head)/layer\d+_\d+)/"
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -74,9 +92,27 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
     return out
 
 
-def torch_key(flax_path) -> str:
-    """The state_dict key of one flax leaf path (tuple of names)."""
+def block_kinds(paths) -> Dict[str, str]:
+    """Trunk block path -> 'bottleneck' | 'aligned' | 'basic', from the
+    convs among the flax leaf paths (tuples of names)."""
+    convs = {}
+    for path in paths:
+        m = re.match(_BLOCK + r"([^/]+)/", "/".join(path))
+        if m:
+            convs.setdefault(m[1], set()).add(m[2])
+    return {block: "aligned" if "conv1_1" in names else ("bottleneck" if "conv3" in names
+                                                           else "basic")
+            for block, names in convs.items()}
+
+
+def torch_key(flax_path, kinds: Mapping[str, str] = None) -> str:
+    """The state_dict key of one flax leaf path (tuple of names); `kinds`
+    (`block_kinds`) names each trunk block's kind, bottleneck by default."""
     path = "/".join(flax_path)
+    m = re.match(_BLOCK + r"(?:AffineChannel|GroupNorm)_(\d+)/(?:gn/)?", path)
+    if m:
+        norm = BLOCK_NORMS[(kinds or {}).get(m[1], "bottleneck")][int(m[2])]
+        path = f"{m[1]}/{norm}/{path[m.end():]}"
     for pattern, repl in _RULES:
         new, n = re.subn(pattern, repl, path)
         if n:
@@ -127,8 +163,10 @@ def name_map(tree: Mapping) -> Dict[tuple, str]:
     """Flax leaf path (tuple of names) -> port parameter name, for every
     leaf of a tree of the params' structure; two leaves on one name raise."""
     out = {}
-    for path in _flatten(tree):
-        key = torch_key(path)
+    paths = list(_flatten(tree))
+    kinds = block_kinds(paths)
+    for path in paths:
+        key = torch_key(path, kinds)
         if key in out.values():
             raise KeyError(f"two flax leaves map to {key}")
         out[path] = key

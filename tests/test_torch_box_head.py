@@ -249,27 +249,17 @@ def tiny_cfg(path, **overrides):
 
 
 def model_outputs(cfg, prepare=None, batch=None, frames=("cpm_tpu.utils.sampler",),
-                  threads=None, share=None):
+                  share=None):
     """The port's seeded weights (passed to `prepare(model)` first, when
     given) bridged into the JAX model; both models' eval detections, and
     their losses and gradients on a seeded batch (or `batch`) with the same
-    recorded draws (those of the JAX modules in `frames`). With `threads`,
-    the port runs on that many intra-op threads: a model of many tiny convs
-    runs faster on one when several test workers share the cores. Shared by
+    recorded draws (those of the JAX modules in `frames`). Shared by
     this file, tests/test_torch_cascade.py, tests/test_torch_grid_options.py
     and tests/test_torch_c4.py. With `share` (tmp_path_factory, name) the
     JAX side is computed once a session (tests/torch_support.py::shared):
     the port's weights are drawn from a seed, so each worker's are the
     same."""
     import torch
-
-    if threads is not None:
-        saved = torch.get_num_threads()
-        torch.set_num_threads(threads)
-        try:
-            return model_outputs(cfg, prepare, batch, frames, share=share)
-        finally:
-            torch.set_num_threads(saved)
 
     from cpm_tpu_torch.engine.test import make_forward_fn
     from cpm_tpu_torch.modeling.model import build_model
@@ -428,19 +418,37 @@ def test_rpn_only_matches_jax():
 
 @pytest.mark.parametrize("case", ["c4_family", "convfc_ws", "c5_head"])
 def test_unported_box_head_options_raise(case):
+    """A C4 model with a head other than Fast R-CNN's raises at build, as the
+    JAX package's Cascade and grid heads have no levels to pool there. The
+    ConvFC head's weight standardisation, and the C5 head's stage 5 with an
+    SE block, now run: their eval detections, losses and gradients match the
+    JAX package's (as test_fast_rcnn_eval_matches_jax and
+    test_fast_rcnn_losses_and_gradients_match_jax hold them)."""
     from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.modeling.ws import WSConv2d
 
+    c4 = os.path.join(REPO, "cfgs", "debug", "tiny_fast_rcnn_c4.yaml")
     if case == "c4_family":
-        cfg = tiny_cfg(os.path.join(REPO, "cfgs", "debug", "tiny_fast_rcnn_c4.yaml"),
-                       **{"MODEL.CASCADE_ON": True})
-        match = "C4 family"
-    elif case == "convfc_ws":
+        cfg = tiny_cfg(c4, **{"MODEL.CASCADE_ON": True})
+        with pytest.raises(NotImplementedError, match="C4 family"):
+            build_model(cfg, "cpu")
+        return
+    if case == "convfc_ws":
         cfg = tiny_cfg(TINY, **{"FAST_RCNN.ROI_BOX_HEAD": "roi_xconv1fc_head",
-                                "FAST_RCNN.CONVFC_HEAD.USE_WS": True})
-        match = "USE_WS"
+                                "FAST_RCNN.CONVFC_HEAD.USE_WS": True,
+                                "FAST_RCNN.CONVFC_HEAD.CONV_DIM": 32,
+                                "FAST_RCNN.CONVFC_HEAD.NUM_STACKED_CONVS": 2})
     else:
-        cfg = tiny_cfg(TINY, **{"FAST_RCNN.ROI_BOX_HEAD": "resnet_c5_head",
-                                "BACKBONE.RESNET.STAGE_WITH_CONTEXT": ("none",) * 3 + ("se",)})
-        match = "context"
-    with pytest.raises(NotImplementedError, match=match):
-        build_model(cfg, "cpu")
+        cfg = tiny_cfg(c4, **{"FAST_RCNN.ROI_BOX_HEAD": "resnet_c5_head",
+                              "FAST_RCNN.ROI_XFORM_RESOLUTION": (14, 14),
+                              "FAST_RCNN.SCORE_THRESH": 0.0,
+                              "BACKBONE.RESNET.STAGE_WITH_CONTEXT": ("none",) * 3 + ("se",)})
+    out = model_outputs(cfg)
+    head = out["model"].roi_head.head
+    if case == "convfc_ws":
+        assert all(type(conv) is WSConv2d for conv in head.convs)
+    else:
+        assert {"fc1", "fc2"} <= {n for n, _ in head.layer4[0].context.named_children()}
+    assert_detections_match(out["got_dets"], out["dets"])
+    assert assert_losses_and_gradients_match(out, LOSSES) > 10
+    assert_bridge_round_trip(out)

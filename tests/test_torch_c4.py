@@ -98,7 +98,7 @@ def tiny_c4_cfg(head):
 @pytest.fixture(scope="module", params=HEADS)
 def c4_outputs(request, tmp_path_factory):
     return memo(f"c4 {request.param}", lambda: dict(model_outputs(
-        tiny_c4_cfg(request.param), threads=1, share=(tmp_path_factory, f"c4_{request.param}")),
+        tiny_c4_cfg(request.param), share=(tmp_path_factory, f"c4_{request.param}")),
         head=request.param))
 
 

@@ -75,21 +75,8 @@ def test_yaml_builds(yaml):
     assert params and all(p.is_meta for p in params)
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: the step is hundreds of tiny convs, which a
-    thread pool per test worker, several workers to the cores, slows 30
-    times."""
-    import torch
-
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("yaml", TRAIN_ONLY)
-def test_training_option_yaml_takes_a_tiny_step(yaml, one_thread):
+def test_training_option_yaml_takes_a_tiny_step(yaml):
     from cpm_tpu_torch.data.synthetic import synthetic_batch
     from cpm_tpu_torch.engine.train import create_train_state, make_train_step
     from cpm_tpu_torch.tools.train_net import load_config

@@ -49,7 +49,6 @@ from tests.test_torch_box_head import (
     assert_losses_and_gradients_match,
     model_outputs,
 )
-from tests.test_torch_configs_build import one_thread  # noqa: F401  (a fixture)
 from tests.test_torch_train import RecordedUniform, _flat
 from tests.torch_support import memo, one_torch_thread
 
@@ -270,7 +269,7 @@ def _option_outputs(which, tmp_path_factory):
     try:
         mp.setattr(grid_cascade_head, "resize_large_rois", counting)
         out = model_outputs(options_cfg(which), batch=_big_gt_batch(), frames=FRAMES,
-                            threads=1, share=(tmp_path_factory, f"options_{which}"))
+                            share=(tmp_path_factory, f"options_{which}"))
     finally:
         mp.undo()
     return dict(out, which=which, shrunk=shrunk)
@@ -319,7 +318,7 @@ def test_option_models_bridge_and_labels(option_outputs):
             assert got[key] == want[path], (freeze_at, key)
 
 
-def test_unused_offset_branch_moves_by_weight_decay_and_imports(one_thread):
+def test_unused_offset_branch_moves_by_weight_decay_and_imports():
     """OFFSET_ON under FUSED_ON: no loss reaches the offset branch; a train
     step gives it a zero gradient, so that SGD's weight decay moves it as
     optax's moves the JAX package's (first step: p - lr * wd * p). And the

@@ -38,6 +38,7 @@ from cpm_tpu.config import get_default_cfg as jax_default_cfg
 from cpm_tpu.config import merge_cfg_from_file as jax_merge_cfg_from_file
 from cpm_tpu.data.synthetic import synthetic_batch as jax_synthetic_batch
 from cpm_tpu.engine.train import batch_gt as jax_batch_gt
+from cpm_tpu.modeling import registry as jax_registry
 from cpm_tpu.modeling.backbone.resnet import ResNetBody as JaxResNetBody
 from cpm_tpu.modeling.model import build_model as jax_build_model
 from cpm_tpu.solver import build_optimizer as jax_build_optimizer
@@ -523,19 +524,44 @@ def test_x101_dcn_cfg_equals_the_yaml():
 
 
 def test_unported_trunk_options_go_on_raising():
-    from cpm_tpu_torch.config import flagship_cfg, x101_dcn_cfg
+    """Each trunk option that the JAX package builds builds in the port, on
+    RESNET and RESNEXT, with the JAX trunk's parameter shapes (its abstract
+    init, through the bridge); what the JAX package refuses too, a deformv3
+    stage and a mobilenet_v2 body, goes on raising. (The options' numbers
+    are held in tests/test_torch_zoo.py.)"""
+    from cpm_tpu_torch.config import flagship_cfg
+    from cpm_tpu_torch.modeling.backbone.resnet import BACKBONES
     from cpm_tpu_torch.modeling.model import build_model
+    from cpm_tpu_torch.utils.param_bridge import flax_tree_to_named
 
-    for section, make in (("RESNET", lambda: flagship_cfg(tiny=True)),
-                          ("RESNEXT", lambda: x101_dcn_cfg(tiny=True))):
+    image = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    n = 0
+    for section, make in (("RESNET", _resnet_cfgs), ("RESNEXT", _resnext_cfgs)):
         for key, value in (("USE_ALIGN", True), ("USE_GN", True), ("USE_WS", True),
                            ("USE_3x3x3HEAD", True), ("AVG_DOWN", True),
-                           ("STAGE_WITH_CONTEXT", ("none", "gcb", "none", "none")),
-                           ("STAGE_WITH_CONV", ("normal", "deformv3", "normal", "normal"))):
-            cfg = make()
-            cfg.BACKBONE[section][key] = value
-            with pytest.raises(NotImplementedError):
-                build_model(cfg, "cpu")
+                           ("STAGE_WITH_CONTEXT", ("none", "gcb", "none", "none"))):
+            jcfg, cfg = make()
+            for c in (jcfg, cfg):
+                c.BACKBONE[section][key] = value
+                if key == "USE_GN":   # the JAX GroupNorm's 32 groups
+                    if section == "RESNET":
+                        c.BACKBONE.RESNET.BASE_PLANES = 32
+                    else:
+                        c.BACKBONE.RESNEXT.C = 8
+            body = cfg.BACKBONE.CONV_BODY
+            jbody = jax_registry.BACKBONES[body](jcfg)
+            like = jax.eval_shape(lambda: jbody.init(jax.random.PRNGKey(0), image))["params"]
+            like = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), like)
+            trunk = BACKBONES[body](cfg, None)
+            shapes = {f"backbone.{k}": tuple(p.shape) for k, p in trunk.named_parameters()}
+            named = flax_tree_to_named({"backbone": like}, shapes)
+            assert set(named) == set(shapes), (section, key)
+            n += len(named)
+        jcfg, cfg = make()
+        cfg.BACKBONE[section].STAGE_WITH_CONV = ("normal", "deformv3", "normal", "normal")
+        with pytest.raises(NotImplementedError, match="deformv3"):
+            build_model(cfg, "cpu")
+    assert n > 500
     cfg = flagship_cfg(tiny=True)
     cfg.BACKBONE.CONV_BODY = "mobilenet_v2"
     with pytest.raises(NotImplementedError):
