@@ -2331,13 +2331,6 @@ def phase_cascade(dev, card):
     tally(launch_counts())
     reset_launch_counts()
 
-    def keep_forward(features, rois, levels, valid, output_size, *_):
-        return ([f.detach().clone() for f in features], rois.clone(), levels.clone(),
-                valid.clone(), tuple(output_size))
-
-    def keep_backward(shapes, rois, levels, valid, g, *_):
-        return ([tuple(s) for s in shapes], rois.clone(), levels.clone(), valid.clone(), g.clone())
-
     with capture_calls(ops()["multilevel"], "multilevel_roi_align", keep_forward) as eval_calls:
         forward(*request)
     step_fn = make_train_step(cfg, model, optimizer)
@@ -2540,6 +2533,18 @@ def pooler_sites(cfg):
     return counts(test_stages), dict(counts(stages), multilevel_roi_align_backward=branch + stages)
 
 
+def keep_forward(features, rois, levels, valid, output_size, *_):
+    """What one call of the kernel-1 wrapper was given (the maps cloned in
+    their layout)."""
+    return ([f.detach().clone() for f in features], rois.clone(), levels.clone(), valid.clone(),
+            tuple(output_size))
+
+
+def keep_backward(shapes, rois, levels, valid, g, *_):
+    """What one launch of kernel 2 was given."""
+    return ([tuple(s) for s in shapes], rois.clone(), levels.clone(), valid.clone(), g.clone())
+
+
 def keep_single_level(features, rois, output_size, spatial_scale, sampling_ratio, roi_mask=None):
     """What one call of the kernel-5 wrapper was given."""
     return (features.detach().clone(), rois.detach().clone(), tuple(output_size),
@@ -2547,7 +2552,8 @@ def keep_single_level(features, rois, output_size, spatial_scale, sampling_ratio
             None if roi_mask is None else roi_mask.detach().clone())
 
 
-def drive_model(tag, cfg, padded, card, timed=False, dev="cuda", latency=False, must_move=()):
+def drive_model(tag, cfg, padded, card, timed=False, dev="cuda", latency=False, must_move=(),
+                keep_calls=False):
     """One of phase 15's or 17's models at full width from seed 0 (bf16 over
     f32 masters, the trunk's frozen affines folded from one batch): one
     batch-1 eval forward and one batch-2 training step, each held to its
@@ -2556,8 +2562,11 @@ def drive_model(tag, cfg, padded, card, timed=False, dev="cuda", latency=False, 
     bit-equal, a tensor of every group moved and one whose name holds each
     of `must_move`. With `latency`: 10 more batch-1 requests timed. With
     `timed`: those, 3 more steps, the peaks, and what the kernel-5 calls of
-    one eval forward and one step were given. Returns (launches of its runs,
-    the captured kernel-5 calls, timings, the step's peak memory)."""
+    one eval forward and one step were given. With `keep_calls`: what the
+    kernel-1 calls of one more eval forward and step, and the kernel-2
+    launches of that step, were given (out["kept"]: eval, step, backward),
+    held to the predicted launches. Returns (launches of its runs, the
+    captured kernel-5 calls, timings, the step's peak memory)."""
     from cpm_tpu_torch.data.synthetic import synthetic_batch
     from cpm_tpu_torch.engine.test import make_forward_fn
     from cpm_tpu_torch.engine.train import create_train_state, make_train_step
@@ -2630,6 +2639,23 @@ def drive_model(tag, cfg, padded, card, timed=False, dev="cuda", latency=False, 
     if latency and not timed:
         eval_latency(tag, forward, check, eval_want, card, padded)
         tally()
+    if keep_calls:
+        multilevel = ops()["multilevel"]
+        with capture_calls(multilevel, "multilevel_roi_align", keep_forward) as eval_calls:
+            counted_run(tag, "batch-1 eval forward, kernel-1 calls kept",
+                        lambda: forward(*request), eval_want, card)
+        tally()
+        with capture_calls(multilevel, "multilevel_roi_align", keep_forward) as step_calls, \
+                capture_calls(multilevel.KERNEL, "backward", keep_backward) as bwd_calls:
+            state, _ = counted_run(tag, "batch-2 training step, kernel-1 and -2 calls kept",
+                                   lambda: step_fn(state, batch_for(101)), step_want, card)
+        tally()
+        out["kept"] = dict(eval=eval_calls, step=step_calls, backward=bwd_calls)
+        want = (eval_want["multilevel_roi_align"], step_want["multilevel_roi_align"],
+                step_want["multilevel_roi_align_backward"])
+        if tuple(len(v) for v in out["kept"].values()) != want:
+            raise AssertionError(f"{tag} kernel-1 and -2 calls kept: "
+                                 f"{ {k: len(v) for k, v in out['kept'].items()} }, want {want}")
     if timed:
         single = ops()["single"]
         with capture_calls(single, "roi_align_cuda", keep_single_level) as eval_calls:
@@ -3208,6 +3234,11 @@ ZOO_MODELS = {
                          "BACKBONE.RESNET.LAYERS": (2, 2, 2, 2)}, ("backbone.layer4.",)),
 }
 ZOO_LATENCY = ("gn_ws", "nasfpn", "bifpn")  # batch-1 latency timed
+# kernels 1 and 2 held against their plain versions at these models' pooler
+# calls: the GN trunk's and FPN's levels reach the pooler through the model's
+# channels_last copy, and BiFPN's through its resizes at 768x1344, shapes no
+# other phase gives the kernels
+ZOO_POOLER_CHECKED = ("gn_ws", "bifpn")
 # BiFPN's resizes (the JAX package's and the reference's formula) need every
 # level to halve exactly: an 800-row batch's 25-row C5 pools to a 12-row P6
 # that the bottom-up path cannot reach again (ceil(25 / 12) = 3 gives 9
@@ -3272,11 +3303,14 @@ def phase_zoo_reference(dev):
     forward's losses on the same batch and draws (1e-4 relative). Each twin
     is built on the CPU with its frozen affines folded from a seeded batch
     (as tests/test_torch_zoo.py folds them), and the card's copy
-    takes the same state. A random tiny CPM model scores many detections
-    exactly 0 (its IoU branch's prediction clamped), the aligned and
-    ResNet-18 twins every one: each device breaks those ties its own way, so
-    the detections are matched among those that score above 0, and their
-    counts in all. The CPU port is held against the JAX package by
+    takes the same state. Seeded weights give the ISM branch's IoU logits
+    near 0, of either sign, and ISM merged scores a detection by score x
+    IoU, which RSM clamps at 0: the twins' fg IoU bias is set to 0.5 first
+    (as phase 14 and tests/test_torch_cascade.py::_positive_iou do), so
+    that detections score above 0. Those that still score 0 tie, and each
+    device breaks the ties its own way: the detections are matched among
+    those that score above 0, of which every image must have some, and
+    their counts in all. The CPU port is held against the JAX package by
     tests/test_torch_zoo.py."""
     from cpm_tpu_torch.data.synthetic import synthetic_batch
     from cpm_tpu_torch.engine.test import make_forward_fn
@@ -3294,6 +3328,10 @@ def phase_zoo_reference(dev):
             model = build_model(cfg, d, seed=0)
             if state is None:
                 fold_batch_statistics(model, fold_images())
+                if cfg.MODEL.GRID_ON:
+                    with torch.no_grad():
+                        model.roi_head.grid_outputs[-1].iou_pred.bias.copy_(
+                            torch.tensor([0.0, 0.5]))
                 state = model.state_dict()
             else:
                 model.load_state_dict(state)
@@ -3307,6 +3345,9 @@ def phase_zoo_reference(dev):
             if int(dets[dev].mask[i].sum()) != int(dets["cpu"].mask[i].sum()):
                 raise AssertionError(f"[zoo reference] {name} image {i}: detection counts differ")
         scored = {d: v._replace(mask=v.mask & (v.scores > 0)) for d, v in dets.items()}
+        if not all(int(m.sum()) for m in scored["cpu"].mask):
+            raise AssertionError(f"[zoo reference] {name}: an image has no detection scoring "
+                                 f"above 0 ({[int(m.sum()) for m in scored['cpu'].mask]})")
         same_detections(scored[dev], scored["cpu"], f"[zoo reference] {name}")
         worst = max(abs(losses[dev][k] - v) / abs(v) for k, v in losses["cpu"].items())
         if sorted(losses[dev]) != sorted(losses["cpu"]) or worst > 1e-4:
@@ -3319,24 +3360,46 @@ def phase_zoo_reference(dev):
               f"(bound 1e-4)")
 
 
+def check_zoo_sites(tag, kept, card):
+    """Kernel 1 at the pooler calls of one of phase 17's eval forwards and
+    steps, and kernel 2 at the step's, against their plain versions (the
+    maps as the model gave them, scaled by a power of two; phase 1's and
+    phase 3's tolerances)."""
+    for what, calls in (("eval", kept["eval"]), ("step", kept["step"])):
+        summed([check_kernel(f"{tag} {what} call {i}", *c, card, rescale=True)
+                for i, c in enumerate(calls)], len(calls),
+               f"{tag} kernel 1: the {len(calls)} pooler calls of one "
+               f"{'batch-1 eval forward' if what == 'eval' else 'batch-2 training step'}", card)
+    n = len(kept["backward"])
+    summed([check_backward_kernel(f"{tag} step backward {i}", *c, card, rescale=True)
+            for i, c in enumerate(kept["backward"])], n,
+           f"{tag} kernel 2: the {n} backward calls of one batch-2 training step", card)
+    torch.cuda.empty_cache()
+
+
 def phase_zoo(dev, card):
     """Phase 17: the eight trunk and neck models of ZOO_MODELS at 800x1344,
     each through one batch-1 eval forward and one batch-2 training step with
     its launches predicted by `pooler_sites` (kernel 1 at every pooler call,
     kernel 2 at every call of a step), its losses, detections and parameters
-    checked; three of them timed at batch 1; the tiny twins on the card
-    against the CPU port. Returns the launches of its driven runs."""
+    checked; three of them timed at batch 1; kernels 1 and 2 held against
+    their plain versions on what the pooler calls of ZOO_POOLER_CHECKED's
+    models gave them; the tiny twins on the card against the CPU port.
+    Returns the launches of its driven runs."""
     t_phase = time.perf_counter()
     launched = {}
     for name, (_, _, must_move) in ZOO_MODELS.items():
         cfg = zoo_cfg(name)
         tag = f"[zoo {name}]"
         out = drive_model(tag, cfg, ZOO_BUCKET.get(name, (800, 1344)), card, dev=dev,
-                          latency=name in ZOO_LATENCY, must_move=must_move)
+                          latency=name in ZOO_LATENCY, must_move=must_move,
+                          keep_calls=name in ZOO_POOLER_CHECKED)
         print(f"{tag} peak device memory of the training step {out['step_peak_mib']:.1f} MiB "
               f"(max_memory_allocated) | {card}")
         for k, v in out["launched"].items():
             launched[k] = launched.get(k, 0) + v
+        if "kept" in out:
+            check_zoo_sites(tag, out.pop("kept"), card)
     print(f"[zoo] launches of the {len(ZOO_MODELS)} models' runs: "
           f"{ {k: v for k, v in launched.items() if v} }")
     phase_zoo_reference(dev)

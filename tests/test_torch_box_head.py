@@ -41,7 +41,8 @@ from cpm_tpu.modeling.roi_heads import box_head as jbh
 from cpm_tpu.ops.box_coder import BoxCoder as JaxBoxCoder
 from tests.test_torch_model import assert_same_detection_sets
 from tests.test_torch_train import RecordedUniform, _flat
-from tests.torch_support import memo, one_torch_thread, shared
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_support import memo, shared
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA_DIR = os.path.join(REPO, "data")
@@ -62,13 +63,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 def _close(got, want, rtol=1e-5):
@@ -249,16 +243,18 @@ def tiny_cfg(path, **overrides):
 
 
 def model_outputs(cfg, prepare=None, batch=None, frames=("cpm_tpu.utils.sampler",),
-                  share=None):
+                  share=None, compiler_options=None):
     """The port's seeded weights (passed to `prepare(model)` first, when
     given) bridged into the JAX model; both models' eval detections, and
     their losses and gradients on a seeded batch (or `batch`) with the same
     recorded draws (those of the JAX modules in `frames`). Shared by
-    this file, tests/test_torch_cascade.py, tests/test_torch_grid_options.py
-    and tests/test_torch_c4.py. With `share` (tmp_path_factory, name) the
-    JAX side is computed once a session (tests/torch_support.py::shared):
-    the port's weights are drawn from a seed, so each worker's are the
-    same."""
+    this file, tests/test_torch_cascade.py, tests/test_torch_grid_options.py,
+    tests/test_torch_c4.py and tests/test_torch_zoo.py. With `share`
+    (tmp_path_factory, name) the JAX side is computed once a session
+    (tests/torch_support.py::shared): the port's weights are drawn from a
+    seed, so each worker's are the same. `compiler_options` go to XLA's
+    compile of the JAX side (tests/test_torch_zoo.py compiles at backend
+    optimisation level 0: the same program, compiled with less work)."""
     import torch
 
     from cpm_tpu_torch.engine.test import make_forward_fn
@@ -299,6 +295,8 @@ def model_outputs(cfg, prepare=None, batch=None, frames=("cpm_tpu.utils.sampler"
         draws = RecordedUniform(7, frames)
         try:
             mp.setattr(jax.random, "uniform", draws)
+            if compiler_options is not None:
+                run = run.lower(params, images, sizes).compile(compiler_options=compiler_options)
             dets, ((_, losses), grads) = jax.device_get(run(params, images, sizes))
         finally:
             mp.undo()

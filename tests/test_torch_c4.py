@@ -35,7 +35,8 @@ from tests.test_torch_box_head import (
     model_outputs,
 )
 from tests.test_torch_train import _flat
-from tests.torch_support import memo, one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_support import memo
 
 HEADS = ("resnet_c5_head", "resnet_2mlp_head")
 LOSSES = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_box_reg")
@@ -54,13 +55,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 def tiny_c4_cfg(head):

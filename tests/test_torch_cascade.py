@@ -41,7 +41,8 @@ from tests.test_torch_box_head import (
     model_outputs,
     tiny_cfg,
 )
-from tests.torch_support import memo, one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_support import memo
 
 TINY = os.path.join(REPO, "cfgs", "debug", "tiny_cascade.yaml")
 LOSSES = ("loss_objectness", "loss_rpn_box_reg", "s1_cls_loss", "s1_bbox_loss", "s2_cls_loss",
@@ -63,13 +64,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 def test_stage_output_matches_jax_and_keeps_the_compute_dtype():

@@ -19,7 +19,7 @@ import types
 
 import numpy as np
 import pytest
-from tests.torch_support import one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(REPO, "cfgs", "debug", "tiny_cpm.yaml")
@@ -39,13 +39,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 def _argv(ckpt, *opts, device="cpu"):

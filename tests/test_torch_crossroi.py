@@ -31,7 +31,7 @@ import pytest
 
 from cpm_tpu.ops.pallas.multilevel_pallas import WIN, _prep_rois
 from cpm_tpu.ops.roi_align import roi_align as jax_roi_align
-from tests.torch_support import one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5
 H, W, C = 72, 88, 8
@@ -47,13 +47,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 @pytest.fixture(scope="module")

@@ -24,7 +24,7 @@ import cpm_tpu.data.loader as jax_loader_mod
 from cpm_tpu.config import get_default_cfg as jax_default_cfg
 from cpm_tpu.config import merge_cfg_from_file as jax_merge_file
 from cpm_tpu.config import merge_cfg_from_list as jax_merge_list
-from tests.torch_support import one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(REPO, "cfgs", "debug", "tiny_cpm.yaml")
@@ -45,13 +45,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 def _cfgs(*opts):

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 
 from cpm_tpu.ops import deform_conv as jdc
-from tests.torch_support import one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
 
 FWD_ATOL = 1e-5
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -44,13 +44,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 def _sampler_inputs(seed, b, h, w, c, p):

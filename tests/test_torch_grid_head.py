@@ -29,7 +29,7 @@ from cpm_tpu.modeling.roi_heads.grid_ops import expand_boxes as jax_expand_boxes
 from cpm_tpu.modeling.roi_heads.grid_ops import grid_decode as jax_grid_decode
 from cpm_tpu.modeling.roi_heads.targets import compact_by_mask as jax_compact_by_mask
 from cpm_tpu.modeling.roi_heads.targets import rois_with_batch_index as jax_rois_with_batch_index
-from tests.torch_support import one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -45,13 +45,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 SCALES = (0.25, 0.125, 0.0625, 0.03125)

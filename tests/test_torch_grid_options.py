@@ -50,7 +50,8 @@ from tests.test_torch_box_head import (
     model_outputs,
 )
 from tests.test_torch_train import RecordedUniform, _flat
-from tests.torch_support import memo, one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_support import memo
 
 FRAMES = ("cpm_tpu.utils.sampler", "cpm_tpu.modeling.roi_heads.grid_ops",
           "cpm_tpu.modeling.roi_heads.grid_cascade_head")
@@ -73,13 +74,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 def _boxes(rng, n, size=120.0):

@@ -20,7 +20,8 @@ from __graft_entry__ import _flagship_cfg
 from cpm_tpu.engine.test import detections_to_coco as jax_detections_to_coco
 from cpm_tpu.modeling.model import build_model as jax_build_model
 from cpm_tpu_torch.config import flagship_cfg
-from tests.torch_support import memo, one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_support import memo
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -36,13 +37,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 def _tiny_cfg():

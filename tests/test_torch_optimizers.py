@@ -30,7 +30,7 @@ from cpm_tpu.modeling.model import build_model as jax_build_model
 from cpm_tpu.solver import make_lr_fn as jax_make_lr_fn
 from cpm_tpu.solver.optimizer import build_optimizer as jax_build_optimizer
 from cpm_tpu.solver.optimizer import param_label_tree
-from tests.torch_support import one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
 
 CASES = [("ADAM", 0.9), ("RMSPROP", 0.9), ("RMSPROP", 0.0)]
 
@@ -48,13 +48,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 def _cfg(name, momentum):

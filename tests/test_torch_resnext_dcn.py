@@ -44,7 +44,8 @@ from cpm_tpu.modeling.model import build_model as jax_build_model
 from cpm_tpu.solver import build_optimizer as jax_build_optimizer
 from cpm_tpu.solver import make_lr_fn as jax_make_lr_fn
 from cpm_tpu.solver.optimizer import param_label_tree
-from tests.torch_support import memo, one_torch_thread, shared
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_support import memo, shared
 
 YAML = ("cfgs/rcnn/mscoco/grid_cascade/iou_helper/rescore/backbone/"
         "e2e_grid_cascade@567_rcnn_X-101-32x4d-FPN-DCN_2x.yaml")
@@ -66,13 +67,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 def _flat(tree, prefix=()):

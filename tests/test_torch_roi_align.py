@@ -23,7 +23,7 @@ from cpm_tpu.ops.pooler import Pooler as JaxPooler
 from cpm_tpu.ops.pooler import assign_fpn_levels as jax_assign_fpn_levels
 from cpm_tpu.ops.roi_align import multilevel_roi_align as jax_multilevel_roi_align
 from cpm_tpu.ops.roi_align import roi_align as jax_roi_align
-from tests.torch_support import one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -39,13 +39,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 SCALES = (0.25, 0.125, 0.0625, 0.03125)

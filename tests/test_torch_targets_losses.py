@@ -28,7 +28,7 @@ from cpm_tpu.ops.box_coder import BoxCoder as JaxBoxCoder
 from cpm_tpu.structures.boxes import box_iou as jax_box_iou
 from cpm_tpu.utils import matcher as jax_matcher
 from cpm_tpu.utils import sampler as jax_sampler
-from tests.torch_support import one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -44,13 +44,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 ATOL = 1e-5

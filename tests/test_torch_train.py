@@ -35,7 +35,8 @@ from cpm_tpu.engine.train import create_train_state as jax_create_train_state
 from cpm_tpu.engine.train import make_train_step as jax_make_train_step
 from cpm_tpu.solver.lr_schedule import make_lr_fn as jax_make_lr_fn
 from cpm_tpu.solver.optimizer import param_label_tree
-from tests.torch_support import memo, one_torch_thread, shared
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_support import memo, shared
 
 LOSS_NAMES = (
     "loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_grid_1",
@@ -124,13 +125,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 @pytest.fixture(scope="module")

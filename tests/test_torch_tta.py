@@ -35,7 +35,7 @@ from cpm_tpu.ops.nms import box_ml_voting as jax_box_ml_voting
 from cpm_tpu.ops.nms import box_voting as jax_box_voting
 from cpm_tpu.ops.nms import ml_soft_nms as jax_ml_soft_nms
 from cpm_tpu.ops.nms import soft_nms as jax_soft_nms
-from tests.torch_support import one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCORING_METHODS = ("ID", "TEMP_AVG", "AVG", "IOU_AVG", "GENERALIZED_AVG", "QUASI_SUM")
@@ -54,13 +54,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 def _boxes(rng, n, n_objects=6, span=200.0):

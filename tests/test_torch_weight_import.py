@@ -34,7 +34,7 @@ from cpm_tpu.config import merge_cfg_from_file as jax_merge_file
 from cpm_tpu.config import merge_cfg_from_list as jax_merge_list
 from cpm_tpu.modeling.model import build_model as jax_build_model
 from cpm_tpu.utils import weight_import as jax_import
-from tests.torch_support import one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(REPO, "cfgs", "debug", "tiny_cpm.yaml")
@@ -63,13 +63,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 def _cfgs(which):

@@ -32,7 +32,10 @@ of each parameter's largest gradient, or 1e-5 of the model's largest
 (`_ws_losses_and_gradients_match` says why). Weights are the port's,
 drawn from a seed (norm scales and biases redrawn, so that none is 1 or 0),
 and reach the JAX side through the bridge; each JAX side is one compiled
-program over an abstract init. The JAX `GroupNorm` takes 32 groups whatever
+program over an abstract init, compiled at XLA's backend optimisation level
+0 (`FAST_COMPILE`: the program is the same, its compile cheaper). The
+twins' fg IoU bias is 0.5 (`_fold`), so that their detections score above
+0 and are held by their scores. The JAX `GroupNorm` takes 32 groups whatever
 the width, so a GN model here is at least 32 wide.
 
 torch and the port are imported inside the tests, so that collecting this
@@ -68,11 +71,12 @@ from tests.test_torch_box_head import (
 )
 from tests.test_torch_model import assert_same_detection_sets
 from tests.test_torch_train import _flat
-from tests.torch_support import one_torch_thread
+from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
 
 GRID_LOSSES = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_grid_1",
                "loss_grid_2", "loss_grid_3", "loss_iou_3", "loss_rescore")
 FAST_LOSSES = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_box_reg")
+FAST_COMPILE = {"xla_backend_optimization_level": "0"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -86,13 +90,6 @@ def _drop_stub_modules_that_answer_every_name():
     for name, mod in list(sys.modules.items()):
         if isinstance(mod, types.ModuleType) and callable(getattr(mod, "__file__", None)):
             del sys.modules[name]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the file's tests (tests/torch_support.py)."""
-    with one_torch_thread():
-        yield
 
 
 def _close(got, want, rtol, atol_share, what):
@@ -145,6 +142,7 @@ def _check_module(jax_module, port_module, prefix, inputs, seed=0):
         (_, outs), grads = jax.value_and_grad(f, has_aux=True)(p)
         return outs, grads
 
+    run = run.lower(params, inputs).compile(compiler_options=FAST_COMPILE)
     want, grads = jax.device_get(run(params, inputs))
     xs = ([torch.from_numpy(np.asarray(x)).permute(0, 3, 1, 2) for x in inputs]
           if isinstance(inputs, (list, tuple)) else torch.from_numpy(np.asarray(inputs)).permute(0, 3, 1, 2))
@@ -403,11 +401,20 @@ def zoo_cfg(name):
 def _fold(model):
     """The frozen affines folded from a seeded batch (chip_smoke.py's
     `fold_images`), as a pretrained trunk's: with unit affines a random
-    trunk's activations grow by orders of magnitude block by block."""
+    trunk's activations grow by orders of magnitude block by block. Then the
+    ISM branch's fg IoU bias at 0.5: seeded weights give IoU logits near 0,
+    of either sign, and ISM merged with RSM scores a detection by
+    max(score x IoU, 0), so that without it most detections score 0 and
+    tie (as tests/test_torch_cascade.py::_positive_iou)."""
+    import torch
+
     from cpm_tpu_torch.tools.profile_train import fold_batch_statistics
 
     fold_batch_statistics(
         model, np.random.RandomState(9).randint(0, 256, (2, 64, 64, 3)).astype(np.uint8))
+    if model.cfg.MODEL.GRID_ON:
+        with torch.no_grad():
+            model.roi_head.grid_outputs[-1].iou_pred.bias.copy_(torch.tensor([0.0, 0.5]))
 
 
 def _ws_losses_and_gradients_match(out, names):
@@ -450,11 +457,12 @@ def test_tiny_zoo_model_matches_jax(name):
     from cpm_tpu_torch.solver.optimizer import classify_params
     from cpm_tpu_torch.utils.param_bridge import name_map
 
-    out = model_outputs(zoo_cfg(name), prepare=_fold)
+    out = model_outputs(zoo_cfg(name), prepare=_fold, compiler_options=FAST_COMPILE)
     got, want = out["got_dets"], out["dets"]
     for f in ("boxes", "scores", "labels", "mask"):
         assert tuple(getattr(got, f).shape) == np.asarray(getattr(want, f)).shape, f
     for b in range(want.mask.shape[0]):
+        assert (np.asarray(want.scores[b])[np.asarray(want.mask[b])] > 0).any(), b
         assert_same_detection_sets(_rows(got, b), _rows(want, b), box_atol=1e-3,
                                    score_atol=5e-5)
     losses = FAST_LOSSES if name.startswith("faster") else GRID_LOSSES

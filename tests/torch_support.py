@@ -4,7 +4,9 @@ down under pytest-xdist.
 * `one_torch_thread`: torch's intra-op pool at one thread. The tests run
   tiny models, hundreds of small convs; several workers to the cores, each
   with a pool of every core, spin against one another and slow such a test
-  tens of times.
+  tens of times. `_one_torch_thread` is that pin as a module-scoped autouse
+  fixture: a test file imports it (`from tests.torch_support import
+  _one_torch_thread`), and pytest applies it to every test of the file.
 * `shared`: a module fixture's JAX side computed once a session, not once a
   worker that runs one of its tests (pytest-xdist's documented pattern: a
   file lock in the directory that the session's workers share; the first
@@ -24,6 +26,8 @@ import fcntl
 import os
 import pickle
 
+import pytest
+
 
 @contextlib.contextmanager
 def one_torch_thread():
@@ -35,6 +39,13 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the importing file's tests."""
+    with one_torch_thread():
+        yield
 
 
 _MEMO = {}
