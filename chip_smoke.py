@@ -236,6 +236,29 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    blocks, ...) moved; gn_ws, nasfpn and bifpn timed over 10 batch-1
    requests; each step's peak memory; the tiny twins on the card against
    the CPU port.
+18. rest (`phase_rest`): what cpm_tpu_torch/ gained for the rest of
+   cpm_tpu/, none of it on a model path and none a kernel of its own (plain
+   PyTorch, as the JAX package runs it as XLA ops): on the card against the
+   CPU port on the same inputs, at the CPU tests' tolerances (REST_F32,
+   REST_CONV, REST_ROT; atol per unit of RMS above 1; the layers with a
+   convolution held in f64 and timed in f32), each timed with CUDA events: roi_pool at 7x7 over 512 rois of the C4 map (bins past its
+   8-cell lattice included; the CPU runs 16 of them),
+   pool_points_interp on 9000 points of a P2 map, roi_align_rotated over
+   512 rotated rois, box_iou_rotated 2000 x 2000, nms_rotated and poly_nms
+   over 2000 boxes at 0.7 (keep sets equal save for threshold ties),
+   matrix_nms over 500 boxes of 80 labels, sigmoid_focal_loss over the 1.6M
+   anchors of a batch-2 800x1344 RetinaNet by 80 classes and lovasz_softmax
+   over [2, 21, 512, 512], each with its backward, and every layer of the
+   zoo forward and backward on a res4 map [2, 1024, 50, 84] (SplAtConv2d on
+   [2, 256, 100, 168]). SyncBatchNorm over two gloo ranks spawned on the
+   card against one process over the whole batch (spawned at the phase's
+   start, checked at its end). The flagship built under MODEL.INIT_SCHEME tpu (the
+   heatmap deconvs' prior biases checked): flops_and_params of its batch-1
+   eval forward at 800x1344, its parameter count equal to the JAX
+   package's (utils/measure.py::FLAGSHIP_JAX_PARAMS), and one training step
+   with finite losses. The heaviest CPU references (roi_pool, both NMS, the
+   focal loss) run on a thread beside the card's work. The flagship runs'
+   launches of kernels 1 and 2 count on the driven paths.
 
 Then a JSON line of kernel results and, last, {"ok": true, "device": ...}.
 Random weights give softmax scores near 1/81, below the default 0.03
@@ -262,7 +285,9 @@ bounds count each gradient map written once: the tile-owned backward kernels
 (multilevel and sampler) write exactly that, with no float32 accumulator.
 """
 
+import concurrent.futures
 import contextlib
+import copy
 import json
 import math
 import statistics
@@ -3407,6 +3432,396 @@ def phase_zoo(dev, card):
     return launched
 
 
+# Phase 18: the rest of cpm_tpu/ that no model path selects (the loss zoo,
+# matrix NMS, RoIPool and point sampling, the rotated ops, the layer zoo),
+# SyncBatchNorm across two ranks, the flagship's FLOPs and parameters, and a
+# training step under MODEL.INIT_SCHEME tpu. Each op on the card against the
+# port on the CPU, on the same inputs, at the CPU tests' tolerances (rtol,
+# atol); an atol applies per unit of the CPU result's RMS where that exceeds
+# 1, since a full-width reduction (a 9216-term conv, a 1.6e8-term loss) sums
+# terms that the tiny CPU tests never reach; a gradient, which sums its terms
+# in another order on the card, is held at REST_CONV at least.
+REST_F32 = (1e-5, 1e-6)
+REST_CONV = (1e-5, 1e-5)
+REST_ROT = (0.0, 1e-4)
+REST_CPU_ROWS = 16  # rois (or IoU rows) of a full-size op that the CPU also runs
+
+
+def rest_close(what, got, want, tol):
+    """The card's result against the CPU port's (tol: rtol, atol per unit
+    of RMS above 1), compared on the card; returns the largest absolute
+    difference."""
+    rtol, atol = tol
+    g, w = got.detach().double(), want.detach().to(got.device, torch.float64)
+    if g.shape != w.shape:
+        raise AssertionError(f"[rest] {what}: shape {tuple(g.shape)} on the card, "
+                             f"{tuple(w.shape)} on the CPU")
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"[rest] {what}: non-finite values on the card")
+    if not w.numel():
+        return 0.0
+    scale = max(1.0, float(w.pow(2).mean().sqrt()))
+    err = (g - w).abs()
+    bad = err > atol * scale + rtol * w.abs()
+    if bad.any():
+        i = int(bad.flatten().nonzero()[0])
+        raise AssertionError(f"[rest] {what}: {int(bad.sum())} of {w.numel()} values beyond rtol "
+                             f"{rtol} / atol {atol} x {scale:.3g}; e.g. {g.flatten()[i]:.8g} on the "
+                             f"card, {w.flatten()[i]:.8g} on the CPU")
+    return float(err.max())
+
+
+def rest_cpu(fn, args, grad_of=(), check_dtype=None):
+    """fn(*args) on the CPU (in `check_dtype` when given), and the gradients
+    of <out, cotangent> for the args in `grad_of`."""
+    xs = [x.to("cpu", check_dtype or x.dtype).detach().requires_grad_(i in grad_of)
+          for i, x in enumerate(args)]
+    out = fn(*xs)
+    if grad_of:
+        (out * _rest_cotangent(out.shape)).sum().backward()
+    return out.detach(), {i: xs[i].grad for i in grad_of}
+
+
+def _rest_cotangent(shape):
+    return torch.randn(shape, generator=torch.Generator().manual_seed(0))
+
+
+def rest_check(what, fn, args, grad_of=(), tol=REST_F32, full=None, reps=10, card="",
+               check_dtype=None, cpu=None):
+    """fn(*args) on the card against the CPU port (`rest_cpu`, or its
+    Future `cpu`), with the gradients of <out, cotangent> for the args in
+    `grad_of` (in `check_dtype` when given); with `full` (args and the number
+    of leading output rows that `args` gives), fn(*full) is the op timed,
+    and its leading rows are held against the CPU's too. Prints one line
+    with the CUDA-event times and the card; returns the largest error."""
+    t0 = time.perf_counter()
+    xs_g = [x.to("cuda", check_dtype or x.dtype).detach().requires_grad_(i in grad_of)
+            for i, x in enumerate(args)]
+    out_g = fn(*xs_g)
+    out_c, grads_c = cpu.result() if cpu is not None else rest_cpu(fn, args, grad_of, check_dtype)
+    err = rest_close(what, out_g, out_c, tol)
+    if grad_of:
+        (out_g * _rest_cotangent(out_g.shape).cuda()).sum().backward()
+        # a gradient sums its terms in another order on the card (a gather's
+        # backward adds with atomics): the convolution tolerance at least
+        tol_g = tuple(max(a, b) for a, b in zip(tol, REST_CONV))
+        for i in grad_of:
+            err = max(err, rest_close(f"{what} gradient of input {i}", xs_g[i].grad,
+                                      grads_c[i], tol_g))
+    timed = args if full is None else full[0]
+    if full is not None:
+        with torch.no_grad():
+            rows = fn(*[x.cuda() for x in timed])
+        err = max(err, rest_close(f"{what} at full size, first rows", rows[:full[1]], out_c, tol))
+    timed = [x.cuda() for x in timed]
+
+    def forward():
+        with torch.no_grad():
+            fn(*timed)
+
+    def forward_backward():
+        xs = [x.detach().requires_grad_(i in grad_of) for i, x in enumerate(timed)]
+        out = fn(*xs)
+        out.backward(torch.ones_like(out))
+
+    ms = cuda_ms(forward, reps)
+    text = f"forward {ms:.3f} ms"
+    if grad_of:
+        text += f", forward+backward {cuda_ms(forward_backward, reps):.3f} ms"
+    print(f"[rest] {what}: {text} (CUDA events, median of {reps}); card against the CPU port: "
+          f"max |diff| {err:.3g} (rtol {tol[0]}, atol {tol[1]}); the line took "
+          f"{time.perf_counter() - t0:.1f} s of host time | {card}")
+    return err
+
+
+def _rest_boxes(rng, n, hw=(800, 1344), lo=16.0, hi=400.0):
+    xy = rng.uniform(0, 1, (n, 2)) * np.array([hw[1], hw[0]])
+    wh = rng.uniform(lo, hi, (n, 2))
+    return xy, wh
+
+
+def _rest_rotated(rng, n, n_objects=300):
+    """n rotated boxes (cx, cy, w, h, deg) jittered around a few hundred
+    objects of an 800x1344 image, so that NMS has clusters to thin."""
+    c, wh = _rest_boxes(rng, n_objects, lo=20.0, hi=200.0)
+    a = rng.uniform(-90, 90, (n_objects, 1))
+    obj = rng.randint(0, n_objects, n)
+    boxes = np.concatenate([c[obj] + rng.normal(0, 4, (n, 2)), wh[obj] * rng.uniform(0.9, 1.1, (n, 2)),
+                            a[obj] + rng.normal(0, 5, (n, 1))], 1)
+    return torch.from_numpy(boxes.astype(np.float32))
+
+
+def sync_bn_rank(rank, world_size, workdir, x, cot):
+    """A spawned rank of phase 18's SyncBatchNorm check: its rows of x on
+    cuda:0, the group over gloo; returns its output, input and parameter
+    gradients and running statistics."""
+    from cpm_tpu_torch.modeling.layers import SyncBatchNorm
+    from cpm_tpu_torch.parallel.launch import file_init_method
+    from cpm_tpu_torch.parallel.mesh import init_data_group
+
+    init_data_group("cuda", rank=rank, world_size=world_size, local_rank=0, backend="gloo",
+                    init_method=file_init_method(workdir, "sync_bn"))
+    n = x.shape[0] // world_size
+    bn = SyncBatchNorm(x.shape[1]).cuda().train()
+    xs = x[rank * n:(rank + 1) * n].cuda().requires_grad_(True)
+    out = bn(xs)
+    (out * cot[rank * n:(rank + 1) * n].cuda()).sum().backward()
+    return {"out": out.detach().cpu(), "grad": xs.grad.cpu(),
+            **{k: v.grad.cpu() for k, v in bn.named_parameters()},
+            **{k: v.cpu() for k, v in bn.named_buffers()}}
+
+
+def phase_rest(dev, card):
+    """Phase 18: every op and layer that cpm_tpu_torch/ gained for the rest
+    of cpm_tpu/ on the card at a realistic size against the CPU port; the
+    SyncBatchNorm across two gloo ranks against one process; the flagship's
+    eval FLOPs and its parameter count against the JAX package's; one step
+    of the flagship under MODEL.INIT_SCHEME tpu. Returns the launches of
+    kernels 1 and 2 in the last two (the only model runs)."""
+    from cpm_tpu_torch.modeling import initializers as init
+    from cpm_tpu_torch.modeling import layers as L
+    from cpm_tpu_torch.ops import losses, rotated
+    from cpm_tpu_torch.ops.nms import matrix_nms
+    from cpm_tpu_torch.ops.roi_pool import pool_points_interp, roi_pool
+    from cpm_tpu_torch.parallel.launch import spawn_ranks
+    from cpm_tpu_torch.utils.sampler import Draws
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(18)
+    g = torch.Generator().manual_seed(18)
+    k = REST_CPU_ROWS
+
+    # SyncBatchNorm: two gloo ranks sharing the card against one process; the
+    # ranks start now, on a thread of their own, and are checked last
+    bn_x = torch.randn(4, 8, 5, 6, generator=g) * 2 + 1
+    bn_cot = torch.randn(4, 8, 5, 6, generator=g)
+    t_spawn = time.perf_counter()
+    spawned = concurrent.futures.ThreadPoolExecutor(1)
+    ranks_future = spawned.submit(spawn_ranks, sync_bn_rank, 2, bn_x, bn_cot, timeout_s=300)
+
+    # the inputs: the C4 map of phase 7 and 512 rois on it (bins of up to 11
+    # cells: some past roi_pool's lattice of 8); 2000 rotated boxes; the
+    # anchors of a batch-2 800x1344 RetinaNet (P2-P6, 9 a cell) by 80 classes
+    c4 = torch.randn(2, 50, 84, 1024, generator=g)
+    xy, wh = _rest_boxes(rng, 512, hi=1200.0)
+    rois = torch.from_numpy(np.concatenate([rng.randint(0, 2, (512, 1)), xy, xy + wh], 1)
+                            .astype(np.float32))
+    boxes = _rest_rotated(rng, 2000)
+    scores = torch.rand(2000, generator=g)
+    quads = rotated.rotated_box_corners(boxes).reshape(-1, 8)
+    n_anchors = 2 * 9 * sum(math.ceil(800 / s) * math.ceil(1344 / s) for s in (4, 8, 16, 32, 64))
+    logits = torch.randn(n_anchors, 80, generator=g)
+    focal_labels = torch.from_numpy(rng.randint(-1, 81, n_anchors))
+
+    def pool_fn(f, r):
+        return roi_pool(f, r, (7, 7), 1 / 16)
+
+    def focal_fn(x):
+        return losses.sigmoid_focal_loss(x, focal_labels.to(x.device), 81)
+
+    nms_ops = (("nms_rotated", rotated.nms_rotated, rotated.box_iou_rotated, boxes),
+               ("poly_nms", rotated.poly_nms, rotated.poly_iou, quads))
+    # the heaviest CPU references run on a thread of their own while the card
+    # works (torch's CPU ops release the GIL)
+    background = concurrent.futures.ThreadPoolExecutor(1)
+    cpu_pool = background.submit(rest_cpu, pool_fn, [c4, rois[:k]], (0,))
+    cpu_nms = {name: background.submit(fn, b, scores, 0.7, 1000) for name, fn, _, b in nms_ops}
+    cpu_focal = background.submit(rest_cpu, focal_fn, [logits], (0,))
+
+    rest_check("roi_pool 7x7, 512 rois (bins up to 11 cells, lattice 8) on [2, 50, 84, 1024] "
+               "f32 at 1/16", pool_fn, [c4, rois[:k]], (0,), full=([c4, rois], k), reps=5,
+               card=card, cpu=cpu_pool)
+    p2 = torch.randn(2, 256, 200, 336, generator=g).contiguous(memory_format=torch.channels_last)
+    pts = torch.from_numpy(np.concatenate([rng.randint(0, 2, (9000, 1)),
+                                           rng.uniform(-10, 1354, (9000, 1)),
+                                           rng.uniform(-10, 810, (9000, 1))], 1).astype(np.float32))
+    rest_check("pool_points_interp, 9000 points on P2 [2, 256, 200, 336] f32 at 1/4",
+               lambda f, p: pool_points_interp(f.permute(0, 2, 3, 1), p, 0.25), [p2, pts], (0, 1),
+               card=card)
+    rrois = torch.cat([torch.from_numpy(rng.randint(0, 2, (512, 1)).astype(np.float32)),
+                       boxes[:512]], 1)
+    # its sample coordinates come through cos and sin, which round differently
+    # on the card: an ulp of a coordinate of up to 84 cells moves a bilinear
+    # weight by about 1e-6, so the convolution tolerance
+    rest_check("roi_align_rotated 7x7 sampling 2, 512 rotated rois on [2, 50, 84, 1024] f32 at "
+               "1/16", lambda f, r: rotated.roi_align_rotated(f, r, (7, 7), 1 / 16, 2),
+               [c4, rrois[:k]], (0,), REST_CONV, full=([c4, rrois], k), reps=5, card=card)
+    del p2
+
+    # rotated IoU (two sets: a box against itself, every vertex on a clipping
+    # line, is ill-conditioned in f32) and the NMS over 2000 boxes, keeping
+    # 1000 at IoU 0.7
+    others = _rest_rotated(rng, 2000)
+    rest_check("box_iou_rotated 2000 x 2000", rotated.box_iou_rotated, [boxes[:k], others], (),
+               REST_ROT, full=([boxes, others], k), reps=5, card=card)
+    for name, fn, iou_fn, b in nms_ops:
+        t0 = time.perf_counter()
+        idx_g, keep_g = fn(b.cuda(), scores.cuda(), 0.7, 1000)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        ms = cuda_ms(lambda: fn(b.cuda(), scores.cuda(), 0.7, 1000), 3)
+        idx_c, keep_c = cpu_nms[name].result()
+        got = set(idx_g[keep_g].tolist())
+        want = set(idx_c[keep_c].tolist())
+        flipped = sorted(got ^ want)
+        if flipped:
+            # a keep may flip only where an IoU that decides it lies at the threshold
+            near = set(torch.nonzero((iou_fn(b, b) - 0.7).abs() < 1e-5).flatten().tolist())
+            if not set(flipped) <= near:
+                raise AssertionError(f"[rest] {name}: keeps {flipped} differ between the card "
+                                     f"and the CPU away from the threshold")
+        print(f"[rest] {name} over 2000 boxes at IoU 0.7, keeping up to 1000: {len(want)} kept, "
+              f"the card's set {'equal to' if not flipped else 'within threshold ties of'} the "
+              f"CPU's ({len(flipped)} flipped); {ms:.3f} ms (CUDA events, median of 3, host "
+              f"reads of the fixed point included; first call {first_s * 1e3:.1f} ms) | {card}")
+    xy, wh = _rest_boxes(rng, 500, hi=300.0)
+    mboxes = torch.from_numpy(np.concatenate([xy, xy + wh], 1).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, 80, 500))
+    for method in ("gauss", "linear"):
+        rest_check(f"matrix_nms ({method}) over 500 boxes of 80 labels",
+                   lambda b, s: matrix_nms(b, s, labels.to(b.device), method=method),
+                   [mboxes, torch.rand(500, generator=g)], card=card)
+
+    # the losses: the focal loss over the anchors, Lovasz-softmax over 21
+    # classes at 512x512
+    rest_check(f"sigmoid_focal_loss over {n_anchors} anchors x 80 classes", focal_fn, [logits],
+               (0,), REST_CONV, reps=5, card=card, cpu=cpu_focal)
+    background.shutdown()
+    del logits, c4
+    seg = torch.randn(2, 21, 512, 512, generator=g)
+    seg_labels = torch.from_numpy(rng.randint(0, 21, (2, 512, 512)))
+    seg_labels[torch.from_numpy(rng.rand(2, 512, 512) < 0.05)] = 255
+    rest_check("lovasz_softmax over [2, 21, 512, 512] (5% ignored)",
+               lambda x: losses.lovasz_softmax(x, seg_labels.to(x.device), 255), [seg], (0,),
+               REST_CONV, reps=3, card=card)
+    del seg
+
+    # the layer zoo on a res4 map, forward and backward
+    res4 = torch.randn(2, 1024, 50, 84, generator=g)
+    for name, fn in (("mish", L.mish), ("swish", L.swish), ("h_swish", L.h_swish),
+                     ("h_sigmoid", L.h_sigmoid)):
+        rest_check(f"{name} on [2, 1024, 50, 84]", fn, [res4], (0,), card=card)
+
+    def layer(module, draws=None):
+        """The module, copied to the device and dtype of its input."""
+        copies = {}
+
+        def fn(x):
+            m = copies.setdefault((x.device.type, x.dtype),
+                                  copy.deepcopy(module).to(x.device, x.dtype))
+            return m(x) if draws is None else m(x, draws(x.device))
+        return fn
+
+    lg = torch.Generator().manual_seed(1)
+    f64 = torch.float64
+    zoo = [
+        ("SwishX", L.SwishX(), REST_F32, res4, None),
+        ("Scale", L.Scale(1.5), REST_F32, res4, None),
+        ("L2Norm", L.L2Norm(1024), REST_F32, res4, None),
+        # the convolutions are held in f64: a 9216-term f32 sum differs between
+        # cuDNN's algorithms and the CPU's by more than 1e-5 of its RMS in the
+        # tail of 2M outputs (one output of Conv2dWS in one call); timed in f32
+        ("Conv2dWS 3x3 1024->256", L.Conv2dWS(1024, 256, generator=lg), REST_CONV, res4, f64),
+        ("Conv2dSamePadding 3x3 s2 1024->256", L.Conv2dSamePadding(1024, 256, strides=(2, 2),
+                                                                   generator=lg), REST_CONV, res4,
+         f64),
+        ("ECA k3", L.ECA(3, generator=lg), REST_F32, res4, None),
+        ("NonLocal2d inner 512", L.NonLocal2d(1024, 512, generator=lg), REST_CONV, res4, f64),
+        ("SyncBatchNorm (this process's batch)", L.SyncBatchNorm(1024).train(),
+         REST_CONV, res4, None),
+        ("MixtureNorm gn", L.MixtureNorm(1024, generator=lg), REST_CONV, res4, None),
+        ("MixtureNorm bn", L.MixtureNorm(1024, base="bn", generator=lg).train(), REST_CONV, res4,
+         None),
+        # and SplAtConv2d for its ReLU's kink too, which turns with the sign of
+        # a pre-activation within f32 noise of 0 (a few of 17M) and moves a
+        # whole 3x3x128 window of the input's gradient
+        ("SplAtConv2d 256 radix 2", L.SplAtConv2d(256, 256, generator=lg), REST_CONV,
+         torch.randn(2, 256, 100, 168, generator=g), f64),
+    ]
+    for name, module, tol, x, check_dtype in zoo:
+        rest_check(f"{name} on {list(x.shape)}" + (" (held in f64)" if check_dtype else ""),
+                   layer(module), [x], (0,), tol, reps=5, card=card, check_dtype=check_dtype)
+    rest_check("DropBlock2D p 0.1 block 7 (training; one seeded draw on both devices)",
+               layer(L.DropBlock2D(0.1, 7).train(),
+                     draws=lambda d: Draws(torch.Generator().manual_seed(7))),
+               [res4], (0,), reps=3, card=card)
+    del res4
+
+    # the flagship under the tpu scheme: its eval FLOPs and parameters, then a step
+    launched = {}
+
+    def counted(fn):
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for name, n in launch_counts().items():
+            launched[name] = launched.get(name, 0) + n
+        return out
+
+    from cpm_tpu_torch.data.synthetic import synthetic_batch
+    from cpm_tpu_torch.engine.train import create_train_state, make_train_step
+    from cpm_tpu_torch.tools.profile_train import fold_batch_statistics, training_cfg
+    from cpm_tpu_torch.utils.measure import FLAGSHIP_JAX_PARAMS, flops_and_params
+
+    t0 = time.perf_counter()
+    cfg = training_cfg()  # the flagship, with the JAX package's train-time proposal count
+    cfg.MODEL.INIT_SCHEME = "tpu"
+    model, optimizer, state = create_train_state(cfg, dev, seed=0)
+    images = synthetic_batch(1, 800, 1344, num_classes=81, seed=3, uint8=True)
+    stats = counted(lambda: flops_and_params(cfg, model, images["images"], images["image_sizes"]))
+    if stats["params"] != FLAGSHIP_JAX_PARAMS:
+        raise AssertionError(f"[rest] the flagship has {stats['params']} parameters, the JAX "
+                             f"package's {FLAGSHIP_JAX_PARAMS}")
+    print(f"[rest] flops_and_params of the flagship's batch-1 eval forward at 800x1344 "
+          f"({cfg.TPU.COMPUTE_DTYPE}): {stats['eval_forward_flops'] / 1e9:.2f} GFLOP (products "
+          f"and convolutions; the RoIAlign kernels count zero), {stats['params']} parameters, "
+          f"the JAX package's count; by module {stats['params_by_module']}; built and counted "
+          f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    priors = [m.deconv2.bias for m in model.roi_head.modules() if hasattr(m, "deconv2")]
+    if not priors or any(not torch.all(b == init.PRIOR_BIAS) for b in priors):
+        raise AssertionError("[rest] MODEL.INIT_SCHEME tpu: the heatmap deconvs' biases are not "
+                             "the prior")
+    batch = synthetic_batch(2, 800, 1344, max_gt=32, num_classes=81, seed=100, uint8=True)
+    fold_batch_statistics(model, batch["images"])
+    step_fn = make_train_step(cfg, model, optimizer)
+    _, metrics = counted(lambda: step_fn(state, batch))
+    bad = {k: float(v) for k, v in metrics.items() if k != "lr" and not math.isfinite(float(v))}
+    if bad:
+        raise AssertionError(f"[rest] MODEL.INIT_SCHEME tpu: non-finite losses {bad}")
+    print(f"[rest] one training step of the flagship under MODEL.INIT_SCHEME tpu (lecun_normal "
+          f"trunk, {len(priors)} heatmap deconvs at the prior bias): total_loss "
+          f"{float(metrics['total_loss']):.4f}, every loss finite, in {time.perf_counter() - t0:.1f}"
+          f" s; launches of both model runs { {k: v for k, v in launched.items() if v} }")
+
+    ranks = ranks_future.result()
+    spawned.shutdown()
+    spawn_s = time.perf_counter() - t_spawn
+    bn = L.SyncBatchNorm(8).cuda().train()
+    xs = bn_x.cuda().requires_grad_(True)
+    out = bn(xs)
+    (out * bn_cot.cuda()).sum().backward()
+    err = max(rest_close("SyncBatchNorm over two ranks: output", torch.cat([r["out"] for r in ranks]),
+                         out, REST_F32),
+              rest_close("SyncBatchNorm over two ranks: input gradient",
+                         torch.cat([r["grad"] for r in ranks]), xs.grad, REST_F32))
+    for name, p in list(bn.named_parameters()) + list(bn.named_buffers()):
+        theirs = [r[name] for r in ranks]
+        # each rank holds its share of a parameter's gradient; the statistics are every rank's
+        got = theirs[0] + theirs[1] if p.requires_grad else theirs[0]
+        err = max(err, rest_close(f"SyncBatchNorm over two ranks: {name}", got,
+                                  p.grad if p.requires_grad else p, REST_F32))
+        if not p.requires_grad and not torch.equal(theirs[0], theirs[1]):
+            raise AssertionError(f"[rest] SyncBatchNorm: the ranks' {name} differ")
+    print(f"[rest] SyncBatchNorm over two gloo ranks on one card, 2 of 4 images each: output, "
+          f"gradients and running statistics equal one process's over the 4 to {err:.3g} "
+          f"(rtol 1e-5, atol 1e-6); spawn to results {spawn_s:.1f} s, beside the phase's "
+          f"other work | {card}")
+    del model, optimizer, state
+    print(f"[rest] phase took {time.perf_counter() - t_phase:.1f} s | {card}")
+    return launched
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -3472,6 +3887,8 @@ def main():
     dp = phase_data_parallel(dev, card)
     torch.cuda.empty_cache()
     zoo = phase_zoo(dev, card)
+    torch.cuda.empty_cache()
+    rest = phase_rest(dev, card)
 
     # launches on the driven paths: eval forwards plus training steps, and
     # the CLIs' runs
@@ -3479,11 +3896,13 @@ def main():
         "multilevel_roi_align": (fwd["auto"]["launches"] + bwd["auto"]["launches"][0]
                                  + x101_fwd["pooler_launches"] + x101_bwd["pooler_launches"][0]
                                  + cli[0] + ms[0] + cascade[0] + options["multilevel_roi_align"]
-                                 + dp[0] + zoo["multilevel_roi_align"]),
+                                 + dp[0] + zoo["multilevel_roi_align"]
+                                 + rest["multilevel_roi_align"]),
         "multilevel_roi_align_backward": (bwd["auto"]["launches"][1] + bwd["clustered"]["launches"][1]
                                           + x101_bwd["pooler_launches"][1] + cli[1] + ms[1]
                                           + cascade[1] + options["multilevel_roi_align_backward"]
-                                          + dp[1] + zoo["multilevel_roi_align_backward"]),
+                                          + dp[1] + zoo["multilevel_roi_align_backward"]
+                                          + rest["multilevel_roi_align_backward"]),
         "clustered_roi_align": fwd["clustered"]["launches"] + bwd["clustered"]["launches"][0],
         "cluster_rois": fwd["clustered"]["grouping"]["launches"] + bwd["clustered"]["grouping_launches"],
         "stacked_roi_align": fwd["stacked"]["launches"] + bwd["stacked"]["launches"][0],

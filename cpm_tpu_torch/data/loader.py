@@ -30,19 +30,16 @@ import numpy as np
 
 from cpm_tpu_torch.data.coco import COCODataset
 from cpm_tpu_torch.data.transforms import TestTransform, TrainTransform
+from cpm_tpu_torch.structures.image_batch import round_up
 
 
 PREFETCH_THREAD = "TrainLoader-prefetch"  # the name of the thread that makes the batches
 
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
 def compute_buckets(scales, max_size, divisibility: int):
     """(short, long) padded bucket extents covering every train resize."""
-    short = _round_up(max(scales), divisibility)
-    long = _round_up(max_size, divisibility)
+    short = round_up(max(scales), divisibility)
+    long = round_up(max_size, divisibility)
     return short, long
 
 
@@ -287,8 +284,8 @@ class TestLoader:
         self.divisibility = cfg.TEST.SIZE_DIVISIBILITY
         scale_v = scale if scale is not None else cfg.TEST.SCALE
         max_v = max_size if max_size is not None else cfg.TEST.MAX_SIZE
-        short = _round_up(scale_v, self.divisibility)
-        long = _round_up(max_v, self.divisibility)
+        short = round_up(scale_v, self.divisibility)
+        long = round_up(max_v, self.divisibility)
         self.buckets = {"landscape": (short, long), "portrait": (long, short)}
         self.hflip = hflip
         self.batch_size = (

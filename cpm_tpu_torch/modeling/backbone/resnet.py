@@ -49,7 +49,7 @@ CONV_OPS = ("normal", "deform", "deformv2")
 def _conv(cin, cout, k, stride, padding, g, groups=1, dilation=1):
     conv = nn.Conv2d(cin, cout, k, stride=stride, padding=padding, dilation=dilation,
                      groups=groups, bias=False)
-    init.kaiming_normal_fan_out(conv.weight, g)
+    init.backbone_conv(conv.weight, g)
     return conv
 
 

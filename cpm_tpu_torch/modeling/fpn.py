@@ -36,7 +36,7 @@ def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
 
 def _conv(cin, cout, k, g, stride=1):
     conv = nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2)
-    init.kaiming_uniform_a1(conv.weight, g)
+    init.fpn_conv(conv.weight, g)
     nn.init.zeros_(conv.bias)
     return conv
 
@@ -117,3 +117,13 @@ def build_fpn(cfg, in_dims: Sequence[int], generator: torch.Generator) -> FPN:
         norm="gn" if f.USE_GN else ("bn" if f.USE_BN else "none"),
     )
     return maybe_ws(fpn, f.USE_WS)
+
+
+def fpn_spatial_scales(cfg, backbone_scales):
+    """Spatial scales of the FPN outputs [P_min..P_max]: the trunk's, then
+    halving for each extra level."""
+    _, max_level = get_min_max_levels(cfg)
+    scales = list(backbone_scales)
+    while len(scales) < max_level - 1:
+        scales.append(scales[-1] * 0.5)
+    return tuple(scales)

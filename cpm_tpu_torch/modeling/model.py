@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from cpm_tpu_torch.modeling import initializers as init
 from cpm_tpu_torch.modeling.backbone.resnet import BACKBONES
 from cpm_tpu_torch.modeling.necks_extra import NECKS
 from cpm_tpu_torch.modeling.roi_heads.box_head import (
@@ -288,6 +289,9 @@ def build_model(cfg, device, seed: int = 0) -> GeneralizedRCNN:
     # TPU.POOLER_KERNEL selects the pooling formulation and with it the
     # CUDA kernels that run it (ops/pooler.py); an unknown name raises
     pooler_mod.set_pooler_backend(getattr(cfg.TPU, "POOLER_KERNEL", "auto"))
-    generator = torch.Generator().manual_seed(seed)
+    # MODEL.INIT_SCHEME rides on the generator that every module draws from;
+    # an unknown scheme raises
+    scheme = getattr(cfg.MODEL, "INIT_SCHEME", "reference")
+    generator = init.SchemeGenerator(scheme).manual_seed(seed)
     model = GeneralizedRCNN(cfg, generator)
     return model.to(device=device, memory_format=torch.channels_last)

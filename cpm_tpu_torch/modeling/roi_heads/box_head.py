@@ -62,11 +62,11 @@ class ConvFCHead(nn.Module):
             for i in range(num_stacked_convs)
         )
         for conv in self.convs:
-            init.kaiming_normal_fan_out(conv.weight, generator)
+            init.tower_conv(conv.weight, generator)
             nn.init.zeros_(conv.bias)
         c = conv_dim if num_stacked_convs else in_channels
         self.fc = nn.Linear(resolution[0] * resolution[1] * c, mlp_dim)
-        init.kaiming_uniform_a1(self.fc.weight, generator)
+        init.mlp_fc(self.fc.weight, generator)
         nn.init.zeros_(self.fc.bias)
 
     def forward(self, features, rois, roi_mask=None):

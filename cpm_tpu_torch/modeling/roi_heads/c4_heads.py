@@ -70,14 +70,14 @@ class ResNet2MLPHead(nn.Module):
         r = cfg.BACKBONE.RESNET
         self.layer4 = _stage5(cfg, in_channels, 2 if r.C5_DILATION == 1 else 1, generator)
         self.conv_new = nn.Conv2d(getattr(r, "BASE_PLANES", 64) * 8 * Bottleneck.expansion, 256, 1)
-        init.kaiming_normal_fan_out(self.conv_new.weight, generator)
+        init.backbone_conv(self.conv_new.weight, generator)
         nn.init.zeros_(self.conv_new.bias)
         self.pooler = Pooler(tuple(resolution), scales, sampling_ratio)
         self.fc1 = nn.Linear(resolution[0] * resolution[1] * 256, mlp_dim)
         self.fc2 = nn.Linear(mlp_dim, mlp_dim)
         # the generic trunk init the reference applies here: N(0, 1e-4)
         for fc in (self.fc1, self.fc2):
-            init.normal_(fc.weight, 1e-4, generator)
+            init.normal_fc(fc.weight, generator)
             nn.init.zeros_(fc.bias)
         self.dim_out = mlp_dim
 

@@ -61,8 +61,8 @@ class CascadeStageOutput(nn.Module):
             self.iou_fc1 = nn.Linear(in_features, 1024)
             self.iou_fc2 = nn.Linear(1024, 1024)
             self.iou_pred = nn.Linear(1024, 2)
-            init.kaiming_uniform_a1(self.iou_fc1.weight, g)
-            init.kaiming_uniform_a1(self.iou_fc2.weight, g)
+            init.mlp_fc(self.iou_fc1.weight, g)
+            init.mlp_fc(self.iou_fc2.weight, g)
             init.normal_(self.iou_pred.weight, 0.01, g)
         for m in self.children():
             nn.init.zeros_(m.bias)

@@ -57,7 +57,15 @@ def get_neighbor_points(grid_size: int) -> List[Tuple[int, ...]]:
 
 
 def _torch_default_conv(conv: nn.Module, g: torch.Generator) -> nn.Module:
-    init.torch_default(conv.weight, conv.bias, g)
+    """A raw nn.Conv2d site: torch's defaults under the reference scheme."""
+    init.torch_conv_kernel(conv.weight, g)
+    init.torch_conv_bias(conv.bias, init._fans(conv.weight)[0], g)
+    return conv
+
+
+def _deconv(conv: nn.ConvTranspose2d, g: torch.Generator, prior: bool = False):
+    init.deconv_kernel_grouped(conv.weight, g)
+    init.deconv_bias(conv.bias, init._fans(conv.weight)[0], g, prior)
     return conv
 
 
@@ -104,11 +112,11 @@ class GridHead(nn.Module):
             # kaiming normal (fan out) and zero bias, as make_conv; the
             # linear reads the (h, w, c) flatten of the stride-2 output
             self.offset_conv = nn.Conv2d(in_channels, 64, 3, stride=2, padding=1)
-            init.kaiming_normal_fan_out(self.offset_conv.weight, generator)
+            init.tower_conv(self.offset_conv.weight, generator)
             nn.init.zeros_(self.offset_conv.bias)
             s = (roi_feat_size + 1) // 2
             self.offset_fc = nn.Linear(s * s * 64, 4 * P)
-            init.kaiming_uniform_a1(self.offset_fc.weight, generator)
+            init.mlp_fc(self.offset_fc.weight, generator)
             nn.init.zeros_(self.offset_fc.bias)
         else:
             self.offset_conv = self.offset_fc = None
@@ -194,15 +202,12 @@ class GridOutput(nn.Module):
         self.fused_on = fused_on
         self.iou_helper = iou_helper
         g = generator
-        self.deconv1 = _torch_default_conv(
-            nn.ConvTranspose2d(cout, cout, 4, stride=2, padding=1, groups=P), g
-        )
+        self.deconv1 = _deconv(nn.ConvTranspose2d(cout, cout, 4, stride=2, padding=1, groups=P), g)
         # flax's GroupNorm default epsilon, which the JAX module keeps here
         self.norm1 = GroupNorm(cout, num_groups=P, eps=1e-6)
         self.se = SeBlock(cout, max(1, int(cout * 0.0625)), g) if se_on else None
-        self.deconv2 = _torch_default_conv(
-            nn.ConvTranspose2d(cout, P, 4, stride=2, padding=1, groups=P), g
-        )
+        self.deconv2 = _deconv(nn.ConvTranspose2d(cout, P, 4, stride=2, padding=1, groups=P), g,
+                               prior=True)
         # the offsets condition the tower only where no fused tower takes
         # its place: the JAX module creates offset_emb there alone
         self.offset_emb = None
@@ -216,7 +221,7 @@ class GridOutput(nn.Module):
             self.iou_fc2 = nn.Linear(1024, 1024)
             self.iou_pred = nn.Linear(1024, 2)
             for fc in (self.iou_fc1, self.iou_fc2):
-                init.kaiming_uniform_a1(fc.weight, g)
+                init.mlp_fc(fc.weight, g)
                 nn.init.zeros_(fc.bias)
             init.normal_(self.iou_pred.weight, 0.01, g)
             nn.init.zeros_(self.iou_pred.bias)
@@ -272,7 +277,7 @@ class ClsHead(nn.Module):
         self.fc6 = nn.Linear(resolution[0] * resolution[1] * in_channels, mlp_dim)
         self.fc7 = nn.Linear(mlp_dim, mlp_dim)
         for fc in (self.fc6, self.fc7):
-            init.kaiming_uniform_a1(fc.weight, generator)
+            init.mlp_fc(fc.weight, generator)
             nn.init.zeros_(fc.bias)
 
     def forward(self, features, rois, roi_mask=None):

@@ -1,7 +1,7 @@
 """Fixed-shape NMS: hard, soft, and box voting.
 
 Port of cpm_tpu/ops/nms.py (`nms`, `batched_nms`, `multiclass_nms`,
-`soft_nms`, `ml_soft_nms`, `box_voting`, `box_ml_voting`) and of the
+`soft_nms`, `ml_soft_nms`, `box_voting`, `box_ml_voting`, `matrix_nms`) and of the
 filter both the box head and the TTA merge run (`filter_results`). Every
 function takes padded `[..., N]` inputs with a validity mask and returns a
 fixed number of output slots with a validity mask; leading dims are a batch.
@@ -64,15 +64,22 @@ def nms(
     [..., max_output] bool). Kept boxes come in descending score order;
     empty slots hold index 0 and keep False.
     """
+    return greedy_nms(boxes, scores, iou_threshold, max_output, mask,
+                      lambda a, b: box_iou(a, b, legacy_plus1=legacy_plus1))
+
+
+def greedy_nms(boxes, scores, iou_threshold: float, max_output: int, mask, pairwise_iou):
+    """`nms` over boxes [..., N, D] of any parametrisation, with
+    `pairwise_iou(a, b)` -> [..., N, M] (ops/rotated.py runs it on rotated
+    boxes and quadrilaterals)."""
     if mask is None:
         mask = torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
     neg_inf = torch.finfo(scores.dtype).min
     s = torch.where(mask, scores, torch.full_like(scores, neg_inf))
     order = torch.argsort(-s, dim=-1, stable=True)
-    b_sorted = torch.gather(boxes, -2, order[..., None].expand(*order.shape, 4))
+    b_sorted = torch.gather(boxes, -2, order[..., None].expand(*order.shape, boxes.shape[-1]))
     valid_sorted = torch.gather(mask, -1, order)
-    iou = box_iou(b_sorted, b_sorted, legacy_plus1=legacy_plus1)
-    keep_sorted = _sorted_keep_mask(iou, valid_sorted, iou_threshold)
+    keep_sorted = _sorted_keep_mask(pairwise_iou(b_sorted, b_sorted), valid_sorted, iou_threshold)
 
     # compact kept entries to the front; slot max_output collects overflow
     kept_rank = torch.cumsum(keep_sorted.long(), dim=-1) - 1
@@ -309,3 +316,37 @@ def filter_results(
         out_boxes = torch.where(keep[..., None], voted, out_boxes)
         out_scores = torch.where(keep, vscores, 0.0)
     return out_boxes, out_scores, out_labels, keep
+
+
+def matrix_nms(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    labels: torch.Tensor,
+    mask: torch.Tensor = None,
+    method: str = "gauss",
+    sigma: float = 0.5,
+    legacy_plus1: bool = False,
+):
+    """Matrix NMS (SOLOv2): each valid box's score decayed by its overlaps
+    with the higher-scored boxes of its label, 'gauss' or 'linear'. Returns
+    the decayed scores [N]; no box is removed (the caller thresholds).
+
+    As in the JAX package, a pair is compensated with the suppressed box's
+    own worst overlap, where SOLOv2 takes the suppressor's; every factor is
+    then at least 1 and no score decays (ROADMAP Queue 3, item 34)."""
+    n = boxes.shape[0]
+    if mask is None:
+        mask = torch.ones(n, dtype=torch.bool, device=boxes.device)
+    iou = box_iou(boxes, boxes, legacy_plus1=legacy_plus1)
+    # row j suppresses column i
+    valid_pair = (mask[:, None] & mask[None, :] & (labels[:, None] == labels[None, :])
+                  & (scores[:, None] >= scores[None, :])
+                  & ~torch.eye(n, dtype=torch.bool, device=boxes.device))
+    decay_iou = torch.where(valid_pair, iou, iou.new_zeros(()))
+    comp_iou = decay_iou.amax(dim=0)  # the worst overlap of each suppressor
+    if method == "gauss":
+        decay = torch.exp(-(decay_iou ** 2 - comp_iou[None, :] ** 2) / sigma)
+    else:
+        decay = (1.0 - decay_iou) / (1.0 - comp_iou[None, :]).clamp(min=1e-12)
+    decay = torch.where(valid_pair, decay, decay.new_ones(())).amin(dim=0)
+    return torch.where(mask, scores * decay, scores)

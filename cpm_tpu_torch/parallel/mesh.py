@@ -15,7 +15,10 @@ batch becomes a collective:
   scores;
 * the gradient: each rank's loss is its share of the global loss, so the
   gradients are summed, `reduce_gradients`, in flat f32 buckets;
-* the parameters at the start: `broadcast_module`.
+* the parameters at the start: `broadcast_module`;
+* a synchronised batch norm's statistics (modeling/layers.py::SyncBatchNorm,
+  which no config selects): `sum_ranks`, whose backward sums the ranks'
+  gradients.
 
 With no group initialised every helper is the identity and launches nothing,
 so a one-process step keeps its bits. The group is torch.distributed's
@@ -141,6 +144,29 @@ def batch_totals(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     if not _active():
         return values
     return dict(zip(values, batch_total(torch.stack(list(values.values()))).unbind()))
+
+
+class _SumRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        total = x.clone()
+        dist.all_reduce(total)
+        return total
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank's output is the same total, so each rank's input takes
+        # the sum of every rank's gradient
+        total = grad.clone()
+        dist.all_reduce(total)
+        return total
+
+
+def sum_ranks(x: torch.Tensor) -> torch.Tensor:
+    """The sum of `x` over every rank, differentiable (the backward sums the
+    ranks' gradients): the cross-rank statistics of a synchronised batch
+    norm. `x` itself with no group."""
+    return _SumRanks.apply(x) if _active() else x
 
 
 def concat_ranks(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Training logger: windowed smoothed losses, step and loader-wait timers, ETA.
 
-The port's copy of `SmoothedValue` and `TrainingLogger` from
-cpm_tpu/utils/logger.py (after the reference's pet/utils/logger.py:12-184).
+The port's copy of `SmoothedValue`, `TrainingLogger` and `TestingLogger`
+from cpm_tpu/utils/logger.py (after the reference's pet/utils/logger.py:12-184).
 As there, the logger only displays: the train step computes total_loss, and
 the logger is never on the compute path. Beside the step time it keeps the
 time each step waited for its batch (the reference's data timer). Under data
@@ -84,3 +84,30 @@ class TrainingLogger:
             f"{self.data_time.median:.3f}s{eta}",
             flush=True,
         )
+
+
+class TestingLogger:
+    """Inference timing split: `tic(name)` / `toc(name)` around each stage,
+    `log(done, total)` prints each stage's windowed average and, once an
+    'infer' stage has been timed, the ETA."""
+
+    def __init__(self, model_name: str = "model", log_period: int = 100):
+        self.model_name = model_name
+        self.log_period = log_period
+        self.timers = collections.defaultdict(SmoothedValue)
+        self._tics = {}
+
+    def tic(self, name: str):
+        self._tics[name] = time.time()
+
+    def toc(self, name: str):
+        if name in self._tics:
+            self.timers[name].update(time.time() - self._tics.pop(name))
+
+    def log(self, done: int, total: int):
+        parts = [f"{k}: {v.avg:.3f}s" for k, v in sorted(self.timers.items())]
+        eta = ""
+        if "infer" in self.timers and self.timers["infer"].count:
+            per = sum(v.avg for v in self.timers.values())
+            eta = f", eta: {datetime.timedelta(seconds=int((total - done) * per))}"
+        print(f"[{self.model_name}] test {done}/{total}, " + ", ".join(parts) + eta, flush=True)

@@ -35,6 +35,12 @@ momentum tree); `state_dict_to_flax` goes back. Layouts:
 
 Every flax leaf must land on one port parameter and every port parameter
 must receive one leaf, with matching shapes; anything else raises.
+
+`load_flax_layer` loads one layer of the zoo (modeling/layers.py) from its
+flax variables, `params` and `batch_stats`: the leaves keep their names,
+save a scale (-> `weight`), `Conv2dSamePadding`'s inner `Conv_0` (->
+`conv`), and a batch norm's `mean` / `var` (-> `running_mean` /
+`running_var`); `ECA`'s 1-D kernel [k, 1, 1] -> [1, 1, k].
 """
 
 import re
@@ -231,3 +237,29 @@ def load_flax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module
     """Load a flax params tree into `model` in place; returns the model."""
     model.load_state_dict(flax_to_state_dict(params, model), strict=True)
     return model
+
+
+_LAYER_LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
+               "var": "running_var"}
+
+
+def load_flax_layer(module: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
+    """Load a zoo layer's flax variables ({'params': ..., 'batch_stats':
+    ...}, numpy leaves) into `module` in place; returns the module."""
+    targets = module.state_dict()
+    out = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(collection, {})).items():
+            *mods, leaf = ["conv" if m == "Conv_0" else m for m in path]
+            key = ".".join(mods + [_LAYER_LEAF.get(leaf, leaf)])
+            if key not in targets:
+                raise KeyError(f"flax leaf {'/'.join(path)} -> {key}: no such port parameter")
+            # kernels HWIO / WIO / [in, out] -> OIHW / OIW / [out, in]
+            n = value.ndim
+            w = value.transpose(n - 1, n - 2, *range(n - 2)) if leaf == "kernel" else value
+            if tuple(w.shape) != tuple(targets[key].shape):
+                raise ValueError(f"{'/'.join(path)} {value.shape} -> {key}: got {w.shape}, "
+                                 f"want {tuple(targets[key].shape)}")
+            out[key] = torch.tensor(np.ascontiguousarray(w), dtype=targets[key].dtype)
+    module.load_state_dict(out, strict=True)
+    return module

@@ -39,13 +39,15 @@ def test_every_port_module_imports_without_jax():
         "          'data.catalog', 'data.coco_io', 'data.coco', 'data.synthetic_coco',\n"
         "          'data.transforms', 'data.samplers', 'data.loader', 'engine.checkpoint',\n"
         "          'engine.test', 'evaluation.coco_eval', 'utils.logger', 'utils.vis',\n"
-        "          'tools.train_net', 'tools.test_net')\n"
+        "          'tools.train_net', 'tools.test_net', 'structures.image_batch',\n"
+        "          'modeling.layers', 'ops.roi_pool', 'ops.rotated', 'evaluation.proposal_eval',\n"
+        "          'utils.measure', 'tools.compute_flops')\n"
         "assert all('cpm_tpu_torch.' + w in names for w in wanted), names\n"
         "print(len(names))\n"
     )
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 66
+    assert int(proc.stdout.split()[-1]) >= 73
 
 
 def test_host_data_modules_import_no_torch():
@@ -57,7 +59,8 @@ def test_host_data_modules_import_no_torch():
         "    sys.modules[m] = None\n"
         "for n in ('data.catalog', 'data.coco_io', 'data.coco', 'data.synthetic_coco',\n"
         "          'data.transforms', 'data.samplers', 'data.loader', 'evaluation.coco_eval',\n"
-        "          'utils.logger', 'utils.vis'):\n"
+        "          'utils.logger', 'utils.vis', 'structures.image_batch',\n"
+        "          'evaluation.proposal_eval'):\n"
         "    importlib.import_module('cpm_tpu_torch.' + n)\n"
         "print('ok')\n"
     )
