@@ -7,7 +7,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 0. device: requires CUDA; prints the card's name and power limit, the torch
    and CUDA versions, and whether yaml and PIL import.
 1. build: builds the six CUDA sources of cpm_tpu_torch/csrc with nvcc, one
-   process each, all started together (ten kernels: multilevel forward and
+   process each, all started together, then the native host decode library
+   (cpm_tpu_torch/native) with g++ (ten kernels: multilevel forward and
    backward, stacked forward and backward, clustered forward and its
    grouping, single-level forward, deformable-conv sampler forward and
    backward, cross-roi shared-window forward).
@@ -259,6 +260,23 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    with finite losses. The heaviest CPU references (roi_pool, both NMS, the
    focal loss) run on a thread beside the card's work. The flagship runs'
    launches of kernels 1 and 2 count on the driven paths.
+19. native (`phase_native`): the native host decode pool
+   (cpm_tpu_torch/native, built by g++ in phase 1 beside the CUDA sources),
+   which both loaders take whenever it builds. It prints whether the library
+   built, by which route (the system's libjpeg and libpng, or, where g++
+   finds no jpeglib.h / png.h, the ones Pillow's wheel carries, through the
+   headers in cpm_tpu_torch/native/include) and how long g++ took; a failed
+   build fails the run where g++ and one route are present, and only where
+   none is does the phase print `native decode: not built: <why>` and go
+   on. Then phase 12's
+   headline YAML through `train_net.main` (4 steps at batch 2 over
+   data/synthetic_debug, from a step-0 checkpoint with the frozen affines
+   folded from the loader's first batch) and `test_net.main` over the 16
+   images: each must print `decode path: native`, with finite losses, 4 + 4
+   launches of kernels 1 and 2 a step, 4 of kernel 1 an image, and every
+   detection inside its image. Last, the host's time to make one train
+   batch and to load one eval image on the native path and on the PIL path
+   (a loader told `native = None`), beside the card's name and power limit.
 
 Then a JSON line of kernel results and, last, {"ok": true, "device": ...}.
 Random weights give softmax scores near 1/81, below the default 0.03
@@ -1647,6 +1665,16 @@ def state_differences(a, b, module_types):
     return out
 
 
+def _batches(loader, n):
+    """The first `n` batches of a loader, its iterator closed after them
+    (which closes a TrainLoader's native pool)."""
+    it = iter(loader)
+    try:
+        return [next(it) for _ in range(n)]
+    finally:
+        it.close()
+
+
 def phase_cli(dev, card):
     """Phase 12: the train and eval CLIs on the headline YAML. Returns the
     multilevel kernels' launches in its runs."""
@@ -1724,7 +1752,8 @@ def phase_cli(dev, card):
         module_types = {n: type(m).__name__ for n, m in model.named_modules()}
         (dataset,) = build_dataset(cfg, cfg.TRAIN.DATASETS, is_train=True)
         t1 = time.perf_counter()
-        first = next(iter(TrainLoader(cfg, dataset, cfg.TRAIN.BATCH_SIZE, seed=cfg.SEED, prefetch=0)))
+        first_loader = TrainLoader(cfg, dataset, cfg.TRAIN.BATCH_SIZE, seed=cfg.SEED, prefetch=0)
+        first = _batches(first_loader, 1)[0]
         make_ms = (time.perf_counter() - t1) * 1e3
         n_folded = fold_batch_statistics(model, first["images"])
         for ckpt in (ck_a, ck_b):
@@ -1734,7 +1763,8 @@ def phase_cli(dev, card):
         print(f"[cli] step-0 checkpoint in {time.perf_counter() - t0:.2f} s: {n_folded} frozen "
               f"affines folded from the loader's first batch {tuple(first['images'].shape)} "
               f"{first['images'].dtype}, {len(dataset)} images; the loader made that batch in "
-              f"{make_ms:.1f} ms on this thread (PIL decode, resize, flip, padding)")
+              f"{make_ms:.1f} ms on this thread ({first_loader.decode_path} decode, resize, "
+              f"flip, padding)")
 
         straight = run("train_net 4 steps", train_net.main, argv(ck_a, 4), 4 * sites, 4 * sites)
         check_steps("train_net", straight, 1)
@@ -1804,10 +1834,12 @@ def phase_cli(dev, card):
         test_cfg = train_net.load_config(cfg_file, opts + CLI_TEST_OPTS)
         (test_set,) = build_dataset(test_cfg, test_cfg.TEST.DATASETS, is_train=False)
         t0 = time.perf_counter()
-        n_loaded = sum(item["count"] for item in TestLoader(test_cfg, test_set))
+        test_loader = TestLoader(test_cfg, test_set)
+        n_loaded = sum(item["count"] for item in test_loader)
         load_ms = (time.perf_counter() - t0) * 1e3 / n_loaded
-        print(f"[cli] the eval loader alone: {load_ms:.1f} ms an image over {n_loaded} (PIL "
-              f"decode, the cv2-rule resize in numpy to 800 rows, padding to 800x1344)")
+        print(f"[cli] the eval loader alone: {load_ms:.1f} ms an image over {n_loaded} "
+              f"({test_loader.decode_path} decode, the cv2-rule resize to 800 rows, padding to "
+              f"800x1344)")
         out = run("test_net", test_net.main,
                   ["--cfg", cfg_file, "--device", dev, "DATA_DIR", os.path.join(repo, "data"),
                    "CKPT", ck_a] + CLI_TEST_OPTS, sites * len(test_set), 0)
@@ -3822,6 +3854,203 @@ def phase_rest(dev, card):
     return launched
 
 
+class _Tee:
+    """A text stream that writes to each of `streams` (to read what a CLI
+    prints while it still prints)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+def loader_times(cfg, card, batches=6):
+    """The host's time to make one train batch and to load one eval image on
+    each decode path that builds here: {'native' | 'pil': {'train_batch_ms',
+    'eval_image_ms'}}. Host time only: `TrainLoader` on this thread
+    (`prefetch=0`), the median of `batches` batches after a first one that
+    starts the pool; `TestLoader` over the eval images, the mean an image.
+    The PIL path is a loader told `native = None`."""
+    import os
+
+    from cpm_tpu_torch import native
+    from cpm_tpu_torch.data.coco import build_dataset
+    from cpm_tpu_torch.data.loader import TestLoader, TrainLoader
+
+    (train_set,) = build_dataset(cfg, cfg.TRAIN.DATASETS, is_train=True)
+    (test_set,) = build_dataset(cfg, cfg.TEST.DATASETS, is_train=False)
+
+    def train_batch_ms(path):
+        loader = TrainLoader(cfg, train_set, cfg.TRAIN.BATCH_SIZE, seed=cfg.SEED, prefetch=0)
+        if path == "pil":
+            loader.native, loader.decode_path = None, "pil"
+        it = iter(loader)
+        try:
+            next(it)  # the pool's start and the first reads
+            times = []
+            for _ in range(batches):
+                t0 = time.perf_counter()
+                next(it)
+                times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            it.close()
+        other = "pil" if path == "native" else "native"
+        if loader.decoded[path] == 0 or loader.decoded[other]:
+            raise AssertionError(f"[native] the {path} train timing decoded {loader.decoded}")
+        return statistics.median(times)
+
+    def eval_image_ms(path):
+        loader = TestLoader(cfg, test_set)
+        if path == "pil":
+            loader.native, loader.decode_path = None, "pil"
+        t0 = time.perf_counter()
+        n = sum(item["count"] for item in loader)
+        seconds = time.perf_counter() - t0
+        if loader.decoded[path] != n:
+            raise AssertionError(f"[native] the {path} eval timing decoded {loader.decoded}")
+        return seconds * 1e3 / n
+
+    paths = ["native", "pil"] if native.load() is not None else ["pil"]
+    bh, bw = TrainLoader(cfg, train_set, 1).buckets["landscape"]
+    out = {}
+    for path in paths:
+        out[path] = dict(train_batch_ms=train_batch_ms(path), eval_image_ms=eval_image_ms(path))
+        print(f"[native] {path} decode: one train batch ({cfg.TRAIN.BATCH_SIZE} images, the "
+              f"{bh}x{bw} bucket) {out[path]['train_batch_ms']:.2f} ms, median of {batches}; one "
+              f"eval image ({cfg.TEST.SCALE}x{cfg.TEST.MAX_SIZE}) "
+              f"{out[path]['eval_image_ms']:.2f} ms, mean of {len(test_set)}; "
+              f"{os.cpu_count()} host cores | {card}")
+    if "native" in out:
+        print(f"[native] pil / native: train batch "
+              f"{out['pil']['train_batch_ms'] / out['native']['train_batch_ms']:.2f}x, eval image "
+              f"{out['pil']['eval_image_ms'] / out['native']['eval_image_ms']:.2f}x | {card}")
+    return out
+
+
+def phase_native(dev, card):
+    """Phase 19: the native host decode pool (cpm_tpu_torch/native) under
+    both CLIs. Returns the multilevel kernels' launches in its runs."""
+    import io
+    import os
+    import tempfile
+
+    from cpm_tpu_torch import native
+    from cpm_tpu_torch.data.coco import build_dataset
+    from cpm_tpu_torch.data.loader import TrainLoader
+    from cpm_tpu_torch.engine.checkpoint import CheckPointer
+    from cpm_tpu_torch.engine.train import create_train_state
+    from cpm_tpu_torch.tools import test_net, train_net
+    from cpm_tpu_torch.tools.profile_train import fold_batch_statistics
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    missing = native.missing_prerequisites()
+    native.load()
+    status = native.status()
+    if status is None or not status.built:
+        if missing is None:
+            raise AssertionError(f"[native] g++ and libjpeg / libpng are here, but the native "
+                                 f"decode library did not build:\n{status and status.error}")
+        print(f"[native] native decode: not built: {missing}")
+        loader_times(train_net.load_config(
+            os.path.join(repo, HEADLINE_YAML),
+            CLI_TRAIN_OPTS + CLI_TEST_OPTS + ["DATA_DIR", os.path.join(repo, "data")]), card)
+        print(f"[native] phase took {time.perf_counter() - t_phase:.1f} s")
+        return (0, 0)
+    print(f"[native] native decode library built: {status.path.name}, linked by the "
+          f"{status.route} route, "
+          + (f"g++ took {status.seconds:.2f} s" if status.seconds else "found already built")
+          + f" ({native.CXX} {' '.join(native.CXX_FLAGS)})")
+
+    cfg_file = os.path.join(repo, HEADLINE_YAML)
+    opts = CLI_TRAIN_OPTS + ["DATA_DIR", os.path.join(repo, "data")]
+    cfg = train_net.load_config(cfg_file, opts)
+    stages = cfg.GRID_RCNN.CASCADE_MAPPING_OPTION.STAGE_NUM
+    sites = 1 + stages + int(cfg.GRID_RCNN.RESCORE_ON)
+    losses = (["loss_objectness", "loss_rpn_box_reg", "loss_classifier"]
+              + [f"loss_grid_{s + 1}" for s in range(stages)]
+              + [f"loss_iou_{stages}", "loss_rescore", "total_loss"])
+    fwd = ops()["multilevel"].KERNEL
+
+    def run(what, fn, argv, want_fwd, want_bwd):
+        """fn(argv) with its output read as it prints; the launches held to
+        the multilevel kernels' and the decode path to 'native'."""
+        reset_launch_counts()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, printed)):
+            out = fn(argv)
+        got = launch_counts()
+        others = {k: v for k, v in got.items() if v and not k.startswith("multilevel_roi_align")}
+        if (fwd.launches, fwd.backward_launches) != (want_fwd, want_bwd) or others:
+            raise AssertionError(f"[native] {what}: launched {got}, want multilevel_roi_align "
+                                 f"{want_fwd} and its backward {want_bwd}, no other")
+        paths = [ln.split(":", 1)[1].strip() for ln in printed.getvalue().splitlines()
+                 if ln.startswith("decode path:")]
+        if len(paths) != 1 or not paths[0].startswith("native"):
+            raise AssertionError(f"[native] {what}: decode path lines {paths}, want one native")
+        print(f"[native] {what}: decode path {paths[0]}; launches multilevel_roi_align "
+              f"{fwd.launches}, backward {fwd.backward_launches}")
+        torch.cuda.empty_cache()
+        return out
+
+    (dataset,) = build_dataset(cfg, cfg.TRAIN.DATASETS, is_train=True)
+    test_cfg = train_net.load_config(cfg_file, opts + CLI_TEST_OPTS)
+    (test_set,) = build_dataset(test_cfg, test_cfg.TEST.DATASETS, is_train=False)
+    with tempfile.TemporaryDirectory(prefix="cpm_native_") as tmp:
+        # a step-0 checkpoint with the frozen affines folded from the
+        # loader's first (native) batch, as phase 12 writes one
+        model, optimizer, state = create_train_state(cfg, dev, cfg.SEED)
+        first_loader = TrainLoader(cfg, dataset, cfg.TRAIN.BATCH_SIZE, seed=cfg.SEED, prefetch=0)
+        first = _batches(first_loader, 1)[0]
+        if first_loader.decode_path != "native":
+            raise AssertionError(f"[native] the TrainLoader decodes on {first_loader.decode_path}")
+        fold_batch_statistics(model, first["images"])
+        CheckPointer(tmp).save(state, 0)
+        del model, optimizer, state
+        torch.cuda.empty_cache()
+
+        history = run("train_net 4 steps", train_net.main,
+                         ["--cfg", cfg_file, "--device", dev] + opts
+                         + ["CKPT", tmp, "SOLVER.MAX_ITER", "4"], 4 * sites, 4 * sites)
+        for r in history:
+            if not all(math.isfinite(r.get(k, math.nan)) for k in losses):
+                raise AssertionError(f"[native] train_net iter {r['iter']}: losses {r}")
+        if [r["iter"] for r in history] != [1, 2, 3, 4]:
+            raise AssertionError(f"[native] train_net iterations {[r['iter'] for r in history]}")
+        waits = [r["wait_s"] for r in history]
+        print(f"[native] train_net: losses finite over 4 steps, total_loss "
+              f"{[round(r['total_loss'], 4) for r in history]}, loader wait "
+              f"{statistics.median(waits) * 1e3:.1f} ms median (max {max(waits) * 1e3:.1f}) | {card}")
+
+        out = run("test_net", test_net.main,
+                  ["--cfg", cfg_file, "--device", dev, "DATA_DIR", os.path.join(repo, "data"),
+                   "CKPT", tmp] + CLI_TEST_OPTS, sites * len(test_set), 0)
+        results = out["results"]
+        if not results:
+            raise AssertionError("[native] test_net: no detections")
+        sizes = {test_set.id_to_img_map[i]: test_set.get_img_info(i) for i in range(len(test_set))}
+        for r in results:
+            x, y, w, h = r["bbox"]
+            info = sizes[r["image_id"]]
+            if not (0 <= x and 0 <= y and w >= 0 and h >= 0 and x + w - 1 < info["width"]
+                    and y + h - 1 < info["height"]) or not math.isfinite(r["score"]):
+                raise AssertionError(f"[native] test_net: result {r} outside its "
+                                     f"{info['width']}x{info['height']} image")
+        print(f"[native] test_net: {len(results)} detections over {len(test_set)} images, every "
+              f"box inside its image")
+
+    loader_times(test_cfg, card)
+    print(f"[native] phase took {time.perf_counter() - t_phase:.1f} s")
+    return (4 * sites, 4 * sites)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -3854,6 +4083,14 @@ def main():
         print(f"[build] {source.name} -> {b.library_path.name} in {b.seconds:.2f} s; {facts}")
     for mod in ops().values():
         mod.KERNEL.build()
+    # the native host decode library (g++), which both loaders use
+    from cpm_tpu_torch import native
+
+    native.load()
+    st = native.status()
+    print(f"[build] native decode library: "
+          + (f"{st.path.name} ({st.route} route) in {st.seconds:.2f} s" if st.built
+             else f"not built: {st.error.splitlines()[0]}"))
 
     rng = np.random.RandomState(0)
     synthetic = phase_kernel(dev, rng, card)
@@ -3889,6 +4126,8 @@ def main():
     zoo = phase_zoo(dev, card)
     torch.cuda.empty_cache()
     rest = phase_rest(dev, card)
+    torch.cuda.empty_cache()
+    nat = phase_native(dev, card)
 
     # launches on the driven paths: eval forwards plus training steps, and
     # the CLIs' runs
@@ -3897,12 +4136,12 @@ def main():
                                  + x101_fwd["pooler_launches"] + x101_bwd["pooler_launches"][0]
                                  + cli[0] + ms[0] + cascade[0] + options["multilevel_roi_align"]
                                  + dp[0] + zoo["multilevel_roi_align"]
-                                 + rest["multilevel_roi_align"]),
+                                 + rest["multilevel_roi_align"] + nat[0]),
         "multilevel_roi_align_backward": (bwd["auto"]["launches"][1] + bwd["clustered"]["launches"][1]
                                           + x101_bwd["pooler_launches"][1] + cli[1] + ms[1]
                                           + cascade[1] + options["multilevel_roi_align_backward"]
                                           + dp[1] + zoo["multilevel_roi_align_backward"]
-                                          + rest["multilevel_roi_align_backward"]),
+                                          + rest["multilevel_roi_align_backward"] + nat[1]),
         "clustered_roi_align": fwd["clustered"]["launches"] + bwd["clustered"]["launches"][0],
         "cluster_rois": fwd["clustered"]["grouping"]["launches"] + bwd["clustered"]["grouping_launches"],
         "stacked_roi_align": fwd["stacked"]["launches"] + bwd["stacked"]["launches"][0],

@@ -16,10 +16,25 @@ Every batch has one of a small set of static shapes — a landscape bucket
 (short_max x long_max) and its portrait transpose — and ground truth padded
 to TRAIN.MAX_GT_BOXES with masks, so each conv shape is planned once.
 
-Images are decoded and resized by PIL, the JAX package's fallback path; its
-native C++ decode pool (cpm_tpu/native) is not ported: the same batches come
-out of this loader bit for bit as out of the JAX loader's PIL path, and
-within one uint8 level of its native path (tests/test_torch_data.py).
+Images are decoded where the JAX loaders decode them: by the native C++
+decode pool (cpm_tpu_torch/native, the port's copy of cpm_tpu/native)
+whenever that library builds, and by PIL otherwise, so that either way this
+loader's batches are the JAX loader's bit for bit on the same path
+(tests/test_torch_data.py, tests/test_torch_native.py). A library that does
+not build warns once (cpm_tpu_torch/native.load) and each loader records
+the path it takes in `decode_path` ('native' or 'pil') and the images each
+path made in `decoded`; the CLIs print it. On the native path:
+  * TrainLoader decodes a batch through an `ImagePool` of
+    `DECODE_WORKERS` threads, opened when an iteration starts and closed
+    when it ends, beneath the prefetch thread. Each
+    image's draws are the JAX package's (the scale, then the flip); the
+    flip comes after the resize. An image that does not decode falls back
+    to PIL, as in the JAX package. Like the JAX native path it never
+    applies TRAIN.BRIGHTNESS / CONTRAST / SATURATION / HUE: the color
+    jitter runs on the PIL path only (ROADMAP Queue 3, item 35).
+  * TestLoader decodes, resizes (cv2's INTER_LINEAR mapping or PIL's
+    taps, per TPU.EVAL_RESIZE) and pads an image in one call; a TTA flip
+    pass takes the PIL path, which flips the raw image before resizing.
 """
 
 import queue as queue_mod
@@ -29,11 +44,61 @@ from typing import Iterator, Optional
 import numpy as np
 
 from cpm_tpu_torch.data.coco import COCODataset
-from cpm_tpu_torch.data.transforms import TestTransform, TrainTransform
+from cpm_tpu_torch.data.transforms import (
+    TestTransform,
+    TrainTransform,
+    get_blob_scale_size,
+    get_resize_size,
+)
 from cpm_tpu_torch.structures.image_batch import round_up
 
 
 PREFETCH_THREAD = "TrainLoader-prefetch"  # the name of the thread that makes the batches
+# the native pool's threads: the JAX loader reads DATALOADER.NUM_WORKERS,
+# which neither config tree holds (so no YAML can set it), with a default of 4
+DECODE_WORKERS = 4
+
+
+def _native():
+    """The native decode library's bindings, or None when it does not build
+    here (then the loaders decode with PIL)."""
+    from cpm_tpu_torch import native
+
+    return native if native.load() is not None else None
+
+
+def describe_decode_path(loaders) -> str:
+    """The CLIs' line for the path that `loaders` decode on: 'native' (with
+    the library's build time when this process built it), 'pil' (with the
+    build's first error line when it failed), or both, by pass."""
+    from cpm_tpu_torch import native
+
+    paths = [loader.decode_path for loader in loaders]
+    status = native.status()
+    if "native" in paths:
+        text = "native"
+        if status is not None and status.seconds:
+            text += f" (cpm_tpu_torch/native built in {status.seconds:.2f} s)"
+        n_pil = paths.count("pil")
+        return text + (f"; pil for {n_pil} flip pass{'es' if n_pil > 1 else ''}" if n_pil else "")
+    if status is not None and not status.built:
+        return f"pil (the native library did not build: {status.error.splitlines()[0]})"
+    return "pil"
+
+
+def _resized_boxes(boxes, orig_hw, new_hw, flip: bool):
+    """A native-path image's boxes: scaled to its resize, then flipped with
+    it (the JAX package's arithmetic)."""
+    (oh, ow), (nh, nw) = orig_hw, new_hw
+    b = boxes.copy()
+    b[:, 0::2] *= nw / ow
+    b[:, 1::2] *= nh / oh
+    if flip:
+        fb = b.copy()
+        fb[:, 0] = nw - b[:, 2] - 1
+        fb[:, 2] = nw - b[:, 0] - 1
+        b = fb
+    return b
 
 
 def compute_buckets(scales, max_size, divisibility: int):
@@ -95,6 +160,11 @@ class TrainLoader:
                 max_repeat=float(rft.MAX_REPEAT_TIMES),
                 min_repeat=float(rft.MIN_REPEAT_TIMES),
             )
+        # the native decode path (the JAX loader's default): a pool of
+        # DECODE_WORKERS threads decodes each batch while an iteration runs
+        self.native = _native()
+        self.decode_path = "native" if self.native is not None else "pil"
+        self.decoded = {"native": 0, "pil": 0}  # images made by each path
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         """One epoch of per-rank dataset indices.
@@ -143,15 +213,90 @@ class TrainLoader:
         return batches, carry_out
 
     def _load_one(self, i: int, rng: np.random.RandomState):
-        """(image [nh, nw, 3], boxes, labels, (nh, nw)): PIL decode, then the
-        train transform (color jitter, resize, flip) on `rng`'s draws."""
+        """(image [nh, nw, 3], boxes, labels, (nh, nw)) of one image: the
+        native fused decode when the library is built (the scale drawn
+        before the decode, the flip after it), PIL and the train transform
+        (color jitter, resize, flip) otherwise or when the bytes do not
+        decode."""
         boxes, labels = self.dataset.load_annotations(i)
+        if self.native is not None:
+            info = self.dataset.get_img_info(i)
+            oh, ow = info["height"], info["width"]
+            shortest = self.transform.scales[rng.randint(len(self.transform.scales))]
+            nh, nw = get_resize_size((oh, ow), shortest, self.transform.max_size)
+            try:
+                with open(self.dataset.image_path(i), "rb") as f:
+                    data = f.read()
+                if self.device_normalize:
+                    img, _ = self.native.decode_resize_u8(
+                        data, (nh, nw), (nh, nw), self.transform.to_bgr255)
+                else:
+                    img, _ = self.native.decode_resize_normalize(
+                        data, (nh, nw), (nh, nw), self.transform.pixel_means,
+                        self.transform.pixel_stds, self.transform.to_bgr255)
+                flip = rng.rand() < self.transform.flip_prob
+                if flip:
+                    img = np.ascontiguousarray(img[:, ::-1])
+                self.decoded["native"] += 1
+                return img, _resized_boxes(boxes, (oh, ow), (nh, nw), flip), labels, (nh, nw)
+            except RuntimeError:
+                pass  # not decodable by the native library: PIL
         img = self.dataset.load_image(i)
         img, boxes, size = self.transform(img, boxes, rng)
+        self.decoded["pil"] += 1
         return img, boxes, labels, size
 
-    def _make_batch(self, batch_indices, rng: np.random.RandomState):
-        loaded = [self._load_one(i, rng) for i in batch_indices]
+    def _load_batch_pooled(self, batch_indices, rng: np.random.RandomState, pool):
+        """The whole batch decoded by `pool`, in batch order, as a list
+        of (img, boxes, labels, size); or None when an image failed, after
+        every task of the batch has been collected (so that none is left in
+        the pool for the next batch). The caller then loads the batch one
+        image at a time, `rng` past this plan's draws, as the JAX loader
+        does."""
+        plan = []
+        for i in batch_indices:
+            info = self.dataset.get_img_info(i)
+            oh, ow = info["height"], info["width"]
+            shortest = self.transform.scales[rng.randint(len(self.transform.scales))]
+            nh, nw = get_resize_size((oh, ow), shortest, self.transform.max_size)
+            flip = rng.rand() < self.transform.flip_prob
+            plan.append((i, (oh, ow), (nh, nw), flip))
+        padded = (max(p[2][0] for p in plan), max(p[2][1] for p in plan))
+        for t, (i, _, resized, _) in enumerate(plan):
+            if self.device_normalize:
+                pool.submit_u8(t, self.dataset.image_path(i), resized, padded,
+                               self.transform.to_bgr255)
+            else:
+                pool.submit(t, self.dataset.image_path(i), resized, padded,
+                            self.transform.pixel_means, self.transform.pixel_stds,
+                            self.transform.to_bgr255)
+        wait = pool.wait_any_u8 if self.device_normalize else pool.wait_any
+        decoded, failed = [None] * len(plan), False
+        for _ in plan:
+            try:
+                t, img, _ = wait(padded)
+            except RuntimeError:  # a worker failed (e.g. an undecodable file)
+                failed = True
+                continue
+            decoded[t] = img
+        if failed:
+            return None
+        out = []
+        for (i, orig, (nh, nw), flip), img in zip(plan, decoded):
+            img = img[:nh, :nw]
+            if flip:
+                img = np.ascontiguousarray(img[:, ::-1])
+            boxes, labels = self.dataset.load_annotations(i)
+            out.append((img, _resized_boxes(boxes, orig, (nh, nw), flip), labels, (nh, nw)))
+        self.decoded["native"] += len(out)
+        return out
+
+    def _make_batch(self, batch_indices, rng: np.random.RandomState, pool=None):
+        """One batch: through `pool` (the native ImagePool of the running
+        iteration) when there is one, else one image at a time."""
+        loaded = self._load_batch_pooled(batch_indices, rng, pool) if pool is not None else None
+        if loaded is None:
+            loaded = [self._load_one(i, rng) for i in batch_indices]
         landscape_votes = sum(int(img.shape[1] >= img.shape[0]) for img, *_ in loaded)
         bh, bw = (
             self.buckets["landscape"]
@@ -182,6 +327,11 @@ class TrainLoader:
             gt_mask=gt_mask,
         )
 
+    def _open_pool(self):
+        """An ImagePool of DECODE_WORKERS threads on the native path, else
+        None."""
+        return None if self.native is None else self.native.ImagePool(DECODE_WORKERS)
+
     def _raw_iter(self) -> Iterator[dict]:
         """Yields batches from iteration `start_iter` onward.
 
@@ -189,33 +339,39 @@ class TrainLoader:
         restarted at scheduler.iteration, tools/rcnn/train_net.py:127): the
         epoch and batch position are fast-forwarded by replaying the cheap
         index math — never decoding an image — so a resumed run sees the
-        batch stream an uninterrupted run would."""
-        it = 0
-        epoch = 0
-        carry = None
-        while True:
-            indices = self._epoch_indices(epoch)
-            batches, carry = self._group_batches(indices, epoch, carry)
-            if not batches and not any(carry.values()):
-                raise RuntimeError("TrainLoader: empty epoch (no images)")
-            if it + len(batches) <= self.start_iter:
-                it += len(batches)  # skip a fully consumed epoch
+        batch stream an uninterrupted run would. The native pool lives
+        while this generator does, one for each iteration."""
+        pool = self._open_pool()
+        try:
+            it = 0
+            epoch = 0
+            carry = None
+            while True:
+                indices = self._epoch_indices(epoch)
+                batches, carry = self._group_batches(indices, epoch, carry)
+                if not batches and not any(carry.values()):
+                    raise RuntimeError("TrainLoader: empty epoch (no images)")
+                if it + len(batches) <= self.start_iter:
+                    it += len(batches)  # skip a fully consumed epoch
+                    epoch += 1
+                    continue
+                skip = max(0, self.start_iter - it)
+                it += skip
+                for batch_indices in batches[skip:]:
+                    rng = np.random.RandomState(
+                        (self.seed * 1_000_003 + it * 97 + self.rank) % (2**31)
+                    )
+                    yield self._make_batch(batch_indices, rng, pool)
+                    it += 1
                 epoch += 1
-                continue
-            skip = max(0, self.start_iter - it)
-            it += skip
-            for batch_indices in batches[skip:]:
-                rng = np.random.RandomState(
-                    (self.seed * 1_000_003 + it * 97 + self.rank) % (2**31)
-                )
-                yield self._make_batch(batch_indices, rng)
-                it += 1
-            epoch += 1
+        finally:
+            if pool is not None:
+                pool.close()
 
     def __iter__(self) -> Iterator[dict]:
         """The batches, made `prefetch` ahead on a thread of their own. The
-        thread ends when this generator is closed (or collected), and an
-        error it meets is raised here."""
+        thread ends, and closes the native pool, when this generator is
+        closed (or collected); an error it meets is raised here."""
         if self.prefetch <= 0:
             yield from self._raw_iter()
             return
@@ -233,13 +389,16 @@ class TrainLoader:
             return False
 
         def worker():
+            batches = self._raw_iter()
             try:
-                for item in self._raw_iter():
+                for item in batches:
                     if not put(item):
                         return
                 put(done)
             except Exception as e:  # handed to the consumer, raised there
                 put(e)
+            finally:
+                batches.close()  # closes the native pool on this thread
 
         t = threading.Thread(target=worker, daemon=True, name=PREFETCH_THREAD)
         t.start()
@@ -293,23 +452,66 @@ class TestLoader:
             if batch_size is not None
             else max(1, int(getattr(cfg.TEST, "IMS_PER_GPU", 1)))
         )
+        # the native fused decode (the JAX loader's default), except under a
+        # TTA flip: the reference flips the RAW image before resizing
+        # (test.py:342-343) and the fused op resizes first, so that a flip
+        # after it would differ sub-pixel under cv2's mapping; a flip pass
+        # takes the PIL path, which flips the raw image, then resizes
+        self.native = None if hflip else _native()
+        self.decode_path = "native" if self.native is not None else "pil"
+        self.decoded = {"native": 0, "pil": 0}  # images made by each path
 
     def __len__(self):
         return self.end - self.start
 
+    def _load_native(self, i: int):
+        """(padded img, (nh, nw), (orig_h, orig_w)) from the native fused
+        op, or None when it cannot decode the file."""
+        info = self.dataset.get_img_info(i)
+        oh, ow = info["height"], info["width"]
+        interp = self.transform.backend  # 'cv2' (the reference's eval resize) or 'pil'
+        if interp == "cv2":
+            im_scale, (nh, nw) = get_blob_scale_size(
+                (oh, ow), self.transform.scale, self.transform.max_size)
+            scale_xy = (im_scale, im_scale)
+        else:
+            nh, nw = get_resize_size((oh, ow), self.transform.scale, self.transform.max_size)
+            scale_xy = (1.0, 1.0)
+        bucket = self.buckets["landscape"] if nw >= nh else self.buckets["portrait"]
+        try:
+            with open(self.dataset.image_path(i), "rb") as f:
+                data = f.read()
+            if self.device_normalize:
+                img, _ = self.native.decode_resize_u8(
+                    data, (nh, nw), bucket, self.transform.to_bgr255, interp=interp,
+                    scale_xy=scale_xy)
+            else:
+                img, _ = self.native.decode_resize_normalize(
+                    data, (nh, nw), bucket, self.transform.pixel_means,
+                    self.transform.pixel_stds, self.transform.to_bgr255, interp=interp,
+                    scale_xy=scale_xy)
+        except RuntimeError:
+            return None
+        return img, (nh, nw), (oh, ow)
+
     def _load_one_test(self, i: int):
         """(padded img [bh, bw, 3], (nh, nw), meta dict, bucket key)"""
-        raw = self.dataset.load_image(i)
-        if self.hflip:
-            # the reference's TTA flips the RAW image before resizing
-            # (test.py:342-343)
-            raw = np.ascontiguousarray(raw[:, ::-1])
-        orig_h, orig_w = raw.shape[:2]
-        norm, (nh, nw), scale_hw = self.transform(raw)
+        native_out = self._load_native(i) if self.native is not None else None
+        if native_out is not None:
+            img, (nh, nw), (orig_h, orig_w) = native_out
+            scale_hw = (nh / orig_h, nw / orig_w)
+            self.decoded["native"] += 1
+        else:
+            raw = self.dataset.load_image(i)
+            if self.hflip:
+                raw = np.ascontiguousarray(raw[:, ::-1])
+            orig_h, orig_w = raw.shape[:2]
+            norm, (nh, nw), scale_hw = self.transform(raw)
+            bh, bw = self.buckets["landscape"] if nw >= nh else self.buckets["portrait"]
+            img = np.zeros((bh, bw, 3), np.uint8 if self.device_normalize else np.float32)
+            img[:nh, :nw] = norm[:bh, :bw]
+            self.decoded["pil"] += 1
         key = "landscape" if nw >= nh else "portrait"
-        bh, bw = self.buckets[key]
-        img = np.zeros((bh, bw, 3), np.uint8 if self.device_normalize else np.float32)
-        img[:nh, :nw] = norm[:bh, :bw]
         meta = dict(
             index=i,
             image_id=self.dataset.id_to_img_map[i],

@@ -23,7 +23,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from cpm_tpu_torch.data.loader import TestLoader
+from cpm_tpu_torch.data.loader import TestLoader, describe_decode_path
 from cpm_tpu_torch.modeling.roi_heads.box_head import detection_filter_kwargs
 from cpm_tpu_torch.ops.nms import filter_results
 from cpm_tpu_torch.utils.amp import cast_floating_to, compute_dtype
@@ -139,13 +139,17 @@ def run_inference_on_dataset(
     $CKPT/vis/ (the reference's test_engine.py:171-187). `batch_seconds`,
     when given, receives for each batch the wall time of the loop's turn
     that loads and queues it and reads the previous batch's detections; the
-    last batch's also holds the read of its own. They sum to the loop's time."""
+    last batch's also holds the read of its own. They sum to the loop's time.
+    Unless `progress_every` is 0, `logger` gets the loaders' decode path
+    first (`describe_decode_path`)."""
     forward = make_forward_fn(cfg, model)
     device = next(model.parameters()).device
     passes = tta_passes(cfg)
     tta = len(passes) > 1
     loaders = [TestLoader(cfg, dataset, start=start, end=end, scale=p["scale"],
                           max_size=p["max_size"], hflip=p["hflip"]) for p in passes]
+    if progress_every:
+        logger(f"decode path: {describe_decode_path(loaders)}")
     c2j = dataset.contiguous_category_id_to_json_id
 
     vis_dir = class_names = None

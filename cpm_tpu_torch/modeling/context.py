@@ -7,8 +7,6 @@ after its blocks' last norm under BACKBONE.*.STAGE_WITH_CONTEXT ('se' or
 'gcb', reduced to max(1, int(C * CTX_RATIO)) channels).
 """
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -20,15 +18,15 @@ class SeBlock(nn.Module):
     """Squeeze-and-excitation over an NCHW tensor: the per-sample global
     average pool, a 1x1 conv to `reduced` channels, relu, a 1x1 conv back to
     `features`, and the sigmoid of that as a per-channel gate. Fresh weights
-    are flax's nn.Conv defaults: lecun normal (drawn untruncated here) and
-    zero biases."""
+    are flax's nn.Conv defaults: lecun normal (truncated, as flax draws it)
+    and zero biases."""
 
     def __init__(self, features: int, reduced: int, generator: torch.Generator = None):
         super().__init__()
         self.fc1 = nn.Conv2d(features, reduced, 1)
         self.fc2 = nn.Conv2d(reduced, features, 1)
         for conv in (self.fc1, self.fc2):
-            init.normal_(conv.weight, math.sqrt(1.0 / conv.in_channels), generator)
+            init.lecun_normal_(conv.weight, generator)
             nn.init.zeros_(conv.bias)
 
     def forward(self, x):
@@ -37,21 +35,40 @@ class SeBlock(nn.Module):
         return x * torch.sigmoid(s)
 
 
+class FlaxLayerNorm(nn.LayerNorm):
+    """flax's nn.LayerNorm over the last axis, in flax's formula: the
+    variance as mean(x^2) - mean(x)^2 (at least 0), then (x - mean) times
+    rsqrt(var + eps) * weight, plus bias, all in at least float32 (flax
+    promotes the statistics so), the result in the input's and the
+    parameters' common dtype. Over one channel its gradient to x is exactly
+    0, as flax's is; torch's fused backward leaves a rounding residual
+    there, scaled by rsqrt(eps) (1000 at flax's 1e-6)."""
+
+    def forward(self, x):
+        out_dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype))
+        return (y + self.bias.to(xf.dtype)).to(out_dtype)
+
+
 class GlobalContextBlock(nn.Module):
     """GCNet block over an NCHW tensor: attention pooling (a 1x1 conv to one
     channel, softmax over the H*W positions, the weighted sum of x), then a
     1x1 conv to `reduced`, a LayerNorm (flax's epsilon, 1e-6, not torch's
-    1e-5), relu, a 1x1 conv back to `features`, added to every position.
-    Fresh weights are flax's nn.Conv defaults, as `SeBlock`'s."""
+    1e-5, and flax's formula: `FlaxLayerNorm`), relu, a 1x1 conv back to
+    `features`, added to every position. Fresh weights are flax's nn.Conv
+    defaults, as `SeBlock`'s."""
 
     def __init__(self, features: int, reduced: int, generator: torch.Generator = None):
         super().__init__()
         self.conv_mask = nn.Conv2d(features, 1, 1)
         self.transform_reduce = nn.Conv2d(features, reduced, 1)
-        self.transform_ln = nn.LayerNorm(reduced, eps=1e-6)
+        self.transform_ln = FlaxLayerNorm(reduced, eps=1e-6)
         self.transform_expand = nn.Conv2d(reduced, features, 1)
         for conv in (self.conv_mask, self.transform_reduce, self.transform_expand):
-            init.normal_(conv.weight, math.sqrt(1.0 / conv.in_channels), generator)
+            init.lecun_normal_(conv.weight, generator)
             nn.init.zeros_(conv.bias)
 
     def forward(self, x):

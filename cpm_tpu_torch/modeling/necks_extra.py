@@ -24,8 +24,8 @@ and `F.max_pool2d(ceil_mode=True)`, which the port calls):
 Module names are flax's (`reduction_conv`, `fpn_conv{i}`, `nasfpn_in{i}`,
 `stage{s}_{cell}`, `bifpn_in{i}`, the fusion weights `w1`..`w3`), so the
 bridge maps them as they are; a `RefConv`'s norm is `norm`. Fresh weights
-are flax's nn.Conv defaults (lecun normal, drawn untruncated, and zero
-biases), the fusion weights 0.5 or 0.333. NCHW tensors in channels_last
+are flax's nn.Conv defaults (lecun normal, truncated as flax draws it,
+and zero biases), the fusion weights 0.5 or 0.333. NCHW tensors in channels_last
 memory; every neck returns five levels, finest first, and carries
 `dim_out`.
 """
@@ -59,7 +59,7 @@ def _resize_merge(x: torch.Tensor, out_hw) -> torch.Tensor:
 
 def _flax_conv(cin, cout, k, groups=1, bias=True, g=None):
     conv = nn.Conv2d(cin, cout, k, padding=(k - 1) // 2, groups=groups, bias=bias)
-    init.normal_(conv.weight, math.sqrt(1.0 / (cin // groups * k * k)), g)
+    init.lecun_normal_(conv.weight, g)
     if bias:
         nn.init.zeros_(conv.bias)
     return conv

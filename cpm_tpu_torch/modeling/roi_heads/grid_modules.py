@@ -213,7 +213,7 @@ class GridOutput(nn.Module):
         self.offset_emb = None
         if offset_on and not fused_on:
             self.offset_emb = nn.Linear(4 * P, cout)
-            init.normal_(self.offset_emb.weight, math.sqrt(1.0 / (4 * P)), g)
+            init.lecun_normal_(self.offset_emb.weight, g)
             nn.init.zeros_(self.offset_emb.bias)
         if iou_helper:
             s = roi_feat_size // 2

@@ -24,8 +24,6 @@ channels_last memory like every conv of the port, so the NHWC views the
 sampler reads are contiguous without a copy.
 """
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -250,8 +248,8 @@ class _DeformPack(nn.Module):
         nn.init.zeros_(conv.bias)
         self.add_module(self.offset_conv_name, conv)
         self.weight = nn.Parameter(torch.empty(features, in_channels // groups, k, k))
-        # he_normal over fan_in, as the JAX package draws it
-        init.normal_(self.weight, math.sqrt(2.0 / (in_channels // groups * k * k)), generator)
+        # flax's he_normal over fan_in (truncated), as the JAX package draws it
+        init.he_normal_(self.weight, generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def _deform(self, x, offset, mask):

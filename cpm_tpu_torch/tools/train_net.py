@@ -119,7 +119,7 @@ def train(args):
 
 def _train(args, device, rank, world):
     from cpm_tpu_torch.data.coco import ConcatDataset, build_dataset
-    from cpm_tpu_torch.data.loader import TrainLoader
+    from cpm_tpu_torch.data.loader import TrainLoader, describe_decode_path
     from cpm_tpu_torch.engine.checkpoint import CheckPointer
     from cpm_tpu_torch.engine.train import create_train_state, make_train_step
     from cpm_tpu_torch.parallel.mesh import ranks_agree
@@ -146,6 +146,7 @@ def _train(args, device, rank, world):
     # processes do (tools/train_net.py:77 there)
     local_batch = max(cfg.TRAIN.BATCH_SIZE // world, 1)
     loader = TrainLoader(cfg, dataset, local_batch, rank=rank, world_size=world, seed=cfg.SEED)
+    say(f"decode path: {describe_decode_path([loader])}")
     model, optimizer, state = create_train_state(cfg, device, cfg.SEED)
     if cfg.TRAIN.WEIGHTS and os.path.exists(cfg.TRAIN.WEIGHTS):
         # the pretrained trunk; a checkpoint to resume from wins over it

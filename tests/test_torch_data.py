@@ -4,11 +4,12 @@ Both read the repository's synthetic COCO set (data/synthetic_debug: 16
 JPEGs, 38 annotations) under cfgs/debug/tiny_cpm.yaml. The port's annotation
 index, dataset, transforms and repeat-factor indices must equal the JAX
 package's; its TrainLoader must yield the JAX TrainLoader's batches bit for
-bit (the JAX loader's PIL path, forced by switching its native library off
-in this test; the port has only that path) and stay within one uint8 level
-of the JAX native path where that library builds; a loader resumed at
-start_iter must continue the uninterrupted stream; its TestLoader must
-equal the JAX one (PIL path, both eval resize backends).
+bit, on the PIL path (both packages' native libraries switched off in this
+test) and on the native path (the default of both; the JAX package's
+library built from its own source by `tests/torch_support.py::jax_native`,
+and tests/test_torch_native.py holds the rest of that path); a loader
+resumed at start_iter must continue the uninterrupted stream; its
+TestLoader must equal the JAX one (PIL path, both eval resize backends).
 
 torch is never imported here: the loaders are numpy and PIL.
 """
@@ -25,6 +26,7 @@ from cpm_tpu.config import get_default_cfg as jax_default_cfg
 from cpm_tpu.config import merge_cfg_from_file as jax_merge_file
 from cpm_tpu.config import merge_cfg_from_list as jax_merge_list
 from tests.torch_support import _one_torch_thread  # noqa: F401  (autouse)
+from tests.torch_support import jax_native  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(REPO, "cfgs", "debug", "tiny_cpm.yaml")
@@ -72,9 +74,12 @@ def _datasets(want_cfg, got_cfg, is_train=True):
 
 
 @pytest.fixture
-def no_jax_native(monkeypatch):
-    """The JAX loaders on their PIL path."""
+def pil_paths(monkeypatch):
+    """Both packages' loaders on their PIL path."""
+    import cpm_tpu_torch.data.loader as port_loader_mod
+
     monkeypatch.setattr(jax_loader_mod, "_native", lambda: None)
+    monkeypatch.setattr(port_loader_mod, "_native", lambda: None)
 
 
 def test_coco_index_and_dataset_equal_the_jax_packages():
@@ -201,7 +206,7 @@ def _assert_same_batches(got, want, image_levels=0):
 
 
 @pytest.mark.parametrize("sampler", ["DistributedSampler", "RepeatFactorTrainingSampler"])
-def test_train_loader_yields_the_jax_pil_paths_batches(no_jax_native, sampler):
+def test_train_loader_yields_the_jax_pil_paths_batches(pil_paths, sampler):
     from cpm_tpu_torch.data.loader import TrainLoader
 
     want_cfg, got_cfg = _cfgs("DATALOADER.SAMPLER_TRAIN", sampler,
@@ -212,31 +217,24 @@ def test_train_loader_yields_the_jax_pil_paths_batches(no_jax_native, sampler):
     # 16 images, all landscape, 2 a batch: 8 batches an epoch (fewer or more
     # under repeat factors), so 10 cross an epoch boundary
     want = _batches(want_loader, 10)
-    got = _batches(TrainLoader(got_cfg, pd, 2, seed=5), 10)
+    loader = TrainLoader(got_cfg, pd, 2, seed=5)
+    assert loader.decode_path == "pil"
+    got = _batches(loader, 10)
     _assert_same_batches(got, want)
     assert want[0]["images"].dtype == np.uint8 and want[0]["images"].shape == (2, 64, 128, 3)
 
 
-def test_train_loader_is_within_one_level_of_the_jax_native_path():
-    import cpm_tpu.native as native
-
+def test_train_loader_is_within_one_level_of_the_jax_native_path(jax_native):  # noqa: F811
+    """Both loaders on their default, native path: bit for bit (0 levels)."""
     from cpm_tpu_torch.data.loader import TrainLoader
 
-    # get_lib() runs g++ over the tracked library when it is missing or older
-    # than its source; a test must not rewrite a file of the JAX package
-    if not (os.path.exists(native._SO)
-            and os.path.getmtime(native._SO) >= os.path.getmtime(native._SRC)):
-        pytest.skip("the JAX package's native library is missing or older than its source")
-    try:
-        native.get_lib()
-    except OSError as e:
-        pytest.skip(f"the JAX package's native library does not load here: {e}")
     want_cfg, got_cfg = _cfgs()
     jd, pd = _datasets(want_cfg, got_cfg)
     want_loader = jax_loader_mod.TrainLoader(want_cfg, jd, 2, seed=5)
     assert want_loader.pool is not None
-    _assert_same_batches(_batches(TrainLoader(got_cfg, pd, 2, seed=5), 10),
-                         _batches(want_loader, 10), image_levels=1)
+    loader = TrainLoader(got_cfg, pd, 2, seed=5)
+    assert loader.decode_path == "native"
+    _assert_same_batches(_batches(loader, 10), _batches(want_loader, 10), image_levels=0)
 
 
 def test_start_iter_continues_the_uninterrupted_stream():
@@ -269,7 +267,7 @@ def test_train_loader_thread_ends_with_the_iterator_and_hands_on_errors():
     assert prefetching() == before
 
     class Broken(TrainLoader):
-        def _make_batch(self, batch_indices, rng):
+        def _make_batch(self, batch_indices, rng, pool=None):
             raise OSError("unreadable image")
 
     with pytest.raises(OSError, match="unreadable image"):
@@ -278,7 +276,7 @@ def test_train_loader_thread_ends_with_the_iterator_and_hands_on_errors():
 
 
 @pytest.mark.parametrize("backend", ["cv2", "pil"])
-def test_test_loader_equals_the_jax_one(no_jax_native, backend):
+def test_test_loader_equals_the_jax_one(pil_paths, backend):
     from cpm_tpu_torch.data.loader import TestLoader
 
     want_cfg, got_cfg = _cfgs("TPU.EVAL_RESIZE", backend)

@@ -166,7 +166,11 @@ def test_inference_over_the_dataset_matches_jax(monkeypatch, tmp_path):
     from cpm_tpu_torch.modeling.model import build_model
     from cpm_tpu_torch.utils.param_bridge import load_flax_params
 
-    monkeypatch.setattr(jax_loader_mod, "_native", lambda: None)  # the JAX PIL path
+    import cpm_tpu_torch.data.loader as port_loader_mod
+
+    # both packages' loaders on their PIL path
+    monkeypatch.setattr(jax_loader_mod, "_native", lambda: None)
+    monkeypatch.setattr(port_loader_mod, "_native", lambda: None)
     want_cfg, got_cfg = _cfgs("TPU.COMPUTE_DTYPE", "float32", "CKPT", str(tmp_path))
     (jd,) = jax_build_dataset(want_cfg, want_cfg.TEST.DATASETS, is_train=False)
     (pd,) = build_dataset(got_cfg, got_cfg.TEST.DATASETS, is_train=False)

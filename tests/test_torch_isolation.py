@@ -41,18 +41,20 @@ def test_every_port_module_imports_without_jax():
         "          'engine.test', 'evaluation.coco_eval', 'utils.logger', 'utils.vis',\n"
         "          'tools.train_net', 'tools.test_net', 'structures.image_batch',\n"
         "          'modeling.layers', 'ops.roi_pool', 'ops.rotated', 'evaluation.proposal_eval',\n"
-        "          'utils.measure', 'tools.compute_flops')\n"
+        "          'utils.measure', 'tools.compute_flops', 'native',\n"
+        "          'tools.coco_model_to_cityscapes')\n"
         "assert all('cpm_tpu_torch.' + w in names for w in wanted), names\n"
         "print(len(names))\n"
     )
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 73
+    assert int(proc.stdout.split()[-1]) >= 75
 
 
 def test_host_data_modules_import_no_torch():
     # the loaders run on a thread of their own beside the train step and are
-    # numpy and PIL, as in the JAX package; the evaluator is numpy
+    # numpy, PIL and the native decode pool's ctypes, as in the JAX package;
+    # the evaluator is numpy
     code = (
         "import sys, importlib\n"
         "for m in ('torch', 'jax', 'cpm_tpu'):\n"
@@ -60,7 +62,7 @@ def test_host_data_modules_import_no_torch():
         "for n in ('data.catalog', 'data.coco_io', 'data.coco', 'data.synthetic_coco',\n"
         "          'data.transforms', 'data.samplers', 'data.loader', 'evaluation.coco_eval',\n"
         "          'utils.logger', 'utils.vis', 'structures.image_batch',\n"
-        "          'evaluation.proposal_eval'):\n"
+        "          'evaluation.proposal_eval', 'native'):\n"
         "    importlib.import_module('cpm_tpu_torch.' + n)\n"
         "print('ok')\n"
     )

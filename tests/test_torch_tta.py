@@ -272,7 +272,11 @@ def test_tta_inference_matches_jax(monkeypatch, tmp_path):
     from cpm_tpu_torch.modeling.roi_heads.box_head import Detections
     from cpm_tpu_torch.utils.param_bridge import load_flax_params
 
-    monkeypatch.setattr(jax_loader_mod, "_native", lambda: None)  # the JAX PIL path
+    import cpm_tpu_torch.data.loader as port_loader_mod
+
+    # both packages' loaders on their PIL path
+    monkeypatch.setattr(jax_loader_mod, "_native", lambda: None)
+    monkeypatch.setattr(port_loader_mod, "_native", lambda: None)
     want_cfg, got_cfg = _cfgs(
         "TPU.COMPUTE_DTYPE", "float32", "CKPT", str(tmp_path), "TEST.BBOX_AUG.ENABLED", "True",
         "TEST.BBOX_AUG.H_FLIP", "True", "TEST.BBOX_AUG.SCALES", "(48, 96)",

@@ -29,7 +29,9 @@ not 1e-5: under GN over WS-standardised weights the two packages'
 statistics, summed in different orders, move a score by up to 1.1e-5; and
 a model with WS convs has its gradients held to rtol 1e-3 with atol 5e-3
 of each parameter's largest gradient, or 1e-5 of the model's largest
-(`_ws_losses_and_gradients_match` says why). Weights are the port's,
+(`_ws_losses_and_gradients_match` says why); the HRFPN twin's port side is
+held in f64, since one of its ReLUs has its input within f32 rounding of 0
+(`FLOAT64_TWINS`). Weights are the port's,
 drawn from a seed (norm scales and biases redrawn, so that none is 1 or 0),
 and reach the JAX side through the bridge; each JAX side is one compiled
 program over an abstract init, compiled at XLA's backend optimisation level
@@ -42,6 +44,7 @@ torch and the port are imported inside the tests, so that collecting this
 file loads no torch into a test worker.
 """
 
+import contextlib
 import itertools
 import sys
 import types
@@ -265,18 +268,68 @@ def test_context_blocks_match_jax(context):
         for name, p in port.named_parameters():
             if name.endswith("bias"):
                 p.copy_(torch.randn(p.shape, generator=torch.Generator().manual_seed(4)))
-    # bridge by hand: the block is the only module; HWIO -> OIHW, scale -> weight
+    want = jax.jit(lambda p, x: jmod.apply({"params": p}, x))(_context_params(port),
+                                                              jnp.asarray(x))
+    got = port(torch.from_numpy(x).permute(0, 3, 1, 2)).detach().permute(0, 2, 3, 1).numpy()
+    _close(got, np.asarray(want), 1e-4, 1e-5, context)
+
+
+def _context_params(port, dtype=np.float32):
+    """A context block's parameters bridged by hand (the block is the only
+    module): OIHW -> HWIO, the LayerNorm's weight -> scale; in `dtype`."""
     params = {}
     for name, p in port.named_parameters():
         mod, leaf = name.rsplit(".", 1)
-        v = p.detach().numpy()
+        v = jnp.asarray(p.detach().float().numpy(), dtype)
         if v.ndim == 4:
             params.setdefault(mod, {})["kernel"] = v.transpose(2, 3, 1, 0)
         else:
             params.setdefault(mod, {})["scale" if (leaf == "weight" and "ln" in mod) else leaf] = v
-    want = jax.jit(lambda p, x: jmod.apply({"params": p}, x))(params, jnp.asarray(x))
-    got = port(torch.from_numpy(x).permute(0, 3, 1, 2)).detach().permute(0, 2, 3, 1).numpy()
-    _close(got, np.asarray(want), 1e-4, 1e-5, context)
+    return params
+
+
+def test_the_gc_blocks_layer_norm_takes_float32_statistics_in_bfloat16():
+    """Under TPU.COMPUTE_DTYPE bfloat16 the parameters are cast to bf16
+    (cpm_tpu_torch/utils/amp.py) and flax's LayerNorm still takes its mean
+    and variance in float32, rounding once at the end. The inputs here are
+    channels dominated by their mean (40 plus a spread of about 1), where
+    mean(x^2) - mean^2 taken in bf16 (a step of 8 at 1600) would lose the
+    variance. Held: the LayerNorm alone to one bf16 step (rtol 2^-7), and
+    the whole GC block in bf16 to 2^-6 relative with an atol of 2^-6 of the
+    output's largest magnitude (bf16 convs in two summation orders; the
+    block is not shifted so: a bf16 conv output of 40 is rounded to a step
+    of 0.25, as large as the spread the norm divides by)."""
+    import torch
+
+    from cpm_tpu_torch.modeling.context import FlaxLayerNorm, make_context
+
+    bf = jnp.bfloat16
+    rng = np.random.RandomState(0)
+    x = (40 + rng.randn(6, 16)).astype(np.float32)
+    scale, bias = (0.5 + rng.rand(16)).astype(np.float32), rng.randn(16).astype(np.float32)
+    want = flax_nn.LayerNorm(epsilon=1e-6).apply(
+        {"params": {"scale": jnp.asarray(scale, bf), "bias": jnp.asarray(bias, bf)}},
+        jnp.asarray(x, bf))
+    ln = FlaxLayerNorm(16, eps=1e-6)
+    with torch.no_grad():
+        ln.weight.copy_(torch.from_numpy(scale))
+        ln.bias.copy_(torch.from_numpy(bias))
+    got = ln.to(torch.bfloat16)(torch.from_numpy(x).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16 and want.dtype == bf
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32),
+                               rtol=2.0**-7, atol=2.0**-7)
+
+    port = make_context(64, "gcb", 0.25, torch.Generator().manual_seed(0))
+    _redraw_norms(port, 3)
+    jmod = jax_make_context(64, "gcb", 0.25)
+    xb = (rng.randn(2, 6, 5, 64) * 0.5).astype(np.float32)
+    want = jax.jit(lambda p, x: jmod.apply({"params": p}, x))(
+        _context_params(port, bf), jnp.asarray(xb, bf))
+    port = port.to(torch.bfloat16)
+    got = port(torch.from_numpy(xb).to(torch.bfloat16).permute(0, 3, 1, 2)).detach()
+    assert got.dtype == torch.bfloat16 and want.dtype == bf
+    _close(got.permute(0, 2, 3, 1).float().numpy(), np.asarray(want, np.float32), 2.0**-6,
+           2.0**-6, "gcb in bf16")
 
 
 # --- trunks ------------------------------------------------------------------
@@ -417,6 +470,43 @@ def _fold(model):
             model.roi_head.grid_outputs[-1].iou_pred.bias.copy_(torch.tensor([0.0, 0.5]))
 
 
+def _fold_in_float64(model):
+    """`_fold`, then the port's twin in f64 (its weights the same f32
+    values, so the JAX side is handed the same weights)."""
+    _fold(model)
+    model.double()
+
+
+@contextlib.contextmanager
+def _port_computes_in_float64():
+    """The port's compute dtype f64 (its CLI accepts only bfloat16 and
+    float32), for a twin whose port side is held in f64."""
+    import torch
+
+    import cpm_tpu_torch.engine.test as port_test
+    import cpm_tpu_torch.modeling.model as port_model
+
+    mp = pytest.MonkeyPatch()
+    try:
+        for module in (port_model, port_test):
+            mp.setattr(module, "compute_dtype", lambda cfg: torch.float64)
+        yield
+    finally:
+        mp.undo()
+
+
+# Twins whose port side is held in f64 against the JAX package's f32, as a
+# layer is where a ReLU kink lies within f32 rounding of 0. In the tiny
+# HRFPN model's third grid stage one GroupNorm output before the output
+# tower's ReLU (roi 17, channel 27, cell (1, 2) of `norm1`) is -2.1e-6 in
+# f64 against a largest |x| of 4.5; the port's f32 rounds it to +4.5e-7,
+# the JAX package's keeps it below 0, so the ReLU passes its gradient in
+# the port alone and 45 parameters' gradients differ by up to 8.6e-4. With
+# that one ReLU's mask flipped, or the port's weights each moved by a
+# relative 2^-24, or the port in f64, every gradient agrees within 3e-6.
+FLOAT64_TWINS = ("hrfpn",)
+
+
 def _ws_losses_and_gradients_match(out, names):
     """assert_losses_and_gradients_match for a model with WS convs: losses
     1e-5 relative; gradients rtol 1e-3 with atol 5e-3 of the parameter's
@@ -457,7 +547,12 @@ def test_tiny_zoo_model_matches_jax(name):
     from cpm_tpu_torch.solver.optimizer import classify_params
     from cpm_tpu_torch.utils.param_bridge import name_map
 
-    out = model_outputs(zoo_cfg(name), prepare=_fold, compiler_options=FAST_COMPILE)
+    if name in FLOAT64_TWINS:
+        with _port_computes_in_float64():
+            out = model_outputs(zoo_cfg(name), prepare=_fold_in_float64,
+                                compiler_options=FAST_COMPILE)
+    else:
+        out = model_outputs(zoo_cfg(name), prepare=_fold, compiler_options=FAST_COMPILE)
     got, want = out["got_dets"], out["dets"]
     for f in ("boxes", "scores", "labels", "mask"):
         assert tuple(getattr(got, f).shape) == np.asarray(getattr(want, f)).shape, f

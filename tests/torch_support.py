@@ -83,3 +83,40 @@ def _shared(tmp_path_factory, name, compute):
             return value
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+@pytest.fixture(scope="session")
+def jax_native(tmp_path_factory):
+    """The JAX package's native decode library (cpm_tpu/native), compiled by
+    that package's own build command from its own source into the session's
+    temporary directory (once a session, under a file lock that the xdist
+    workers share), and put in place of the tracked `_imageops.so` for the
+    session: `_SO` points at it, the loaded `_lib` and the JAX loader's
+    cache are reset. So no test rewrites the tracked library, and none
+    depends on its age. Yields the `cpm_tpu.native` module."""
+    import cpm_tpu.data.loader as jax_loader
+    import cpm_tpu.native as native
+
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    so = root / "jax_imageops.so"
+    mp = pytest.MonkeyPatch()
+    try:
+        with open(root / "jax_imageops.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                if not so.exists():
+                    tmp = root / f"jax_imageops.{os.getpid()}.so"
+                    mp.setattr(native, "_SO", str(tmp))
+                    native._build()
+                    os.replace(tmp, so)
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)
+        mp.setattr(native, "_SO", str(so))
+        mp.setattr(native, "_lib", None)
+        mp.setattr(jax_loader, "_NATIVE", None)
+        native.get_lib()
+        yield native
+    finally:
+        mp.undo()
