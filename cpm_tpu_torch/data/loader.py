@@ -51,6 +51,7 @@ from cpm_tpu_torch.data.transforms import (
     get_resize_size,
 )
 from cpm_tpu_torch.structures.image_batch import round_up
+from cpm_tpu_torch.utils.spans import span
 
 
 PREFETCH_THREAD = "TrainLoader-prefetch"  # the name of the thread that makes the batches
@@ -404,7 +405,8 @@ class TrainLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("cpm/data/wait"):
+                    item = q.get()
                 if item is done:
                     return
                 if isinstance(item, Exception):
@@ -481,15 +483,16 @@ class TestLoader:
         try:
             with open(self.dataset.image_path(i), "rb") as f:
                 data = f.read()
-            if self.device_normalize:
-                img, _ = self.native.decode_resize_u8(
-                    data, (nh, nw), bucket, self.transform.to_bgr255, interp=interp,
-                    scale_xy=scale_xy)
-            else:
-                img, _ = self.native.decode_resize_normalize(
-                    data, (nh, nw), bucket, self.transform.pixel_means,
-                    self.transform.pixel_stds, self.transform.to_bgr255, interp=interp,
-                    scale_xy=scale_xy)
+            with span("cpm/data/decode"):
+                if self.device_normalize:
+                    img, _ = self.native.decode_resize_u8(
+                        data, (nh, nw), bucket, self.transform.to_bgr255, interp=interp,
+                        scale_xy=scale_xy)
+                else:
+                    img, _ = self.native.decode_resize_normalize(
+                        data, (nh, nw), bucket, self.transform.pixel_means,
+                        self.transform.pixel_stds, self.transform.to_bgr255, interp=interp,
+                        scale_xy=scale_xy)
         except RuntimeError:
             return None
         return img, (nh, nw), (oh, ow)
@@ -502,11 +505,12 @@ class TestLoader:
             scale_hw = (nh / orig_h, nw / orig_w)
             self.decoded["native"] += 1
         else:
-            raw = self.dataset.load_image(i)
-            if self.hflip:
-                raw = np.ascontiguousarray(raw[:, ::-1])
+            with span("cpm/data/decode"):
+                raw = self.dataset.load_image(i)
+                if self.hflip:
+                    raw = np.ascontiguousarray(raw[:, ::-1])
+                norm, (nh, nw), scale_hw = self.transform(raw)
             orig_h, orig_w = raw.shape[:2]
-            norm, (nh, nw), scale_hw = self.transform(raw)
             bh, bw = self.buckets["landscape"] if nw >= nh else self.buckets["portrait"]
             img = np.zeros((bh, bw, 3), np.uint8 if self.device_normalize else np.float32)
             img[:nh, :nw] = norm[:bh, :bw]
@@ -544,7 +548,8 @@ class TestLoader:
         buffers = {"landscape": [], "portrait": []}
         order = []  # flush order, so that iteration stays deterministic
         for i in range(self.start, self.end):
-            img, size, meta, key = self._load_one_test(i)
+            with span("cpm/data/load"):
+                img, size, meta, key = self._load_one_test(i)
             buffers[key].append((img, size, meta))
             if len(buffers[key]) == self.batch_size:
                 yield self._emit(buffers[key])

@@ -27,6 +27,7 @@ from cpm_tpu_torch.data.loader import TestLoader, describe_decode_path
 from cpm_tpu_torch.modeling.roi_heads.box_head import detection_filter_kwargs
 from cpm_tpu_torch.ops.nms import filter_results
 from cpm_tpu_torch.utils.amp import cast_floating_to, compute_dtype
+from cpm_tpu_torch.utils.spans import span, sync
 
 
 def detections_to_coco(
@@ -74,10 +75,13 @@ def make_forward_fn(cfg, model: torch.nn.Module):
     device = next(model.parameters()).device
 
     def forward(images, image_sizes):
-        images = torch.as_tensor(images, device=device)
-        image_sizes = torch.as_tensor(image_sizes, device=device)
-        with torch.inference_mode():
-            return torch.func.functional_call(model, state, (images, image_sizes))
+        with span("cpm/forward"):
+            with sync("inputs"):
+                images = torch.as_tensor(images, device=device)
+            with sync("inputs"):
+                image_sizes = torch.as_tensor(image_sizes, device=device)
+            with torch.inference_mode():
+                return torch.func.functional_call(model, state, (images, image_sizes))
 
     return forward
 

@@ -13,15 +13,14 @@ of the global batch and computes what one process over the global batch
 does: its losses are its shares of the global losses, the gradients are
 summed over the ranks, and the update runs alike on every rank, so the
 parameters stay bit-equal across ranks. The step's parts run inside
-`record_function` spans (forward, backward, allreduce, optimizer), which
-tools/profile_train.py reads.
+spans (utils/spans.py: `train_step/forward`, `/backward`, `/allreduce`,
+`/optimizer`), which tools/profile_train.py and the benchmark read.
 """
 
 from dataclasses import dataclass
 from typing import Callable, Dict, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from cpm_tpu_torch.modeling.model import build_model
 from cpm_tpu_torch.parallel.mesh import (
@@ -34,6 +33,7 @@ from cpm_tpu_torch.solver.lr_schedule import make_lr_fn
 from cpm_tpu_torch.solver.optimizer import build_optimizer
 from cpm_tpu_torch.utils.amp import cast_floating_to, cast_images, compute_dtype
 from cpm_tpu_torch.utils.sampler import Draws
+from cpm_tpu_torch.utils.spans import span, sync
 
 
 @dataclass
@@ -74,13 +74,18 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
     device = next(model.parameters()).device
     trainable = [p for group in optimizer.param_groups for p in group["params"]]
 
+    def upload(v):
+        with sync("inputs"):
+            return torch.as_tensor(v, device=device)
+
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         lr = lr_fn(state.step)
         for group in optimizer.param_groups:
             group["lr"] = group["lr_scale"] * lr
-        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-        with record_function("train_step/forward"):
-            params = cast_floating_to(dict(model.named_parameters()), cdtype)
+        batch = {k: upload(v) for k, v in batch.items()}
+        with span("train_step/forward"):
+            with span("cpm/cast"):
+                params = cast_floating_to(dict(model.named_parameters()), cdtype)
             losses = torch.func.functional_call(
                 model, params,
                 (cast_images(batch["images"], cdtype), batch["image_sizes"]),
@@ -88,7 +93,7 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
             )
             losses = {k: v.float() for k, v in losses.items()}
             total = sum(losses.values())
-        with record_function("train_step/backward"):
+        with span("train_step/backward"):
             optimizer.zero_grad(set_to_none=True)
             total.backward()
             # a parameter that no loss reaches (OFFSET_ON's offset branch
@@ -100,12 +105,12 @@ def make_train_step(cfg, model: torch.nn.Module, optimizer: torch.optim.Optimize
                     p.grad = torch.zeros_like(p)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
-        with record_function("train_step/allreduce"):
+        with span("train_step/allreduce"):
             # the zero gradients above are in the buckets too, so every
             # rank's buckets line up
             reduce_gradients(trainable)
             metrics = batch_totals(metrics)
-        with record_function("train_step/optimizer"):
+        with span("train_step/optimizer"):
             optimizer.step()
         state.step += 1
         metrics["lr"] = lr

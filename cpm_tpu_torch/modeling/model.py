@@ -48,6 +48,7 @@ from cpm_tpu_torch.ops import pooler as pooler_mod
 from cpm_tpu_torch.ops.box_coder import BoxCoder
 from cpm_tpu_torch.utils.amp import compute_dtype
 from cpm_tpu_torch.utils.sampler import Draws
+from cpm_tpu_torch.utils.spans import span, sync
 
 
 def _head_scales(cfg):
@@ -185,8 +186,10 @@ class GeneralizedRCNN(nn.Module):
         std = np.asarray(c.PIXEL_STDS, np.float32)
         a = 1.0 / std if c.TO_BGR255 else 1.0 / (255.0 * std)
         b = -mean / std
-        a = torch.as_tensor(a, device=images.device)
-        b = torch.as_tensor(b, device=images.device)
+        with sync("consts"):
+            a = torch.as_tensor(a, device=images.device)
+        with sync("consts"):
+            b = torch.as_tensor(b, device=images.device)
         return (images.float() * a + b).to(compute_dtype(c))
 
     def forward(self, images: torch.Tensor, image_sizes: torch.Tensor, gt=None,
@@ -216,16 +219,19 @@ class GeneralizedRCNN(nn.Module):
         else:
             images = images.to(compute_dtype(c))
         x = images.permute(0, 3, 1, 2)  # NCHW view of NHWC memory
-        feats = self.backbone(x)
+        with span("cpm/backbone"):
+            feats = self.backbone(x)
         if self.fpn is not None:
-            feats = self.fpn(feats)
+            with span("cpm/fpn"):
+                feats = self.fpn(feats)
         # the pooler kernels read each level's NHWC view in place; a level
         # that leaves a GroupNorm or a resize in another layout (CUDA's
         # GroupNorm returns NCHW-contiguous maps) is copied once here
         feats = [f.contiguous(memory_format=torch.channels_last) for f in feats]
         # without FPN, the RPN runs on the last map alone
         rpn_feats = feats if self.fpn is not None else feats[-1:]
-        objectness, box_reg = self.rpn_head(rpn_feats)
+        with span("cpm/rpn/head"):
+            objectness, box_reg = self.rpn_head(rpn_feats)
         layout = self._anchor_layout(rpn_feats)
         which = "TRAIN" if train else "TEST"
         kw = dict(
@@ -237,9 +243,10 @@ class GeneralizedRCNN(nn.Module):
         )
         levels_nhwc = [f.permute(0, 2, 3, 1) for f in feats]
         if not train:
-            proposals, scores, prop_mask = select_proposals(
-                layout, objectness, box_reg, image_sizes, **kw
-            )
+            with span("cpm/rpn/proposals"):
+                proposals, scores, prop_mask = select_proposals(
+                    layout, objectness, box_reg, image_sizes, **kw
+                )
             if self.roi_head is None:
                 return Detections(boxes=proposals, scores=scores, mask=prop_mask,
                                   labels=torch.zeros(scores.shape, dtype=torch.int32,
@@ -251,22 +258,23 @@ class GeneralizedRCNN(nn.Module):
         if not isinstance(draws, Draws):
             draws = Draws(draws)
         # proposals enter the heads without a gradient
-        with torch.no_grad():
+        with torch.no_grad(), span("cpm/rpn/proposals"):
             proposals, _, prop_mask = select_proposals(
                 layout, objectness, box_reg, image_sizes,
                 fpn_post_nms_per_batch=c.RPN.FPN_POST_NMS_PER_BATCH, is_train=True,
                 gt_boxes=gt["boxes"], gt_mask=gt["mask"], **kw,
             )
         n_anchors = (image_sizes.shape[0], sum(layout.level_sizes))
-        loss_obj, loss_rpn_box = rpn_losses(
-            layout, objectness, box_reg, image_sizes, gt["boxes"], gt["mask"],
-            draws(n_anchors, image_sizes.device), draws(n_anchors, image_sizes.device),
-            fg_iou_threshold=c.RPN.FG_IOU_THRESHOLD,
-            bg_iou_threshold=c.RPN.BG_IOU_THRESHOLD,
-            batch_size_per_image=c.RPN.BATCH_SIZE_PER_IMAGE,
-            positive_fraction=c.RPN.POSITIVE_FRACTION,
-            smooth_l1_beta=c.RPN.SMOOTH_L1_BETA, box_coder=self.rpn_box_coder,
-        )
+        with span("cpm/rpn/losses"):
+            loss_obj, loss_rpn_box = rpn_losses(
+                layout, objectness, box_reg, image_sizes, gt["boxes"], gt["mask"],
+                draws(n_anchors, image_sizes.device), draws(n_anchors, image_sizes.device),
+                fg_iou_threshold=c.RPN.FG_IOU_THRESHOLD,
+                bg_iou_threshold=c.RPN.BG_IOU_THRESHOLD,
+                batch_size_per_image=c.RPN.BATCH_SIZE_PER_IMAGE,
+                positive_fraction=c.RPN.POSITIVE_FRACTION,
+                smooth_l1_beta=c.RPN.SMOOTH_L1_BETA, box_coder=self.rpn_box_coder,
+            )
         losses = dict(loss_objectness=loss_obj, loss_rpn_box_reg=loss_rpn_box)
         if self.roi_head is None:
             return losses

@@ -81,6 +81,7 @@ from cpm_tpu_torch.ops.losses import (
     softmax_cross_entropy,
 )
 from cpm_tpu_torch.utils.sampler import sample_k_from_mask
+from cpm_tpu_torch.utils.spans import span, sync
 
 
 def _masked_bce_means(logits, targets, roi_mask):
@@ -177,7 +178,8 @@ class GridCascadeRCNNHead(nn.Module):
         TPU.TOWER_BUCKETS or to S. Under data parallelism it is this rank's
         maximum: it only sets how much padding the tower runs on, and the
         valid rois' numbers and the masked losses do not depend on it."""
-        n_max = int(stage_mask.sum(dim=1).max())
+        with sync("tower_size"):
+            n_max = int(stage_mask.sum(dim=1).max())
         caps = [k for k in getattr(self.cfg.TPU, "TOWER_BUCKETS", ()) if k < S] + [S]
         return next(k for k in caps if n_max <= k)
 
@@ -195,69 +197,74 @@ class GridCascadeRCNNHead(nn.Module):
         boxes = gather_rows(boxes, idx)
 
         for stage in range(self.stage_num):
-            matches, matched_gt, matched_iou = match_to_gt(
-                boxes, gt["boxes"], gt["mask"],
-                self.fg_thresholds[stage], self.bg_thresholds[stage],
-            )
-            # stage 0 keeps the whole (positive-capped) set
-            stage_mask = mask if stage == 0 else (matches >= 0) & mask
-            if g.BETTER_ROI:
-                stage_mask = stage_mask & better_roi_mask(boxes, matched_gt, g.BETTER_ROI_RATIO)
-            if g.EXTEND_ROI:
-                # after matching, before targets, pooling and decode
-                boxes = extend_rois(boxes, image_sizes[:, None, :])
-            B, S = boxes.shape[:2]
-            # valid rois first (BETTER_ROI may clear bits inside the prefix);
-            # the loop-carried (boxes, mask) pair stays aligned, since the
-            # RSM union below indexes boxes by mask bits
-            cidx, stage_mask = compact_by_mask(stage_mask, S)
-            boxes = gather_rows(boxes, cidx)
-            matched_gt = gather_rows(matched_gt, cidx)
-            matched_iou = torch.gather(matched_iou, 1, cidx)
-            mask = torch.gather(mask, 1, cidx)
+            with span(f"cpm/head/stage{stage + 1}"):
+                matches, matched_gt, matched_iou = match_to_gt(
+                    boxes, gt["boxes"], gt["mask"],
+                    self.fg_thresholds[stage], self.bg_thresholds[stage],
+                )
+                # stage 0 keeps the whole (positive-capped) set
+                stage_mask = mask if stage == 0 else (matches >= 0) & mask
+                if g.BETTER_ROI:
+                    stage_mask = stage_mask & better_roi_mask(boxes, matched_gt, g.BETTER_ROI_RATIO)
+                if g.EXTEND_ROI:
+                    # after matching, before targets, pooling and decode
+                    boxes = extend_rois(boxes, image_sizes[:, None, :])
+                B, S = boxes.shape[:2]
+                # valid rois first (BETTER_ROI may clear bits inside the prefix);
+                # the loop-carried (boxes, mask) pair stays aligned, since the
+                # RSM union below indexes boxes by mask bits
+                cidx, stage_mask = compact_by_mask(stage_mask, S)
+                boxes = gather_rows(boxes, cidx)
+                matched_gt = gather_rows(matched_gt, cidx)
+                matched_iou = torch.gather(matched_iou, 1, cidx)
+                mask = torch.gather(mask, 1, cidx)
 
-            head, out = self.grid_heads[stage], self.grid_outputs[stage]
-            pooled = head.pool(features, rois_with_batch_index(boxes), stage_mask.reshape(B * S))
-            K = self._tower_size(stage_mask, S)
-            bK = boxes[:, :K].reshape(B * K, 4)
-            mK = stage_mask[:, :K].reshape(B * K)
-            pK = pooled.reshape(B, S, *pooled.shape[1:])[:, :K].reshape(B * K, *pooled.shape[1:])
-            tK = grid_targets(
-                bK, matched_gt[:, :K].reshape(B * K, 4), mK,
-                mapping_ratio=self.mapping_ratios[stage], grid_points=self.grid_nums[stage],
-                roi_feat_size=g.ROI_FEAT_SIZE, pos_radius=g.POS_RADIUS,
-                target_refine=g.TARGET_REFINE,
-            )
-            x, x_so, x_off = head(pooled=pK)
-            heatmaps, iou_logits = out(x, x_so, x_off, train=True)
-            fused = heatmaps["fused"] is not None and (g.FUSED_ON or g.OFFSET_ON)
-            loss_grid, *loss_fused = _masked_bce_means(
-                [heatmaps["unfused"]] + ([heatmaps["fused"]] if fused else []), tK, mK)
-            for loss in loss_fused:
-                loss_grid = loss_grid + loss
-            losses[f"loss_grid_{stage + 1}"] = g.LOSS_WEIGHT * self.stage_weights[stage] * loss_grid
+                head, out = self.grid_heads[stage], self.grid_outputs[stage]
+                pooled = head.pool(features, rois_with_batch_index(boxes),
+                                   stage_mask.reshape(B * S))
+                K = self._tower_size(stage_mask, S)
+                bK = boxes[:, :K].reshape(B * K, 4)
+                mK = stage_mask[:, :K].reshape(B * K)
+                roi_shape = pooled.shape[1:]
+                pK = pooled.reshape(B, S, *roi_shape)[:, :K].reshape(B * K, *roi_shape)
+                tK = grid_targets(
+                    bK, matched_gt[:, :K].reshape(B * K, 4), mK,
+                    mapping_ratio=self.mapping_ratios[stage], grid_points=self.grid_nums[stage],
+                    roi_feat_size=g.ROI_FEAT_SIZE, pos_radius=g.POS_RADIUS,
+                    target_refine=g.TARGET_REFINE,
+                )
+                x, x_so, x_off = head(pooled=pK)
+                heatmaps, iou_logits = out(x, x_so, x_off, train=True)
+                fused = heatmaps["fused"] is not None and (g.FUSED_ON or g.OFFSET_ON)
+                loss_grid, *loss_fused = _masked_bce_means(
+                    [heatmaps["unfused"]] + ([heatmaps["fused"]] if fused else []), tK, mK)
+                for loss in loss_fused:
+                    loss_grid = loss_grid + loss
+                losses[f"loss_grid_{stage + 1}"] = (
+                    g.LOSS_WEIGHT * self.stage_weights[stage] * loss_grid)
 
-            last = stage == self.stage_num - 1
-            if g.IOU_HELPER and last:
-                iou_K = matched_iou[:, :K].reshape(B * K)
-                iou_t = torch.stack([1.0 - iou_K, iou_K], dim=-1)
-                losses[f"loss_iou_{stage + 1}"] = g.IOU_LOSS_WEIGHT * ism_l2_loss(iou_logits, iou_t, mK)
-            if not last:
-                # refined boxes carry no gradient
-                hm = (heatmaps["fused"] if g.FUSED_ON else heatmaps["unfused"]).detach()
-                refined = grid_decode(
-                    bK, hm, image_sizes.repeat_interleave(K, dim=0),
-                    mapping_ratio=self.mapping_ratios[stage],
-                    grid_points=self.grid_nums[stage], roi_feat_size=g.ROI_FEAT_SIZE,
-                ).reshape(B, K, 4)
-                refined = torch.cat([refined, refined.new_zeros(B, S - K, 4)], dim=1)
-                if self.resize_roi:
-                    refined = resize_large_rois(refined)
-                # drop rows equal to a gt box, then re-add the gt boxes
-                same = (boxes[:, :, None, :] - gt["boxes"][:, None, :, :]).abs() < 1e-5
-                eq_gt = (same.all(dim=-1) & gt["mask"][:, None, :]).any(dim=-1)
-                boxes = torch.cat([refined, gt["boxes"]], dim=1)
-                mask = torch.cat([stage_mask & ~eq_gt, gt["mask"]], dim=1)
+                last = stage == self.stage_num - 1
+                if g.IOU_HELPER and last:
+                    iou_K = matched_iou[:, :K].reshape(B * K)
+                    iou_t = torch.stack([1.0 - iou_K, iou_K], dim=-1)
+                    losses[f"loss_iou_{stage + 1}"] = (
+                        g.IOU_LOSS_WEIGHT * ism_l2_loss(iou_logits, iou_t, mK))
+                if not last:
+                    # refined boxes carry no gradient
+                    hm = (heatmaps["fused"] if g.FUSED_ON else heatmaps["unfused"]).detach()
+                    refined = grid_decode(
+                        bK, hm, image_sizes.repeat_interleave(K, dim=0),
+                        mapping_ratio=self.mapping_ratios[stage],
+                        grid_points=self.grid_nums[stage], roi_feat_size=g.ROI_FEAT_SIZE,
+                    ).reshape(B, K, 4)
+                    refined = torch.cat([refined, refined.new_zeros(B, S - K, 4)], dim=1)
+                    if self.resize_roi:
+                        refined = resize_large_rois(refined)
+                    # drop rows equal to a gt box, then re-add the gt boxes
+                    same = (boxes[:, :, None, :] - gt["boxes"][:, None, :, :]).abs() < 1e-5
+                    eq_gt = (same.all(dim=-1) & gt["mask"][:, None, :]).any(dim=-1)
+                    boxes = torch.cat([refined, gt["boxes"]], dim=1)
+                    mask = torch.cat([stage_mask & ~eq_gt, gt["mask"]], dim=1)
         return boxes, mask, losses
 
     def _train_rescore(self, features, cls_sampled, grid_boxes, grid_mask, gt, draws):
@@ -280,15 +287,17 @@ class GridCascadeRCNNHead(nn.Module):
         return dict(loss_rescore=g.RESCORE_LOSS_WEIGHT * loss)
 
     def _train(self, roi_feats, grid_feats, proposals, prop_mask, image_sizes, gt, draws):
-        sampled, losses = self._train_cls(roi_feats, proposals, prop_mask, gt, draws)
+        with span("cpm/head/cls"):
+            sampled, losses = self._train_cls(roi_feats, proposals, prop_mask, gt, draws)
         grid_boxes, grid_mask, grid_losses = self._train_cascade(
             grid_feats, sampled, gt, image_sizes, draws
         )
         losses.update(grid_losses)
         if self.rescore_on:
-            losses.update(
-                self._train_rescore(roi_feats, sampled, grid_boxes, grid_mask, gt, draws)
-            )
+            with span("cpm/head/rescore"):
+                losses.update(
+                    self._train_rescore(roi_feats, sampled, grid_boxes, grid_mask, gt, draws)
+                )
         return losses
 
     # ---------------- test ----------------
@@ -301,10 +310,11 @@ class GridCascadeRCNNHead(nn.Module):
         probs = torch.softmax(self.cls_output(x), dim=-1).reshape(B, K, nc)
         # the same box for every class, then ml_nms
         boxes_pc = proposals[:, :, None, :].expand(B, K, nc, 4)
-        return filter_detections(
-            boxes_pc, probs, prop_mask, score_thresh=g.SCORE_THRESH,
-            nms_thresh=g.NMS, detections_per_img=g.TEST_MAX_DETECTIONS,
-        )
+        with span("cpm/head/filter"):
+            return filter_detections(
+                boxes_pc, probs, prop_mask, score_thresh=g.SCORE_THRESH,
+                nms_thresh=g.NMS, detections_per_img=g.TEST_MAX_DETECTIONS,
+            )
 
     def _test_cascade(self, features, dets: Detections, image_sizes):
         g = self.cfg.GRID_RCNN
@@ -316,32 +326,35 @@ class GridCascadeRCNNHead(nn.Module):
         scores = torch.gather(dets.scores, 1, cidx)
         labels = torch.gather(dets.labels, 1, cidx)
         # the tower's roi count: the prefix covering every valid detection
-        K = max(int(mask.sum(dim=1).max()), 1)
+        with sync("tower_size"):
+            K = max(int(mask.sum(dim=1).max()), 1)
         sizes_k = image_sizes.repeat_interleave(K, dim=0)
         for stage in range(self.test_stage):
-            if g.EXTEND_ROI:
-                # before pooling; the decode below reads the extended boxes
-                boxes = extend_rois(boxes, image_sizes[:, None, :])
-            head, out = self.grid_heads[stage], self.grid_outputs[stage]
-            pooled = head.pool(features, rois_with_batch_index(boxes), mask.reshape(B * S))
-            pK = pooled.reshape(B, S, *pooled.shape[1:])[:, :K].reshape(B * K, *pooled.shape[1:])
-            x, x_so, x_off = head(pooled=pK)
-            heatmaps, iou_logits = out(x, x_so, x_off, train=False)
-            hm = heatmaps["fused"] if g.FUSED_ON else heatmaps["unfused"]
-            refined = grid_decode(
-                boxes[:, :K].reshape(B * K, 4), hm, sizes_k,
-                mapping_ratio=self.mapping_ratios[stage],
-                grid_points=self.grid_nums[stage], roi_feat_size=g.ROI_FEAT_SIZE,
-            ).reshape(B, K, 4)
-            refined = torch.cat([refined, refined.new_zeros(B, S - K, 4)], dim=1)
-            # ISM: only the last configured stage has the IoU branch, as in
-            # the reference
-            if out.iou_helper:
-                iou = iou_logits[:, 1].reshape(B, K)
-                iou = torch.cat([iou, iou.new_zeros(B, S - K)], dim=1)
-                scores = scores * iou if g.IOU_HELPER_MERGE else iou
-                scores = torch.where(mask, scores, 0.0)
-            boxes = refined
+            with span(f"cpm/head/stage{stage + 1}"):
+                if g.EXTEND_ROI:
+                    # before pooling; the decode below reads the extended boxes
+                    boxes = extend_rois(boxes, image_sizes[:, None, :])
+                head, out = self.grid_heads[stage], self.grid_outputs[stage]
+                pooled = head.pool(features, rois_with_batch_index(boxes), mask.reshape(B * S))
+                roi_shape = pooled.shape[1:]
+                pK = pooled.reshape(B, S, *roi_shape)[:, :K].reshape(B * K, *roi_shape)
+                x, x_so, x_off = head(pooled=pK)
+                heatmaps, iou_logits = out(x, x_so, x_off, train=False)
+                hm = heatmaps["fused"] if g.FUSED_ON else heatmaps["unfused"]
+                refined = grid_decode(
+                    boxes[:, :K].reshape(B * K, 4), hm, sizes_k,
+                    mapping_ratio=self.mapping_ratios[stage],
+                    grid_points=self.grid_nums[stage], roi_feat_size=g.ROI_FEAT_SIZE,
+                ).reshape(B, K, 4)
+                refined = torch.cat([refined, refined.new_zeros(B, S - K, 4)], dim=1)
+                # ISM: only the last configured stage has the IoU branch, as in
+                # the reference
+                if out.iou_helper:
+                    iou = iou_logits[:, 1].reshape(B, K)
+                    iou = torch.cat([iou, iou.new_zeros(B, S - K)], dim=1)
+                    scores = scores * iou if g.IOU_HELPER_MERGE else iou
+                    scores = torch.where(mask, scores, 0.0)
+                boxes = refined
         return Detections(boxes=boxes, scores=scores, labels=labels, mask=mask)
 
     def forward(self, features, proposals, prop_mask, image_sizes, gt=None,
@@ -356,8 +369,10 @@ class GridCascadeRCNNHead(nn.Module):
                       else roi_feats)
         if train:
             return self._train(roi_feats, grid_feats, proposals, prop_mask, image_sizes, gt, draws)
-        dets = self._test_cls(roi_feats, proposals, prop_mask)
+        with span("cpm/head/cls"):
+            dets = self._test_cls(roi_feats, proposals, prop_mask)
         dets = self._test_cascade(grid_feats, dets, image_sizes)
         if self.rescore_on:
-            dets = rescore_detections(self.rescore_head, self.rescore_output, roi_feats, dets)
+            with span("cpm/head/rescore"):
+                dets = rescore_detections(self.rescore_head, self.rescore_output, roi_feats, dets)
         return dets

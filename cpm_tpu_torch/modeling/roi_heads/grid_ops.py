@@ -17,6 +17,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from cpm_tpu_torch.utils.spans import sync
+
 
 def calc_sub_regions(grid_points: int, grid_size: int, whole_map_size: int
                      ) -> List[Tuple[int, int, int, int]]:
@@ -83,8 +85,11 @@ def grid_targets(
     whole = roi_feat_size * 4
     half = whole // 4 * 2
     dev = pos_bboxes.device
-    subs = torch.tensor(calc_sub_regions(grid_points, grid_size, whole), dtype=torch.int32, device=dev)
-    factors = torch.from_numpy(_point_factors(grid_points, grid_size)).to(dev)
+    with sync("consts"):
+        subs = torch.tensor(calc_sub_regions(grid_points, grid_size, whole), dtype=torch.int32,
+                            device=dev)
+    with sync("consts"):
+        factors = torch.from_numpy(_point_factors(grid_points, grid_size)).to(dev)
 
     exp = expand_boxes(pos_bboxes, mapping_ratio)
     ws = exp[:, 2] - exp[:, 0]
@@ -131,10 +136,11 @@ def grid_decode(
     grid_size = int(np.sqrt(grid_points))
     whole = roi_feat_size * 4
     half = whole // 4 * 2
-    subs = torch.tensor(
-        calc_sub_regions(grid_points, grid_size, whole), dtype=torch.long,
-        device=heatmaps.device,
-    )
+    with sync("consts"):
+        subs = torch.tensor(
+            calc_sub_regions(grid_points, grid_size, whole), dtype=torch.long,
+            device=heatmaps.device,
+        )
     hm = torch.sigmoid(heatmaps) if apply_sigmoid else heatmaps
     N, P = hm.shape[:2]
     pred_scores, pos = torch.max(hm.reshape(N, P, half * half), dim=-1)
@@ -154,9 +160,13 @@ def grid_decode(
     y2_inds = [(i + 1) * grid_size - 1 for i in range(grid_size)]
 
     def vote(coords, inds):
-        s = pred_scores[:, inds]
+        # a list index is copied from the host
+        with sync("consts"):
+            s = pred_scores[:, inds]
         denom = torch.clamp(s.sum(dim=1), min=1e-12)
-        return (coords[:, inds] * s).sum(dim=1) / denom
+        with sync("consts"):
+            picked = coords[:, inds]
+        return (picked * s).sum(dim=1) / denom
 
     h = image_sizes[:, 0].to(hm.dtype)
     w = image_sizes[:, 1].to(hm.dtype)

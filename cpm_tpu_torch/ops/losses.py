@@ -24,6 +24,7 @@ import math
 import torch
 
 from cpm_tpu_torch.parallel.mesh import batch_total, concat_ranks, rank_and_world
+from cpm_tpu_torch.utils.spans import sync
 
 
 def global_count(count: torch.Tensor) -> torch.Tensor:
@@ -101,12 +102,16 @@ def ism_l2_loss(pred: torch.Tensor, target: torch.Tensor, valid: torch.Tensor) -
     before = every[:rank_and_world()[0], 2].sum()
     nvalid = vi[-1]
     zero = row_err.new_zeros(())
+
+    def row(j):
+        # a 0-d index tensor is read on the host
+        with sync("ism_row"):
+            return row_err[torch.argmax((vi == j).to(torch.int32))]
+
     # the j-th valid row of the global batch is this rank's (j - before)-th;
     # argmax of an int tensor returns the first maximal index, as jnp.argmax
-    e0, e1 = (
-        torch.where((j >= 1) & (nvalid >= j),
-                    row_err[torch.argmax((vi == j).to(torch.int32))], zero)
-        for j in (1 - before, 2 - before))
+    e0, e1 = (torch.where((j >= 1) & (nvalid >= j), row(j), zero)
+              for j in (1 - before, 2 - before))
     total = (row_err * c).sum() + n0 * e0 + n1 * e1
     return total / torch.clamp(n0 + n1, min=1.0)
 

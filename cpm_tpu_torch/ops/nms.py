@@ -9,8 +9,8 @@ fixed number of output slots with a validity mask; leading dims are a batch.
 The keep mask is the JAX package's fixed point: keep[i] is recomputed as
 "no kept, higher-scored box overlaps me" until it stops changing, which is
 exactly sequential greedy NMS. The JAX `while_loop` becomes a Python loop
-whose convergence test reads one flag from the device per iteration; the
-iteration count is the longest suppression chain. Soft-NMS is the JAX
+whose convergence test reads one flag from the device per iteration (a
+`cpm/sync/nms` span); the iteration count is the longest suppression chain. Soft-NMS is the JAX
 `scan`: a fixed number of steps of device ops, with no read to the host.
 
 IoU convention: standard (x2-x1)*(y2-y1) with no +1 (`legacy_plus1=False`),
@@ -20,6 +20,7 @@ as the reference's NMS kernels use.
 import torch
 
 from cpm_tpu_torch.structures.boxes import box_iou
+from cpm_tpu_torch.utils.spans import sync
 
 
 def topk(x: torch.Tensor, k: int):
@@ -41,7 +42,9 @@ def _sorted_keep_mask(iou: torch.Tensor, valid: torch.Tensor, thresh: float):
     keep = valid
     while True:
         new_keep = ~torch.any(over & keep[..., :, None], dim=-2) & valid
-        if torch.equal(new_keep, keep):
+        with sync("nms"):
+            converged = torch.equal(new_keep, keep)
+        if converged:
             return keep
         keep = new_keep
 

@@ -8,43 +8,30 @@ any head family the port runs, the C4 family too):
 seeded random weights, the deformable convs' offset convs spread from a
 seed, bf16, GRID_RCNN.SCORE_THRESH and FAST_RCNN.SCORE_THRESH 0.0 so that
 every stage pools a full detection set. It warms the model up and prints
-for batch 1 and batch 2 at 800x1344:
+for batch 1 and batch 2 at 800x1344, from one torch.profiler session of 3
+forwards and from 3 forwards without it:
 
-* stage times: the forward's own stages, each timed on the host clock
-  between synchronises, median of 5 forwards (a stage that runs several
-  times a forward, its mean sum a forward); "nms" is the share of the
-  forward spent in `ops/nms.py::nms` (one host sync per fixed-point
-  iteration). The head's stages by family: the grid cascade's cls,
-  cascade and rescore; Cascade R-CNN's box stages, its detection filter
-  and rescore; Fast R-CNN's whole head;
-* device busy share: the CUDA kernels' device time over 3 forwards
-  (torch.profiler) divided by the wall time of 3 forwards taken without the
-  profiler, and the kernels that take the most device time.
+* device busy share: the CUDA kernels' device time over the 3 forwards
+  divided by the wall time of the 3 forwards taken without the profiler,
+  and the kernels that take the most device time;
+* stage table (`stage_table`): each `cpm/` span of the forward
+  (utils/spans.py: backbone, FPN, RPN head and proposals, the grid
+  cascade's stages, the host syncs; another head family's time stays under
+  `cpm/forward`), its host time and count a forward, and the time the card
+  was idle while it was the innermost span open. Nothing is synchronised
+  between stages, so the stages run as they do untraced but for the spans'
+  cost (about 2 us each).
 
-The synchronises make the stage times sum to more than an unsynchronised
-forward. Every result line ends with the card's name and power limit.
+Every result line ends with the card's name and power limit.
 """
 
 import argparse
-import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
-
-TRUNK_STAGES = ("backbone", "fpn", "rpn_head", "select_proposals")
-# the head's stages by family: stage -> (owner, attribute); a stage listed
-# in SUMMED runs several times a forward
-HEAD_STAGES = {
-    "GridCascadeRCNNHead": {"cls": ("head", "_test_cls"), "cascade": ("head", "_test_cascade"),
-                            "rescore": ("module", "rescore_detections")},
-    "CascadeRCNNHead": {"box_stages": ("head", "_stage"), "filter": ("module", "filter_detections"),
-                        "rescore": ("module", "rescore_detections")},
-    "FastRCNNHead": {"roi_head": ("head", "forward")},
-}
-SUMMED = ("box_stages", "nms")
 
 
 def card_line() -> str:
@@ -64,37 +51,45 @@ def make_request(rng, valid_hw, padded_hw=(800, 1344)):
     return images, np.asarray(valid_hw, np.int32)
 
 
-def _instrument(model, laps):
-    """Wrap each stage of `model`'s forward so that it appends its
-    synchronised host time (ms) to laps[stage]; returns the stages' names."""
-    from cpm_tpu_torch.modeling import model as model_mod
-    from cpm_tpu_torch.modeling import rpn as rpn_mod
-    from cpm_tpu_torch.ops import nms as nms_mod
-
-    def timed(name, fn):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            laps[name].append((time.perf_counter() - t0) * 1e3)
-            return out
-        return run
-
-    head = model.roi_head
-    model.backbone.forward = timed("backbone", model.backbone.forward)
-    if model.fpn is not None:
-        model.fpn.forward = timed("fpn", model.fpn.forward)
-    model.rpn_head.forward = timed("rpn_head", model.rpn_head.forward)
-    model_mod.select_proposals = timed("select_proposals", model_mod.select_proposals)
-    head_module = sys.modules[type(head).__module__]
-    stages = HEAD_STAGES[type(head).__name__]
-    for name, (owner, attr) in stages.items():
-        target = head if owner == "head" else head_module
-        setattr(target, attr, timed(name, getattr(target, attr)))
-    # rpn imports nms by name; batched_nms calls the module's own
-    rpn_mod.nms = nms_mod.nms = timed("nms", nms_mod.nms)
-    return TRUNK_STAGES + tuple(stages) + ("nms",)
+def stage_table(prof, n: int):
+    """The stages of `n` forwards or train steps from the spans of `prof`'s
+    session (utils/spans.py: `cpm/` and `train_step/`): {span: (host ms,
+    count, idle ms)} a forward or step, in the order the spans first open.
+    A stage's idle time is the time the card ran nothing while that span was
+    the innermost one open, from the first span's start to the last one's
+    end; "outside any span" holds the rest of that time's idle."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans, busy = [], []
+    for e in prof.profiler.kineto_results.events():
+        a, name = e.start_ns(), e.name()
+        if e.device_type() == cuda:
+            if not name.startswith(("Optimizer.", "ProfilerStep")):  # annotations
+                busy.append((a, a + e.duration_ns()))
+        elif name.startswith(("cpm/", "train_step/")):
+            spans.append((a, a + e.duration_ns(), name))
+    spans.sort()
+    rows = {}
+    for a, b, name in spans:
+        host, count, idle = rows.get(name, (0.0, 0, 0.0))
+        rows[name] = (host + (b - a) / 1e6, count + 1, idle)
+    rows["outside any span"] = (0.0, 0, 0.0)
+    t0, t1 = spans[0][0], max(b for _, b, _ in spans)
+    merged = []
+    for a, b in sorted(busy):
+        if merged and a <= merged[-1][1]:
+            merged[-1] = (merged[-1][0], max(merged[-1][1], b))
+        else:
+            merged.append((a, b))
+    edges = [t0] + [min(max(x, t0), t1) for ab in merged for x in ab] + [t1]
+    for a, b in zip(edges[0::2], edges[1::2]):
+        if b <= a:
+            continue
+        mid = (a + b) // 2
+        around = [s for s in spans if s[0] <= mid <= s[1]]
+        name = min(around, key=lambda s: s[1] - s[0])[2] if around else "outside any span"
+        host, count, idle = rows[name]
+        rows[name] = (host, count, idle + (b - a) / 1e6)
+    return {k: (host / n, count / n, idle / n) for k, (host, count, idle) in rows.items()}
 
 
 def main():
@@ -153,23 +148,9 @@ def main():
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
             print(f"[profile] batch {batch}: {e.self_device_time_total / 3e3:8.3f} ms/forward "
                   f"x{e.count // 3:<4d} {e.key[:90]}")
-
-    laps = {}
-    stages = _instrument(model, laps)
-    for batch, req in requests.items():
-        laps.clear()
-        laps.update({k: [] for k in stages})
-        totals = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            forward(*req)
-            torch.cuda.synchronize()
-            totals.append((time.perf_counter() - t0) * 1e3)
-        ms = {k: sum(v) / 5 if k in SUMMED else statistics.median(v)
-              for k, v in laps.items() if v}
-        line = " ".join(f"{k} {ms[k]:.2f}" for k in stages if k in ms)
-        print(f"[stages] batch {batch} ms: {line} total {statistics.median(totals):.2f} | {card}")
+        for name, (host, count, idle) in stage_table(prof, 3).items():
+            print(f"[stages] batch {batch}: {name} host {host:.2f} ms x{count:g}, card idle "
+                  f"{idle:.2f} ms a forward | {card}")
 
 
 if __name__ == "__main__":

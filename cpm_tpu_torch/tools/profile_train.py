@@ -11,8 +11,10 @@ offset convs spread from a seed, synthetic uint8 batches) and prints,
 beside the card's name and power limit: the step's wall time, the CUDA
 kernel time per step and the device busy share from `torch.profiler`, the
 host and device time of the step's forward, backward, allreduce (empty in
-one process) and optimizer spans (`record_function` spans of
-engine/train.py), and the largest kernels by device time.
+one process) and optimizer spans (engine/train.py's spans, utils/spans.py),
+the largest kernels by device time, and the step's stage table
+(profile_eval.stage_table: each span's host time and count a step, and the
+card's idle time under it).
 """
 
 import argparse
@@ -23,7 +25,7 @@ import time
 
 import torch
 
-from cpm_tpu_torch.tools.profile_eval import card_line
+from cpm_tpu_torch.tools.profile_eval import card_line, stage_table
 
 SPANS = ("train_step/forward", "train_step/backward", "train_step/allreduce",
          "train_step/optimizer")
@@ -192,6 +194,9 @@ def main():
         print(f"[profile] {k}: host {spans[k].cpu_time_total / n / 1e3:.2f} ms/step, "
               f"device {span_ms[k]:.2f} ms/step")
     print(f"[profile] {sum(e.count for e in kernels) // n} kernel launches per step")
+    for name, (host, count, idle) in stage_table(prof, n).items():
+        print(f"[stages] {name} host {host:.2f} ms x{count:g}, card idle {idle:.2f} ms a step "
+              f"| {card}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]:
         print(f"[profile] {e.self_device_time_total / n / 1e3:8.3f} ms/step "
               f"x{e.count // n:<4d} {e.key[:90]}")

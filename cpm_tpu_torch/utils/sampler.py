@@ -18,6 +18,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from cpm_tpu_torch.utils.spans import sync
+
 
 class Draws:
     """A source of uniform [0, 1) tensors of a given shape on a device.
@@ -51,7 +53,8 @@ class Draws:
             u = torch.from_numpy(a)
         if self.world_size > 1:
             u = u[self.rank * shape[0]:(self.rank + 1) * shape[0]]
-        return u.to(device)
+        with sync("draws"):  # a blocking copy from pageable host memory
+            return u.to(device)
 
     def state_dict(self) -> dict:
         """The generator's state, which a checkpoint keeps so that a resumed
