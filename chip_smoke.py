@@ -6,12 +6,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 
 0. device: requires CUDA; prints the card's name and power limit, the torch
    and CUDA versions, and whether yaml and PIL import.
-1. build: builds the six CUDA sources of cpm_tpu_torch/csrc with nvcc, one
+1. build: builds the eight CUDA sources of cpm_tpu_torch/csrc with nvcc, one
    process each, all started together, then the native host decode library
-   (cpm_tpu_torch/native) with g++ (ten kernels: multilevel forward and
+   (cpm_tpu_torch/native) with g++ (twelve kernels: multilevel forward and
    backward, stacked forward and backward, clustered forward and its
    grouping, single-level forward, deformable-conv sampler forward and
-   backward, cross-roi shared-window forward).
+   backward, cross-roi shared-window forward, the NMS kernels' pair (mask
+   and sweep) and the RPN's candidates).
 2. kernels: each multilevel-pooling forward kernel (multilevel, stacked,
    clustered) against its plain PyTorch version at the flagship's pooler
    shapes (B=2, P2-P5 of an 800x1344 batch, C=256), f32 and bf16, on random
@@ -277,6 +278,19 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    detection inside its image. Last, the host's time to make one train
    batch and to load one eval image on the native path and on the PIL path
    (a loader told `native = None`), beside the card's name and power limit.
+20. nms (`phase_nms`): the NMS kernels (ops/cuda/nms.py) against the fixed
+   point (`tools/probe_nms.py::fixed_point_nms`) and the RPN's candidate
+   kernel (ops/cuda/rpn_candidates.py) against its plain version
+   (`modeling/rpn.py::level_candidates_plain`), bit for bit, on the rows of
+   the benchmark cells' proposal selection (1 x 5 rows of 1000 candidates,
+   4 x 5 of 2000) and of the detection filter (1 row of 1024, label
+   offsets, 100 slots); `select_proposals` against the per-level loop
+   (`per_level_select`) bit for bit at both cells' shapes, with its ATen
+   ops and host time beside the loop's; each kernel's CUDA-event time
+   beside its plain version's and its bound (bytes). Phases 3 and 5 also
+   hold every request to 2 NMS calls (the RPN's, the filter's) and 1
+   candidate launch, every step to 1 and 1, with the fixed point forbidden
+   on the card.
 
 Then a JSON line of kernel results and, last, {"ok": true, "device": ...}.
 Random weights give softmax scores near 1/81, below the default 0.03
@@ -329,7 +343,7 @@ BACKENDS = ("auto", "stacked", "clustered")
 # what disagreed with the auto path: reported where it happens, so that one
 # run shows every disagreement, and raised together at the end of main
 DISAGREEMENTS = []
-# the ten kernels: name -> (source, the TPU kernel it replaces)
+# the twelve kernels: name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "multilevel_roi_align": (
         "cpm_tpu_torch/csrc/multilevel_roi_align.cu", "cpm_tpu/ops/pallas/multilevel_pallas.py:480"),
@@ -353,7 +367,13 @@ KERNELS = {
         "cpm_tpu_torch/csrc/deform_sample.cu", "cpm_tpu/ops/deform_conv.py:132"),
     "crossroi_roi_align": (
         "cpm_tpu_torch/csrc/crossroi_roi_align.cu", "tools/probe_pooler_crossroi.py:37"),
+    # the JAX package's NMS is a lax.while_loop of XLA ops, not a Pallas kernel
+    "nms": ("cpm_tpu_torch/csrc/nms.cu", "cpm_tpu/ops/nms.py:48"),
+    # and its proposal selection's decode, clip and mask are XLA ops
+    "rpn_candidates": ("cpm_tpu_torch/csrc/rpn_candidates.cu", "cpm_tpu/modeling/rpn.py:198"),
 }
+# NMS calls and candidate launches that phases 3 and 5 held to their count
+NMS_DRIVEN = {"nms": 0, "rpn_candidates": 0}
 X101_SAMPLER_CALLS = 30   # deformable 3x3 convs in res3 (4), res4 (23), res5 (3)
 # the kernels that a pooler call launches under each TPU.POOLER_KERNEL value
 FORWARD_KERNEL = {"auto": "multilevel_roi_align", "stacked": "stacked_roi_align",
@@ -366,19 +386,58 @@ BACKWARD_KERNEL = {"auto": "multilevel_roi_align_backward",
 
 
 def ops():
-    """The six wrapper modules, imported when first needed."""
+    """The eight wrapper modules, imported when first needed."""
     from cpm_tpu_torch.ops.cuda import (
         clustered_roi_align,
         crossroi_roi_align,
         deform_sample,
         multilevel_roi_align,
+        nms,
         roi_align,
+        rpn_candidates,
         stacked_roi_align,
     )
 
     return dict(multilevel=multilevel_roi_align, stacked=stacked_roi_align,
                 clustered=clustered_roi_align, single=roi_align, deform=deform_sample,
-                crossroi=crossroi_roi_align)
+                crossroi=crossroi_roi_align, nms=nms, rpn_candidates=rpn_candidates)
+
+
+def nms_launches():
+    """(NMS calls, RPN candidate launches) so far, as their wrappers count them."""
+    m = ops()
+    return m["nms"].KERNEL.launches, m["rpn_candidates"].KERNEL.launches
+
+
+def held_to_nms_launches(tag, before, want):
+    """Raise unless the NMS calls and candidate launches since `before` (a
+    `nms_launches()`) are `want`; count them as driven."""
+    now = nms_launches()
+    got = (now[0] - before[0], now[1] - before[1])
+    if got != want:
+        raise AssertionError(f"{tag}: NMS calls and candidate launches {got}, want {want}")
+    NMS_DRIVEN["nms"] += got[0]
+    NMS_DRIVEN["rpn_candidates"] += got[1]
+
+
+@contextlib.contextmanager
+def fixed_point_forbidden():
+    """Raise where the plain NMS fixed point runs on the card: every NMS of
+    the flagship's paths takes the kernels there."""
+    from cpm_tpu_torch.ops import nms as nms_mod
+
+    real = nms_mod._sorted_keep_mask
+
+    def guard(iou, valid, thresh):
+        if iou.device.type == "cuda":
+            raise AssertionError("the NMS fixed point ran on the card")
+        return real(iou, valid, thresh)
+
+    nms_mod._sorted_keep_mask = guard
+    try:
+        yield
+    finally:
+        nms_mod._sorted_keep_mask = real
 
 
 def launch_counts():
@@ -996,10 +1055,11 @@ def phase_eval(dev, card, backend, n_batch1, reference):
         want_launches[GROUPING_KERNEL[backend]] = 5
     latencies = []
     for i, (images, sizes) in enumerate(requests):
-        before, builds = launch_counts(), stack_builds()
+        before, builds, nms_before = launch_counts(), stack_builds(), nms_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        dets = forward(images, sizes)
+        with fixed_point_forbidden():
+            dets = forward(images, sizes)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         latencies.append(dt)
@@ -1008,6 +1068,8 @@ def phase_eval(dev, card, backend, n_batch1, reference):
         counts = check_detections(dets, sizes, images.shape[0], nc, max_dets)
         if launched != want_launches:
             raise AssertionError(f"{tag} request {i}: launched {launched}, want {want_launches}")
+        # the RPN's NMS and the detection filter's, over the whole batch each
+        held_to_nms_launches(f"{tag} request {i}", nms_before, (2, 1))
         # the five pooler calls share the FPN maps: one stack a forward
         if built != (backend == "stacked"):
             raise AssertionError(f"{tag} request {i}: {built} stacks built, want "
@@ -1234,11 +1296,14 @@ def phase_train(dev, card, backend, reference, config="flagship"):
         batch = batch_for(101 + i)
         before = {k: p.detach().clone() for k, p in model.named_parameters()}
         counts0, step0, builds = launch_counts(), state.step, stack_builds()
+        nms_before = nms_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
+        with fixed_point_forbidden():
+            state, metrics = step_fn(state, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        held_to_nms_launches(f"{tag} step {i}", nms_before, (1, 1))
         built = stack_builds() - builds
         if built != (backend == "stacked"):
             raise AssertionError(f"step {i}: {built} stacks built, want {int(backend == 'stacked')}")
@@ -4051,6 +4116,51 @@ def phase_native(dev, card):
     return (4 * sites, 4 * sites)
 
 
+def phase_nms(dev, card):
+    """Phase 20: the NMS kernels and the RPN's candidate kernel against their
+    plain versions, bit for bit, at the cells' proposal selection
+    (`tools/probe_nms.py::probe_cell`, which also holds `select_proposals` to
+    the per-level loop) and at the detection filter. Returns the two
+    kernels' results as one forward's sites: the serving cell's RPN call and
+    one filter call (NMS), the serving cell's call (candidates)."""
+    from cpm_tpu_torch.ops.nms import batched_nms
+    from cpm_tpu_torch.tools.probe_nms import CELLS, fixed_point_nms, nms_bound_ms, probe_cell
+
+    results = {cell: probe_cell(cell, 7, 10, card, tag="[nms]") for cell in CELLS}
+    nms_sites = {cell: r["nms"] for cell, r in results.items()}
+    candidate_sites = {cell: r["candidates"] for cell, r in results.items()}
+
+    # the detection filter's call: 1024 candidates of an image, label-aware
+    # through coordinate offsets, 100 slots
+    rng = np.random.RandomState(8)
+    centres = rng.rand(60, 2) * 800
+    ctr = centres[rng.randint(0, 60, (1, 1024))] + rng.randn(1, 1024, 2) * 8
+    wh = rng.rand(1, 1024, 2) * 120 + 4
+    boxes = torch.tensor(np.concatenate([ctr - wh / 2, ctr + wh / 2], -1), dtype=torch.float32,
+                         device=dev)
+    scores = torch.tensor(rng.rand(1, 1024), dtype=torch.float32, device=dev)
+    labels = torch.tensor(rng.randint(1, 81, (1, 1024)), device=dev)
+    valid = scores > 0.05
+    max_coord = torch.amax(boxes, dim=(-2, -1), keepdim=True) + 1.0
+    shifted = boxes + labels.to(boxes.dtype)[..., None] * max_coord
+    got = batched_nms(boxes, scores, labels, 0.5, 100, mask=valid)
+    if not all(torch.equal(a, b) for a, b in zip(got, fixed_point_nms(shifted, scores, 0.5, 100,
+                                                                      valid))):
+        raise AssertionError("[nms] filter: the NMS kernels differ from the fixed point")
+    nms_sites["filter"] = dict(
+        err=0.0, bound_by="bytes", bound_ms=nms_bound_ms(1, 1024, 100),
+        ms=cuda_ms(lambda: batched_nms(boxes, scores, labels, 0.5, 100, mask=valid)),
+        plain_ms=cuda_ms(lambda: fixed_point_nms(shifted, scores, 0.5, 100, valid)))
+    print(f"[nms] filter: batched_nms over 1024 candidates, 100 slots: "
+          f"{nms_sites['filter']['ms']:.4f} ms with its offsets and sort, fixed point "
+          f"{nms_sites['filter']['plain_ms']:.4f} ms, bound {nms_sites['filter']['bound_ms']:.4f} ms "
+          f"(bytes) | {card}")
+    return (summed([nms_sites["serve"], nms_sites["filter"]], NMS_DRIVEN["nms"],
+                   "[kernel] nms: the RPN's and the filter's calls of one batch-1 forward", card),
+            summed([candidate_sites["serve"]], NMS_DRIVEN["rpn_candidates"],
+                   "[kernel] rpn_candidates: the call of one batch-1 forward", card))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -4128,6 +4238,8 @@ def main():
     rest = phase_rest(dev, card)
     torch.cuda.empty_cache()
     nat = phase_native(dev, card)
+    torch.cuda.empty_cache()
+    nms_stats, candidate_stats = phase_nms(dev, card)
 
     # launches on the driven paths: eval forwards plus training steps, and
     # the CLIs' runs
@@ -4151,6 +4263,9 @@ def main():
         "deform_sample": x101_fwd["launches"] + x101_bwd["launches"][0],
         "deform_sample_backward": x101_bwd["launches"][1],
         "crossroi_roi_align": crossroi["launches"],
+        # phases 3 and 5: every flagship and X-101 request and step
+        "nms": NMS_DRIVEN["nms"],
+        "rpn_candidates": NMS_DRIVEN["rpn_candidates"],
     }
     print(f"[kernels] launches on the driven paths: {launches}")
     stats = {
@@ -4169,6 +4284,9 @@ def main():
         "deform_sample_backward": (
             x101_bwd, [r for r in sampler["backward"] if r["dtype"] == "float32"]),
         "crossroi_roi_align": (crossroi, []),
+        # bit-equal to their plain versions wherever phase 20 checks them
+        "nms": (nms_stats, []),
+        "rpn_candidates": (candidate_stats, []),
     }
     for name, n in launches.items():
         if n < 1:

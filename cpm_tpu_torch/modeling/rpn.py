@@ -5,8 +5,8 @@ Port of cpm_tpu/modeling/rpn.py (`generate_cell_anchors`, `grid_anchors`,
 Detectron's rounding and are laid out in (h, w, a) order to match the NHWC
 flattening of the head outputs. Pre-NMS selection is an exact top-k
 (index-ordered on ties, as `lax.top_k`; the JAX package's approximate top-k
-is a TPU knob that CPU JAX also runs exactly); NMS is the fixed-point kernel
-of ops/nms.py.
+is a TPU knob that CPU JAX also runs exactly); NMS is ops/nms.py's, once
+over every level and image.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -166,6 +166,11 @@ def select_proposals(
 ):
     """Fixed-shape proposal selection.
 
+    Every level's candidates (`level_candidates`) form one padded batch,
+    and one NMS call runs over all its rows (images x levels): on a card
+    the kernels of ops/cuda, with no wait of the host. Each level keeps
+    `post_nms_top_n` slots, levels in order, as a per-level loop would.
+
     Args:
       objectness / box_regression: per-level NHWC head outputs.
       image_sizes: [B, 2] true (h, w).
@@ -176,32 +181,13 @@ def select_proposals(
     """
     if box_coder is None:
         box_coder = BoxCoder(weights=(1.0, 1.0, 1.0, 1.0))
-    dev = objectness[0].device
-    img_w = image_sizes[:, None, 1].float()
-    img_h = image_sizes[:, None, 0].float()
-    anchors_per_level = layout.on(dev)
-
-    lvl_boxes, lvl_scores, lvl_valid = [], [], []
-    for obj, reg, anchors in zip(objectness, box_regression, anchors_per_level):
-        B, H, W, A = obj.shape
-        # box decode and NMS IoU in f32 (bf16 coordinates quantize to ~8 px)
-        scores = torch.sigmoid(obj.float().reshape(B, H * W * A))
-        deltas = reg.float().reshape(B, H * W * A, 4)
-        k = min(pre_nms_top_n, scores.shape[1])
-        top_scores, top_idx = topk(scores, k)
-        top_anchors = anchors[top_idx]  # [B, k, 4]
-        top_deltas = torch.gather(deltas, 1, top_idx[..., None].expand(B, k, 4))
-        proposals = box_coder.decode(top_deltas, top_anchors)
-        proposals = clip_boxes_to_image(proposals, (img_w, img_h))
-        valid = remove_small_boxes_mask(proposals, min_size)
-        idx, keep = nms(proposals, top_scores, nms_thresh, post_nms_top_n, mask=valid)
-        lvl_boxes.append(torch.gather(proposals, 1, idx[..., None].expand(*idx.shape, 4)))
-        lvl_scores.append(torch.gather(top_scores, 1, idx))
-        lvl_valid.append(keep)
-
-    boxes = torch.cat(lvl_boxes, dim=1)
-    scores = torch.cat(lvl_scores, dim=1)
-    valid = torch.cat(lvl_valid, dim=1)
+    B = objectness[0].shape[0]
+    boxes, scores, valid = level_candidates(
+        layout, objectness, box_regression, image_sizes, pre_nms_top_n, min_size, box_coder)
+    idx, keep = nms(boxes, scores, nms_thresh, post_nms_top_n, mask=valid)  # [B, L, post]
+    boxes = torch.gather(boxes, 2, idx[..., None].expand(*idx.shape, 4)).reshape(B, -1, 4)
+    scores = torch.gather(scores, 2, idx).reshape(B, -1)
+    valid = keep.reshape(B, -1)
     if len(objectness) > 1:
         neg_inf = torch.finfo(scores.dtype).min
         masked = torch.where(valid, scores, neg_inf)
@@ -218,6 +204,52 @@ def select_proposals(
         scores = torch.cat([scores, torch.ones_like(gt_mask, dtype=scores.dtype)], dim=1)
         valid = torch.cat([valid, gt_mask], dim=1)
     return boxes, scores, valid
+
+
+def level_candidates(layout, objectness, box_regression, image_sizes, pre_nms_top_n: int,
+                     min_size: float, box_coder: BoxCoder):
+    """Each level's pre-NMS candidates as one padded batch: (boxes
+    [B, L, K, 4], scores [B, L, K], valid [B, L, K]), K the largest
+    k = min(pre_nms_top_n, a level's anchors). A level's slots hold its k
+    best anchors in descending score order, ties in index order, decoded,
+    clipped to the image and valid where neither side is under min_size;
+    its slots past k hold zeros and are invalid. CPU tensors take
+    `level_candidates_plain`; tensors on a card the CUDA kernel of
+    ops/cuda/rpn_candidates.py, or raise."""
+    dev = objectness[0].device
+    if dev.type == "cpu":
+        return level_candidates_plain(layout.on(dev), objectness, box_regression, image_sizes,
+                                      pre_nms_top_n, min_size, box_coder)
+    from cpm_tpu_torch.ops.cuda.rpn_candidates import rpn_candidates_cuda
+
+    return rpn_candidates_cuda(layout.on(dev), objectness, box_regression, image_sizes,
+                               pre_nms_top_n, min_size, box_coder)
+
+
+def level_candidates_plain(anchors_per_level, objectness, box_regression, image_sizes,
+                           pre_nms_top_n: int, min_size: float, box_coder: BoxCoder):
+    """`level_candidates` level by level in PyTorch ops: the plain version
+    of the CUDA kernel."""
+    img_w = image_sizes[:, None, 1].float()
+    img_h = image_sizes[:, None, 0].float()
+    K = max(min(pre_nms_top_n, a.shape[0]) for a in anchors_per_level)
+    lvl_boxes, lvl_scores, lvl_valid = [], [], []
+    for obj, reg, anchors in zip(objectness, box_regression, anchors_per_level):
+        B, H, W, A = obj.shape
+        # box decode and NMS IoU in f32 (bf16 coordinates quantize to ~8 px)
+        scores = torch.sigmoid(obj.float().reshape(B, H * W * A))
+        deltas = reg.float().reshape(B, H * W * A, 4)
+        k = min(pre_nms_top_n, scores.shape[1])
+        top_scores, top_idx = topk(scores, k)
+        top_anchors = anchors[top_idx]  # [B, k, 4]
+        top_deltas = torch.gather(deltas, 1, top_idx[..., None].expand(B, k, 4))
+        proposals = box_coder.decode(top_deltas, top_anchors)
+        proposals = clip_boxes_to_image(proposals, (img_w, img_h))
+        valid = remove_small_boxes_mask(proposals, min_size)
+        lvl_boxes.append(F.pad(proposals, (0, 0, 0, K - k)))
+        lvl_scores.append(F.pad(top_scores, (0, K - k)))
+        lvl_valid.append(F.pad(valid, (0, K - k)))
+    return torch.stack(lvl_boxes, 1), torch.stack(lvl_scores, 1), torch.stack(lvl_valid, 1)
 
 
 def keep_batch_top_k(masked: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:

@@ -8,10 +8,14 @@ fixed number of output slots with a validity mask; leading dims are a batch.
 
 The keep mask is the JAX package's fixed point: keep[i] is recomputed as
 "no kept, higher-scored box overlaps me" until it stops changing, which is
-exactly sequential greedy NMS. The JAX `while_loop` becomes a Python loop
-whose convergence test reads one flag from the device per iteration (a
-`cpm/sync/nms` span); the iteration count is the longest suppression chain. Soft-NMS is the JAX
-`scan`: a fixed number of steps of device ops, with no read to the host.
+exactly sequential greedy NMS. On the CPU (`greedy_nms`, the plain version)
+the JAX `while_loop` becomes a Python loop whose convergence test reads one
+flag per iteration (a `cpm/sync/nms` span); the iteration count is the
+longest suppression chain. On a card `nms` launches the kernels of
+ops/cuda/nms.py instead: a bitmask of the overlaps and a sweep in sorted
+order, which give the fixed point's keep set and output slots bit for bit
+with no read to the host. Soft-NMS is the JAX `scan`: a fixed number of
+steps of device ops, with no read to the host.
 
 IoU convention: standard (x2-x1)*(y2-y1) with no +1 (`legacy_plus1=False`),
 as the reference's NMS kernels use.
@@ -65,23 +69,37 @@ def nms(
 
     Returns (indices [..., max_output] int64 into the inputs, keep
     [..., max_output] bool). Kept boxes come in descending score order;
-    empty slots hold index 0 and keep False.
+    empty slots hold index 0 and keep False. CPU tensors take the fixed
+    point (`greedy_nms`); tensors on a card take the CUDA kernels, or raise.
     """
-    return greedy_nms(boxes, scores, iou_threshold, max_output, mask,
-                      lambda a, b: box_iou(a, b, legacy_plus1=legacy_plus1))
+    if boxes.device.type == "cpu":
+        return greedy_nms(boxes, scores, iou_threshold, max_output, mask,
+                          lambda a, b: box_iou(a, b, legacy_plus1=legacy_plus1))
+    from cpm_tpu_torch.ops.cuda.nms import KERNEL
+
+    order, b_sorted, valid_sorted = sort_by_score(boxes, scores, mask)
+    return KERNEL(b_sorted, valid_sorted, order, iou_threshold, max_output, legacy_plus1)
 
 
-def greedy_nms(boxes, scores, iou_threshold: float, max_output: int, mask, pairwise_iou):
-    """`nms` over boxes [..., N, D] of any parametrisation, with
-    `pairwise_iou(a, b)` -> [..., N, M] (ops/rotated.py runs it on rotated
-    boxes and quadrilaterals)."""
+def sort_by_score(boxes, scores, mask):
+    """(order, boxes, mask) with the boxes in descending score order along
+    the box axis, masked boxes last, ties in index order; `order` [..., N]
+    holds each sorted box's input index."""
     if mask is None:
         mask = torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
     neg_inf = torch.finfo(scores.dtype).min
     s = torch.where(mask, scores, torch.full_like(scores, neg_inf))
     order = torch.argsort(-s, dim=-1, stable=True)
     b_sorted = torch.gather(boxes, -2, order[..., None].expand(*order.shape, boxes.shape[-1]))
-    valid_sorted = torch.gather(mask, -1, order)
+    return order, b_sorted, torch.gather(mask, -1, order)
+
+
+def greedy_nms(boxes, scores, iou_threshold: float, max_output: int, mask, pairwise_iou):
+    """`nms` over boxes [..., N, D] of any parametrisation by the fixed
+    point, with `pairwise_iou(a, b)` -> [..., N, M]: the plain version of
+    the CUDA kernels (ops/rotated.py runs it on rotated boxes and
+    quadrilaterals)."""
+    order, b_sorted, valid_sorted = sort_by_score(boxes, scores, mask)
     keep_sorted = _sorted_keep_mask(pairwise_iou(b_sorted, b_sorted), valid_sorted, iou_threshold)
 
     # compact kept entries to the front; slot max_output collects overflow

@@ -35,7 +35,8 @@ tools/profile_train.py, parallel/launch.py, the benchmark's trace readers):
   card, such as a read of a device value or a blocking copy from pageable
   host memory. The spans' count is the count of such waits, their host time
   the time the host waited. The sites: `nms` (ops/nms.py's convergence
-  test), `tower_size` (the grid head's tower length), `draws` (the
+  test, on the CPU path: on a card NMS runs in kernels that wait for
+  nothing), `tower_size` (the grid head's tower length), `draws` (the
   samplers' uniforms), `inputs` (a request's or a batch's arrays), `consts`
   (constants and list indices made on the host for the card), `ism_row`
   (the ISM loss's row index, read on the host). tools/sync_sites.py lists the

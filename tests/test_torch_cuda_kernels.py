@@ -1,4 +1,4 @@
-"""The port's nine CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
 
 Every test here is marked `cuda` and skips where there is no NVIDIA GPU. The
 file imports nothing of JAX or of the JAX package (the plain versions are
@@ -13,7 +13,9 @@ bf16 rtol 1.6e-2 / atol 1e-2 (one bf16 rounding of an f32 sum); backward f32
 rtol 1e-4 / atol 1e-4 (each cell's terms summed in another order: by the
 tile-owned multilevel, stacked and sampler backwards in one fixed order, so
 that two of their runs are bit-equal, and the stacked one gives the
-multilevel one's bits), bf16 as the forward.
+multilevel one's bits), bf16 as the forward. The NMS kernels and the RPN's
+candidate kernel are exact: bit for bit against the fixed point and the
+per-level loop of cpm_tpu_torch/tools/probe_nms.py.
 
 torch and the port are imported inside the tests, so that collecting this
 file loads no torch into a test worker.
@@ -950,3 +952,309 @@ def test_cuda_one_stack_per_training_step_under_stacked():
                 before[0] + 5, before[1] + 5, before[2] + 1)
     finally:
         pooler_mod.set_pooler_backend("auto")
+
+
+# The NMS kernels (ops/cuda/nms.py) and the RPN's candidate kernel
+# (ops/cuda/rpn_candidates.py), bit for bit against the fixed point and the
+# per-level loop (tools/probe_nms.py).
+
+
+def _card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _assert_same_bits(got, want):
+    import torch
+
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+def _rows(n, rows, dtype, seed, spread=200.0):
+    """Boxes [rows, n, 4] crowded around a few centres (so that suppression
+    chains form), scores in steps of 1/16 (ties), and row r valid at rate
+    1 - r / (rows - 1): the last row has no valid box."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    centres = rng.rand(max(1, n // 20), 2) * spread
+    ctr = centres[rng.randint(0, len(centres), (rows, n))] + rng.randn(rows, n, 2) * 6
+    wh = rng.rand(rows, n, 2) * 40 + 4
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    scores = np.round(rng.rand(rows, n) * 16) / 16
+    rate = 1 - np.arange(rows) / max(rows - 1, 1)
+    valid = rng.rand(rows, n) < rate[:, None]
+    valid[-1] = False
+    as_cuda = lambda x, d: torch.tensor(x, dtype=d, device="cuda")  # noqa: E731
+    return as_cuda(boxes, dtype), as_cuda(scores, torch.float32), as_cuda(valid, torch.bool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("legacy_plus1", [False, True], ids=["no offset", "legacy_plus1"])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000, 2000])
+def test_cuda_nms_kernel_matches_the_fixed_point(n, legacy_plus1):
+    import torch
+
+    from cpm_tpu_torch.ops.cuda import nms as op
+    from cpm_tpu_torch.ops.nms import nms
+    from cpm_tpu_torch.tools.probe_nms import fixed_point_nms
+
+    _card()
+    boxes, scores, valid = _rows(n, 3, torch.float32, seed=n)
+    for max_output in sorted({n, n // 7 + 1, n + 5}):
+        before = op.KERNEL.launches
+        got = nms(boxes, scores, 0.5, max_output, mask=valid, legacy_plus1=legacy_plus1)
+        want = fixed_point_nms(boxes, scores, 0.5, max_output, valid, legacy_plus1)
+        assert op.KERNEL.launches == before + 1
+        _assert_same_bits(got, want)
+        assert not got[1][-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_name", ["bfloat16", "float64"])
+@pytest.mark.parametrize("n", [65, 1000])
+def test_cuda_nms_kernel_matches_the_fixed_point_in_other_dtypes(n, dtype_name):
+    import torch
+
+    from cpm_tpu_torch.ops.nms import nms
+    from cpm_tpu_torch.tools.probe_nms import fixed_point_nms
+
+    _card()
+    boxes, scores, valid = _rows(n, 3, getattr(torch, dtype_name), seed=n + 1)
+    for thresh in (0.3, 0.7):
+        _assert_same_bits(nms(boxes, scores, thresh, n, mask=valid),
+                          fixed_point_nms(boxes, scores, thresh, n, valid))
+
+
+def _next(x, direction):
+    """The neighbouring value of x (a 0-d tensor) in its dtype."""
+    import torch
+
+    if x.dtype == torch.bfloat16:
+        bits = x.view(torch.int16) + (1 if direction > 0 else -1)
+        return bits.view(torch.bfloat16)
+    return torch.nextafter(x, torch.tensor(direction * 2.0, dtype=x.dtype, device=x.device))
+
+
+def _every_value(dtype, lo, hi):
+    """Every value of a 16-bit float dtype in [lo, hi], on the card."""
+    import torch
+
+    every = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16).view(dtype)
+    return every[(every >= lo) & (every <= hi)].cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("legacy_plus1", [False, True], ids=["no offset", "legacy_plus1"])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_cuda_nms_kernel_at_the_threshold_and_one_ulp_either_side(dtype_name, legacy_plus1):
+    """Pairs (a higher-scored box, a later one) whose IoU, as box_iou rounds
+    it, is the threshold in the boxes' dtype and its two neighbours: the
+    later box is removed exactly when its IoU is above."""
+    import torch
+
+    from cpm_tpu_torch.ops.nms import nms
+    from cpm_tpu_torch.structures.boxes import box_iou
+    from cpm_tpu_torch.tools.probe_nms import fixed_point_nms
+
+    _card()
+    dtype = getattr(torch, dtype_name)
+    thr = torch.tensor(0.7, dtype=dtype, device="cuda")
+    targets = torch.stack([_next(thr, -1), thr, _next(thr, 1)])
+    # a fixed box against boxes inside it whose far corner walks the dtype's
+    # values: every bfloat16 value; float32 values ulp by ulp around the x2
+    # that puts the IoU at 0.7 for a few y2
+    if dtype == torch.bfloat16:
+        x2 = _every_value(dtype, 40.0, 100.0)
+        y2 = _every_value(dtype, 40.0, 110.0)
+    else:
+        off = 1.0 if legacy_plus1 else 0.0
+        y2 = torch.tensor([98.5, 99.0, 100.0, 101.0], dtype=dtype, device="cuda")
+        centre = 0.7 * (100.0 + off) ** 2 / (y2 + off) - off
+        x2 = (centre[:, None].view(torch.int32)
+              + torch.arange(-4096, 4097, device="cuda", dtype=torch.int32)).view(dtype).flatten()
+    x2, y2 = torch.meshgrid(x2, y2, indexing="ij")
+    others = torch.stack([torch.zeros_like(x2), torch.zeros_like(x2), x2, y2], -1).reshape(-1, 4)
+    a = torch.tensor([[0.0, 0.0, 100.0, 100.0]], dtype=dtype, device="cuda")
+    iou = box_iou(a, others, legacy_plus1=legacy_plus1)[0]
+    hit = (iou[:, None] == targets[None, :])
+    assert hit.any(0).all(), "no pair at the threshold or a neighbour"
+    pairs = torch.stack([a.expand(int(hit.any(1).sum()), 4), others[hit.any(1)]], 1)
+    scores = torch.tensor([1.0, 0.5], device="cuda").expand(pairs.shape[0], 2).contiguous()
+    valid = torch.ones(scores.shape, dtype=torch.bool, device="cuda")
+    got = nms(pairs, scores, 0.7, 2, mask=valid, legacy_plus1=legacy_plus1)
+    _assert_same_bits(got, fixed_point_nms(pairs, scores, 0.7, 2, valid, legacy_plus1))
+    removed = ~got[1][:, 1]
+    assert torch.equal(removed, iou[hit.any(1)] > thr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn_name", ["batched_nms", "multiclass_nms"])
+def test_cuda_batched_nms_with_coordinate_offsets_matches_the_fixed_point(fn_name):
+    """The detection filter's call: label-aware NMS by shifting each label's
+    boxes past the others, over 1024 candidates an image."""
+    import torch
+
+    from cpm_tpu_torch.ops import nms as nms_mod
+    from cpm_tpu_torch.tools.probe_nms import fixed_point_nms
+
+    _card()
+    boxes, scores, valid = _rows(1024, 2, torch.float32, seed=3, spread=600.0)
+    labels = torch.tensor(np.random.RandomState(4).randint(1, 81, (2, 1024)), device="cuda")
+    got = getattr(nms_mod, fn_name)(boxes, scores, labels, 0.5, 100, mask=valid)
+    max_coord = torch.amax(boxes, dim=(-2, -1), keepdim=True) + 1.0
+    shifted = boxes + labels.to(boxes.dtype)[..., None] * max_coord
+    _assert_same_bits(got, fixed_point_nms(shifted, scores, 0.5, 100, valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("cell", ["serve", "train"])
+def test_cuda_select_proposals_equals_the_per_level_loop(cell, seed):
+    """At the benchmark cells' shapes: 1 image at 800x1344 with 1000
+    candidates a level, 4 at 864x1408 with 2000 and the per-batch top-k."""
+    from cpm_tpu_torch.modeling.rpn import select_proposals
+    from cpm_tpu_torch.tools.probe_nms import per_level_select, rpn_inputs
+
+    _card()
+    layout, obj, reg, sizes, kw = rpn_inputs(cell, seed, "cuda")
+    _assert_same_bits(select_proposals(layout, obj, reg, sizes, **kw),
+                      per_level_select(layout, obj, reg, sizes, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_select_proposals_at_one_level_equals_the_per_level_loop():
+    """The C4 layout (one level of 15 anchors a cell, 50x84 at 800x1344)
+    with Detectron's C4 values: 6000 candidates, 1000 kept."""
+    import torch
+
+    from cpm_tpu_torch.modeling.rpn import AnchorLayout, select_proposals
+    from cpm_tpu_torch.tools.probe_nms import per_level_select
+
+    _card()
+    layout = AnchorLayout([(50, 84)], (16,), (32, 64, 128, 256, 512), (0.5, 1.0, 2.0))
+    g = torch.Generator().manual_seed(6)
+    obj = [torch.randn(2, 50, 84, 15, generator=g).cuda().bfloat16()]
+    reg = [(0.5 * torch.randn(2, 50, 84, 60, generator=g)).cuda().bfloat16()]
+    sizes = torch.tensor([[800, 1333], [750, 1344]], dtype=torch.int32, device="cuda")
+    kw = dict(pre_nms_top_n=6000, post_nms_top_n=1000, nms_thresh=0.7, min_size=0,
+              fpn_post_nms_top_n=1000)
+    _assert_same_bits(select_proposals(layout, obj, reg, sizes, **kw),
+                      per_level_select(layout, obj, reg, sizes, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["serve", "train"])
+def test_cuda_select_proposals_never_waits_and_dispatches_few_ops(cell):
+    """No host wait (torch's sync debug mode raises on one) and, in serving,
+    at most 60 dispatched ATen ops, where the per-level loop dispatched
+    about 950."""
+    import torch
+
+    from cpm_tpu_torch.modeling.rpn import select_proposals
+    from cpm_tpu_torch.tools.probe_nms import OpCount, rpn_inputs
+
+    _card()
+    layout, obj, reg, sizes, kw = rpn_inputs(cell, 2, "cuda")
+    select_proposals(layout, obj, reg, sizes, **kw)  # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with OpCount() as count:
+            select_proposals(layout, obj, reg, sizes, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if cell == "serve":
+        assert count.total <= 60, count.ops
+
+
+@pytest.mark.cuda
+def test_cuda_rpn_candidates_decode_every_bfloat16_delta():
+    """Every bfloat16 value as dw and dh (the heads' deltas are bf16) on
+    anchors 16, 1024 and 2^20 px wide centred on 0, where x2 = w/2 * exp(dw)
+    - 1 holds exp's bits for exp(dw) from 1/8, 2^-9 and 2^-19 up; and a
+    million float32 deltas. The kernel's boxes, scores and flags against the
+    plain decode, clip and mask on the card, bit for bit (any NaN for NaN:
+    a NaN delta gives a NaN box on both sides)."""
+    import torch
+
+    from cpm_tpu_torch.ops.box_coder import BoxCoder
+    from cpm_tpu_torch.ops.cuda.rpn_candidates import KERNEL
+    from cpm_tpu_torch.structures.boxes import clip_boxes_to_image, remove_small_boxes_mask
+
+    _card()
+    coder = BoxCoder(weights=(1.0, 1.0, 1.0, 1.0))
+    every = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    rng = np.random.RandomState(5)
+    f32 = torch.tensor(rng.uniform(-14.0, 4.2, 2**20), dtype=torch.float32)
+    for d in (every, f32):
+        d = d.cuda()
+        t = 3 * d.numel()
+        half = torch.tensor([8.0, 512.0, 2.0**19], device="cuda").repeat_interleave(d.numel())
+        anchors = torch.stack([-half, -half, half - 1, half - 1], -1)
+        deltas = torch.zeros(1, t, 4, dtype=d.dtype, device="cuda")
+        deltas[0, :, 2] = d.repeat(3)
+        deltas[0, :, 3] = d.repeat(3).flip(0)
+        scores = torch.rand(1, t, device="cuda")
+        sizes = torch.tensor([[2**24, 2**24]], dtype=torch.int32, device="cuda")
+        order = torch.arange(t, device="cuda")[None]
+        boxes, out_scores, valid = KERNEL([scores], [order], [deltas], [anchors], sizes, [t],
+                                          coder, 2.0)
+        want = clip_boxes_to_image(coder.decode(deltas.float(), anchors[None]),
+                                   (sizes[:, None, 1].float(), sizes[:, None, 0].float()))
+        same = (boxes[:, 0].view(torch.int32) == want.view(torch.int32)) | (
+            boxes[:, 0].isnan() & want.isnan())
+        assert same.all(), f"{int((~same).sum())} coordinates differ"
+        assert torch.equal(out_scores[:, 0], scores)
+        assert torch.equal(valid[:, 0], remove_small_boxes_mask(want, 2.0))
+
+
+@pytest.mark.cuda
+def test_cuda_nms_launches_in_a_forward_and_a_step():
+    """Every NMS of an eval forward (the RPN's, the detection filter's) and of
+    a training step (the RPN's) goes through the kernels; the fixed point
+    never runs on the card."""
+    from cpm_tpu_torch.config import flagship_cfg
+    from cpm_tpu_torch.data.synthetic import synthetic_batch
+    from cpm_tpu_torch.engine.test import make_forward_fn
+    from cpm_tpu_torch.engine.train import create_train_state, make_train_step
+    from cpm_tpu_torch.ops import nms as nms_mod
+    from cpm_tpu_torch.ops.cuda import nms as op
+    from cpm_tpu_torch.ops.cuda import rpn_candidates
+
+    _card()
+    cfg = flagship_cfg(tiny=True)
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    sizes = np.array([[64, 64], [56, 48]], np.int32)
+
+    def launches():
+        return op.KERNEL.launches, rpn_candidates.KERNEL.launches
+
+    def no_fixed_point(*args):
+        raise AssertionError("the fixed point ran on the card")
+
+    real = nms_mod._sorted_keep_mask
+    nms_mod._sorted_keep_mask = no_fixed_point
+    try:
+        model, optimizer, state = create_train_state(cfg, "cuda", seed=0)
+        forward = make_forward_fn(cfg, model)
+        step = make_train_step(cfg, model, optimizer)
+        batch = synthetic_batch(2, 64, 64, max_gt=4, num_classes=cfg.MODEL.NUM_CLASSES, seed=3)
+        for _ in range(2):
+            before = launches()
+            forward(images, sizes)
+            assert launches() == (before[0] + 2, before[1] + 1)
+            before = launches()
+            step(state, batch)
+            assert launches() == (before[0] + 1, before[1] + 1)
+    finally:
+        nms_mod._sorted_keep_mask = real
