@@ -15,6 +15,7 @@ FAST_RCNN.DETECTIONS_PER_IMG. The merged set has a fixed size (passes x K
 detections), and the merge runs on the model's device.
 """
 
+import contextlib
 import json
 import os
 import time
@@ -89,11 +90,17 @@ def make_forward_fn(cfg, model: torch.nn.Module):
 def merge_tta_detections(cfg, per_pass_dets: List[Dict[str, torch.Tensor]]):
     """Concatenate the passes' detections (tensors [..., K] in one
     coordinate frame) and filter them once (core/test.py:46-48), on their
-    device. As in the reference, the filter reads FAST_RCNN's thresholds."""
-    cat = {f: torch.cat([d[f] for d in per_pass_dets], dim=-1 if f != "boxes" else -2)
-           for f in ("boxes", "scores", "labels", "mask")}
-    boxes, scores, labels, keep = filter_results(
-        cat["boxes"], cat["scores"], cat["labels"], cat["mask"], **detection_filter_kwargs(cfg))
+    device. As in the reference, the filter reads FAST_RCNN's thresholds.
+    Spans: `cpm/tta/merge` around it all, `cpm/tta/soft_nms` around the
+    filter under TEST.SOFT_NMS (FAST_RCNN.DETECTIONS_PER_IMG steps, the
+    voting too with TEST.BBOX_VOTE)."""
+    kw = detection_filter_kwargs(cfg)
+    with span("cpm/tta/merge"):
+        cat = {f: torch.cat([d[f] for d in per_pass_dets], dim=-1 if f != "boxes" else -2)
+               for f in ("boxes", "scores", "labels", "mask")}
+        with span("cpm/tta/soft_nms") if kw["use_soft_nms"] else contextlib.nullcontext():
+            boxes, scores, labels, keep = filter_results(
+                cat["boxes"], cat["scores"], cat["labels"], cat["mask"], **kw)
     return dict(boxes=boxes, scores=scores, labels=labels, mask=keep)
 
 
@@ -188,23 +195,26 @@ def run_inference_on_dataset(
         as one [B, K, 7] float32 tensor (box, score, label, mask) and the
         batch's first item."""
         def upload(array):
-            # a blocking copy would wait for the forwards queued before it
-            return torch.as_tensor(array).to(device, non_blocking=True)
+            # a blocking copy would wait for the forwards queued before it;
+            # one from pageable memory may still wait
+            with sync("consts"):
+                return torch.as_tensor(array).to(device, non_blocking=True)
 
         per_pass = []
         for p, item in zip(passes, items):
-            dets = forward(item["images"], item["image_sizes"])
-            d = dict(boxes=dets.boxes.float(), scores=dets.scores.float(),
-                     labels=dets.labels, mask=dets.mask)
-            if p["hflip"]:
-                d["boxes"] = _unflip_boxes(d["boxes"], upload(item["image_sizes"][:, 1]))
-            if tta:
-                # every pass to the original image's frame; a padded slot
-                # repeats the batch's last image
-                metas = item["meta"] + item["meta"][-1:] * (len(d["boxes"]) - item["count"])
-                scale = upload(np.array([[m["scale_hw"][1], m["scale_hw"][0]] * 2 for m in metas],
-                                        np.float32))
-                d["boxes"] = d["boxes"] / scale[:, None, :]
+            with span("cpm/tta/pass") if tta else contextlib.nullcontext():
+                dets = forward(item["images"], item["image_sizes"])
+                d = dict(boxes=dets.boxes.float(), scores=dets.scores.float(),
+                         labels=dets.labels, mask=dets.mask)
+                if p["hflip"]:
+                    d["boxes"] = _unflip_boxes(d["boxes"], upload(item["image_sizes"][:, 1]))
+                if tta:
+                    # every pass to the original image's frame; a padded
+                    # slot repeats the batch's last image
+                    metas = item["meta"] + item["meta"][-1:] * (len(d["boxes"]) - item["count"])
+                    scale = upload(np.array([[m["scale_hw"][1], m["scale_hw"][0]] * 2
+                                             for m in metas], np.float32))
+                    d["boxes"] = d["boxes"] / scale[:, None, :]
             per_pass.append(d)
         d = merge_tta_detections(cfg, per_pass) if tta else per_pass[0]
         packed = torch.cat([d["boxes"], d["scores"][..., None], d["labels"].float()[..., None],
@@ -213,7 +223,8 @@ def run_inference_on_dataset(
 
     def collect(pending):
         packed, item = pending
-        host = packed.cpu().numpy()  # the batch's one device-to-host copy
+        with sync("readback"):
+            host = packed.cpu().numpy()  # the batch's one device-to-host copy
         for j, meta in enumerate(item["meta"]):
             dets_np = dict(boxes=host[j, :, :4], scores=host[j, :, 4],
                            labels=host[j, :, 5].astype(np.int32), mask=host[j, :, 6] > 0)

@@ -160,6 +160,10 @@ def soft_nms(
     `max_output` times: pick the highest remaining score (the first of equal
     ones), then decay the scores of the boxes that overlap it (linear,
     gaussian or hard). The steps are device ops with no read to the host.
+    The step count is `max_output` whatever the inputs (a step whose pick
+    falls under `score_thresh` changes nothing): on a card about 13
+    launches a step, after one [..., N, N] IoU (at N = 5400, the TTA
+    merge of 18 passes of 300, 117 MB in float32).
     Returns (indices [..., max_output], their scores when picked, valid).
     """
     if method not in ("linear", "gaussian", "hard"):

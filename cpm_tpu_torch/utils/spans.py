@@ -31,6 +31,14 @@ tools/profile_train.py, parallel/launch.py, the benchmark's trace readers):
 * `cpm/head/cls` (with `cpm/head/filter` inside it at test),
   `cpm/head/stage<i>` for each CMM stage from 1 (ISM inside the last),
   `cpm/head/rescore`;
+* `cpm/tta/pass` (engine/test.py's loop under TEST.BBOX_AUG: one pass of
+  one batch, its `cpm/forward`, the unflip and the rescale to the original
+  image), `cpm/tta/merge` (`merge_tta_detections`: the concatenation and
+  the filter), `cpm/tta/soft_nms` inside it under TEST.SOFT_NMS (the
+  filter: ops/nms.py's soft-NMS, a fixed FAST_RCNN.DETECTIONS_PER_IMG
+  steps, so that the steps are the spans' count times that number; with
+  TEST.BBOX_VOTE the voting too). Counted an image at TEST.IMS_PER_GPU 1:
+  passes (`tta_passes`), one merge, one soft-NMS;
 * `cpm/sync/<site>` (`sync`): one call that makes the host wait for the
   card, such as a read of a device value or a blocking copy from pageable
   host memory. The spans' count is the count of such waits, their host time
@@ -38,8 +46,10 @@ tools/profile_train.py, parallel/launch.py, the benchmark's trace readers):
   test, on the CPU path: on a card NMS runs in kernels that wait for
   nothing), `tower_size` (the grid head's tower length), `draws` (the
   samplers' uniforms), `inputs` (a request's or a batch's arrays), `consts`
-  (constants and list indices made on the host for the card), `ism_row`
-  (the ISM loss's row index, read on the host). tools/sync_sites.py lists the
+  (constants and list indices made on the host for the card, the TTA
+  loop's widths and scales among them), `ism_row` (the ISM loss's row
+  index, read on the host), `readback` (the eval loop's one copy of a
+  batch's detections to the host). tools/sync_sites.py lists the
   waits of a request and a step and the span that covers each.
 
 Spans open only on the thread that runs the request or the step: never on
