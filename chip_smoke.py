@@ -3941,7 +3941,8 @@ def loader_times(cfg, card, batches=6):
     each decode path that builds here: {'native' | 'pil': {'train_batch_ms',
     'eval_image_ms'}}. Host time only: `TrainLoader` on this thread
     (`prefetch=0`), the median of `batches` batches after a first one that
-    starts the pool; `TestLoader` over the eval images, the mean an image.
+    starts the pool; `TestLoader` over the eval images on this thread
+    (`prefetch=0`), the mean an image.
     The PIL path is a loader told `native = None`."""
     import os
 
@@ -3972,7 +3973,7 @@ def loader_times(cfg, card, batches=6):
         return statistics.median(times)
 
     def eval_image_ms(path):
-        loader = TestLoader(cfg, test_set)
+        loader = TestLoader(cfg, test_set, prefetch=0)
         if path == "pil":
             loader.native, loader.decode_path = None, "pil"
         t0 = time.perf_counter()

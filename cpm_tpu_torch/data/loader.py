@@ -35,10 +35,19 @@ path made in `decoded`; the CLIs print it. On the native path:
   * TestLoader decodes, resizes (cv2's INTER_LINEAR mapping or PIL's
     taps, per TPU.EVAL_RESIZE) and pads an image in one call; a TTA flip
     pass takes the PIL path, which flips the raw image before resizing.
+
+Both loaders make their items ahead on a thread of their own (`prefetch`,
+2 by default; 0 makes them on the caller's thread), so that the caller
+launches the card's work while the next image decodes: the native call,
+PIL's decode and resize and numpy's large copies release the GIL. Under
+TTA each pass's TestLoader has its own thread.
 """
 
+import contextlib
 import queue as queue_mod
+import sys
 import threading
+import time
 from typing import Iterator, Optional
 
 import numpy as np
@@ -55,6 +64,7 @@ from cpm_tpu_torch.utils.spans import span
 
 
 PREFETCH_THREAD = "TrainLoader-prefetch"  # the name of the thread that makes the batches
+TEST_PREFETCH_THREAD = "TestLoader-prefetch"  # the thread that makes a TestLoader's items
 # the native pool's threads: the JAX loader reads DATALOADER.NUM_WORKERS,
 # which neither config tree holds (so no YAML can set it), with a default of 4
 DECODE_WORKERS = 4
@@ -107,6 +117,84 @@ def compute_buckets(scales, max_size, divisibility: int):
     short = round_up(max(scales), divisibility)
     long = round_up(max_size, divisibility)
     return short, long
+
+
+_DONE = object()  # the end of a prefetched stream
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _fill(make, q: queue_mod.Queue, stop: threading.Event):
+    """A prefetch thread's body: puts the items of `make()`, then `_DONE` or
+    the error it met, into `q` until `stop` is set, and closes `make()`'s
+    generator on this thread."""
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue_mod.Full:
+                pass
+        return False
+
+    items = make()
+    try:
+        for item in items:
+            if not put(item):
+                return
+        put(_DONE)
+    except Exception as e:  # handed to the consumer, raised there
+        put(e)
+    finally:
+        items.close()  # closes a native pool on this thread
+
+
+class Prefetched:
+    """Iterates the items of the generator `make()`, which runs on a daemon
+    thread named `thread_name`, started here, and keeps up to `depth` items
+    ahead in a queue. The caller's wait for each item is the span
+    `wait_span`. With `counts`, each item handed over counts as "ready" (it
+    was in the queue when asked for) or "waited" (the caller blocked on it).
+    An error the thread meets is raised at the caller's `next()`. `close()`,
+    also called when the iterator is collected, stops the thread and joins
+    it."""
+
+    def __init__(self, make, depth: int, thread_name: str, wait_span: str, counts=None):
+        self._queue: queue_mod.Queue = queue_mod.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._wait_span = wait_span
+        self._counts = counts
+        # the thread holds no reference to this iterator, so that dropping
+        # it collects it and ends the thread
+        self._thread = threading.Thread(target=_fill, args=(make, self._queue, self._stop),
+                                        daemon=True, name=thread_name)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._stop.is_set():
+            raise StopIteration
+        with span(self._wait_span):
+            ready = not self._queue.empty()
+            item = self._queue.get()
+        if item is _DONE:
+            self.close()
+            raise StopIteration
+        if isinstance(item, Exception):
+            self.close()
+            raise item
+        if self._counts is not None:
+            self._counts["ready" if ready else "waited"] += 1
+        return item
+
+    def close(self):
+        self._stop.set()
+        if not sys.is_finalizing():  # a daemon thread cannot end during shutdown
+            self._thread.join()
+
+    def __del__(self):
+        self.close()
 
 
 class TrainLoader:
@@ -376,45 +464,7 @@ class TrainLoader:
         if self.prefetch <= 0:
             yield from self._raw_iter()
             return
-        q: queue_mod.Queue = queue_mod.Queue(maxsize=self.prefetch)
-        stop = threading.Event()
-        done = object()
-
-        def put(item) -> bool:
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    return True
-                except queue_mod.Full:
-                    pass
-            return False
-
-        def worker():
-            batches = self._raw_iter()
-            try:
-                for item in batches:
-                    if not put(item):
-                        return
-                put(done)
-            except Exception as e:  # handed to the consumer, raised there
-                put(e)
-            finally:
-                batches.close()  # closes the native pool on this thread
-
-        t = threading.Thread(target=worker, daemon=True, name=PREFETCH_THREAD)
-        t.start()
-        try:
-            while True:
-                with span("cpm/data/wait"):
-                    item = q.get()
-                if item is done:
-                    return
-                if isinstance(item, Exception):
-                    raise item
-                yield item
-        finally:
-            stop.set()
-            t.join()
+        yield from Prefetched(self._raw_iter, self.prefetch, PREFETCH_THREAD, "cpm/data/wait")
 
 
 class TestLoader:
@@ -433,6 +483,7 @@ class TestLoader:
         max_size: Optional[int] = None,
         hflip: bool = False,
         batch_size: Optional[int] = None,
+        prefetch: int = 2,
     ):
         self.cfg = cfg
         self.dataset = dataset
@@ -462,6 +513,13 @@ class TestLoader:
         self.native = None if hflip else _native()
         self.decode_path = "native" if self.native is not None else "pil"
         self.decoded = {"native": 0, "pil": 0}  # images made by each path
+        # host seconds of those decodes (resize and flip in them), on
+        # whichever thread made them: no span times them on the prefetch thread
+        self.decoded_s = 0.0
+        self.prefetch = prefetch
+        # items the prefetch thread handed over: in the queue when asked
+        # for, or waited for
+        self.prefetched = {"ready": 0, "waited": 0}
 
     def __len__(self):
         return self.end - self.start
@@ -483,16 +541,17 @@ class TestLoader:
         try:
             with open(self.dataset.image_path(i), "rb") as f:
                 data = f.read()
-            with span("cpm/data/decode"):
-                if self.device_normalize:
-                    img, _ = self.native.decode_resize_u8(
-                        data, (nh, nw), bucket, self.transform.to_bgr255, interp=interp,
-                        scale_xy=scale_xy)
-                else:
-                    img, _ = self.native.decode_resize_normalize(
-                        data, (nh, nw), bucket, self.transform.pixel_means,
-                        self.transform.pixel_stds, self.transform.to_bgr255, interp=interp,
-                        scale_xy=scale_xy)
+            t0 = time.perf_counter()
+            if self.device_normalize:
+                img, _ = self.native.decode_resize_u8(
+                    data, (nh, nw), bucket, self.transform.to_bgr255, interp=interp,
+                    scale_xy=scale_xy)
+            else:
+                img, _ = self.native.decode_resize_normalize(
+                    data, (nh, nw), bucket, self.transform.pixel_means,
+                    self.transform.pixel_stds, self.transform.to_bgr255, interp=interp,
+                    scale_xy=scale_xy)
+            self.decoded_s += time.perf_counter() - t0
         except RuntimeError:
             return None
         return img, (nh, nw), (oh, ow)
@@ -505,11 +564,12 @@ class TestLoader:
             scale_hw = (nh / orig_h, nw / orig_w)
             self.decoded["native"] += 1
         else:
-            with span("cpm/data/decode"):
-                raw = self.dataset.load_image(i)
-                if self.hflip:
-                    raw = np.ascontiguousarray(raw[:, ::-1])
-                norm, (nh, nw), scale_hw = self.transform(raw)
+            t0 = time.perf_counter()
+            raw = self.dataset.load_image(i)
+            if self.hflip:
+                raw = np.ascontiguousarray(raw[:, ::-1])
+            norm, (nh, nw), scale_hw = self.transform(raw)
+            self.decoded_s += time.perf_counter() - t0
             orig_h, orig_w = raw.shape[:2]
             bh, bw = self.buckets["landscape"] if nw >= nh else self.buckets["portrait"]
             img = np.zeros((bh, bw, 3), np.uint8 if self.device_normalize else np.float32)
@@ -542,13 +602,16 @@ class TestLoader:
             out.update(buf[0][2])  # per-image keys
         return out
 
-    def __iter__(self):
+    def _raw_iter(self, load_span: bool = False):
+        """The loader's items, made on the thread that iterates this; with
+        `load_span`, each image's load under the span `cpm/data/load` (the
+        loop's own thread only: a prefetch thread opens no span)."""
         # per-orientation buffers: all TTA passes of one image share its
         # aspect ratio, so parallel TestLoaders group identically
         buffers = {"landscape": [], "portrait": []}
         order = []  # flush order, so that iteration stays deterministic
         for i in range(self.start, self.end):
-            with span("cpm/data/load"):
+            with span("cpm/data/load") if load_span else _NO_SPAN:
                 img, size, meta, key = self._load_one_test(i)
             buffers[key].append((img, size, meta))
             if len(buffers[key]) == self.batch_size:
@@ -559,3 +622,29 @@ class TestLoader:
         for key in order:
             if buffers[key]:
                 yield self._emit(buffers[key])
+
+    def _handed_over(self, items: "Prefetched"):
+        """Yields the prefetched `items` until their counts reach the
+        loader's length, so that the loop never waits (under a span) for the
+        end of the stream, and closes them when it ends or is closed."""
+        remaining = len(self)
+        try:
+            while remaining > 0:
+                item = next(items)
+                remaining -= item["count"]
+                yield item
+        finally:
+            items.close()
+
+    def __iter__(self) -> Iterator[dict]:
+        """The items of `_raw_iter`, made `prefetch` ahead on a thread of
+        their own that starts here, so that `zip(*loaders)` starts every TTA
+        pass's thread at once. The loop's wait for each item is the span
+        `cpm/data/load`. The thread ends when the iterator is closed (or
+        collected); an error it meets is raised at `next()`. With `prefetch`
+        0 the items are made on this thread, each image's load under
+        `cpm/data/load`."""
+        if self.prefetch <= 0:
+            return self._raw_iter(load_span=True)
+        return self._handed_over(Prefetched(self._raw_iter, self.prefetch, TEST_PREFETCH_THREAD,
+                                            "cpm/data/load", self.prefetched))

@@ -23,9 +23,12 @@ tools/profile_train.py, parallel/launch.py, the benchmark's trace readers):
   (engine/train.py);
 * `cpm/forward` (the eval forward), `cpm/cast` (the masters' casts of a
   train step, inside engine/train.py's `train_step/forward`);
-* `cpm/data/load` (one TestLoader image, file to padded array),
-  `cpm/data/decode` inside it, `cpm/data/wait` (a train batch's wait on the
-  prefetch queue);
+* `cpm/data/load` (the loop's wait for the next TestLoader item, which
+  the loader's prefetch thread makes; with `prefetch=0` one image's load on
+  the loop's thread), `cpm/data/wait` (a train batch's wait on the prefetch
+  queue). No span times the decode itself, which runs on the prefetch
+  threads: `cpm/data/decode` is no longer opened, and the decode's host
+  seconds are counted in `TestLoader.decoded_s`;
 * `cpm/backbone`, `cpm/fpn`, `cpm/rpn/head`, `cpm/rpn/proposals`,
   `cpm/rpn/losses`;
 * `cpm/head/cls` (with `cpm/head/filter` inside it at test),
@@ -53,7 +56,8 @@ tools/profile_train.py, parallel/launch.py, the benchmark's trace readers):
   waits of a request and a step and the span that covers each.
 
 Spans open only on the thread that runs the request or the step: never on
-TrainLoader's prefetch thread, in the native decode pool or in code that
+TrainLoader's or TestLoader's prefetch threads (`TrainLoader-prefetch`,
+`TestLoader-prefetch`), in the native decode pool or in code that
 autograd's thread runs, where a span would name the main thread's idle
 gaps wrongly.
 """

@@ -10,6 +10,9 @@ library built from its own source by `tests/torch_support.py::jax_native`,
 and tests/test_torch_native.py holds the rest of that path); a loader
 resumed at start_iter must continue the uninterrupted stream; its
 TestLoader must equal the JAX one (PIL path, both eval resize backends).
+The TestLoader's prefetch thread must hand over its synchronous path's
+items bit for bit and in order, pass an error on to the consumer and end
+with the iterator, also where zip stops at a shorter loader.
 
 torch is never imported here: the loaders are numpy and PIL.
 """
@@ -293,3 +296,146 @@ def test_test_loader_equals_the_jax_one(pil_paths, backend):
                     np.testing.assert_array_equal(g[k], w[k])
                 else:
                     assert g[k] == w[k], k
+
+
+# the default loader against its synchronous path, over seeded JPEGs of
+# both orientations: batch 1; a batch of 3, whose partial batches of each
+# orientation are flushed at the end; a flip pass (the PIL path) at twice
+# the eval scale
+PREFETCH_CASES = {"batch_1": dict(), "batch_3": dict(start=1, end=9, batch_size=3),
+                  "flip_2x": dict(hflip=True, scale=128, max_size=256, end=6)}
+MIXED = {"images": 9, "aspects": [[80, 60, 0.5], [60, 80, 0.5]],
+         "instances": {"mean": 2, "min": 1, "max": 4},
+         "area_split": {"small": 0.5, "medium": 0.5, "large": 0.0}, "classes": 8,
+         "jpeg_quality": 90}
+
+
+def _mixed_dataset(root):
+    from benchmark.traffic import write_coco_tree
+    from cpm_tpu_torch.data.coco import COCODataset
+
+    tree = write_coco_tree(MIXED, 7, str(root))
+    return COCODataset(tree["annotations"], tree["images"])
+
+
+def _prefetching_threads():
+    import threading
+
+    from cpm_tpu_torch.data.loader import TEST_PREFETCH_THREAD
+
+    return [t for t in threading.enumerate() if t.name == TEST_PREFETCH_THREAD]
+
+
+def _no_prefetching_thread_within(seconds):
+    import time
+
+    deadline = time.monotonic() + seconds
+    while _prefetching_threads() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return not _prefetching_threads()
+
+
+@pytest.mark.parametrize("case", sorted(PREFETCH_CASES))
+def test_prefetching_test_loader_yields_the_synchronous_items(case, tmp_path):
+    from cpm_tpu_torch.data.loader import TestLoader
+
+    _, cfg = _cfgs()
+    dataset = _mixed_dataset(tmp_path)
+    kw = PREFETCH_CASES[case]
+    alone = TestLoader(cfg, dataset, prefetch=0, **kw)
+    ahead = TestLoader(cfg, dataset, **kw)
+    assert ahead.prefetch == 2
+    want, got = list(alone), list(ahead)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            if isinstance(w[k], np.ndarray):
+                assert g[k].dtype == w[k].dtype
+                np.testing.assert_array_equal(g[k], w[k])
+            else:
+                assert g[k] == w[k], k
+    assert ahead.decode_path == alone.decode_path
+    assert ahead.decode_path == "pil" or not kw.get("hflip")
+    assert ahead.decoded == alone.decoded and sum(ahead.decoded.values()) == len(ahead)
+    assert ahead.decoded_s > 0 and alone.decoded_s > 0
+    assert sum(ahead.prefetched.values()) == len(got)
+    assert alone.prefetched == {"ready": 0, "waited": 0}
+    portrait = {w["images"].shape[1] > w["images"].shape[2] for w in want}
+    assert portrait == {True, False}
+    if case == "batch_3":
+        assert sorted(w["count"] for w in want) == [1, 1, 3, 3]
+    assert _no_prefetching_thread_within(1.0)
+
+
+def test_a_slow_consumer_finds_the_test_items_ready():
+    import time
+
+    from cpm_tpu_torch.data.loader import TestLoader
+
+    _, cfg = _cfgs()
+    _, dataset = _datasets(*_cfgs(), is_train=False)
+    loader = TestLoader(cfg, dataset, end=6)
+    n = 0
+    for _ in loader:
+        n += 1
+        time.sleep(0.1)  # the forward the items are made beside
+    assert n == 6 and sum(loader.prefetched.values()) == n
+    assert loader.prefetched["ready"] >= n - 1
+
+
+def test_each_test_loaders_thread_starts_at_iter():
+    """zip(*loaders) calls iter() on every TTA pass's loader first: each
+    thread makes its first item before any is asked for."""
+    import time
+
+    from cpm_tpu_torch.data.loader import TestLoader
+
+    _, cfg = _cfgs()
+    _, dataset = _datasets(*_cfgs(), is_train=False)
+    assert _no_prefetching_thread_within(1.0)
+    loaders = [TestLoader(cfg, dataset, end=3, hflip=flip) for flip in (False, True, False)]
+    its = [iter(x) for x in loaders]
+    assert len(_prefetching_threads()) == 3
+    deadline = time.monotonic() + 10
+    # a second image begun means the first one's item is in the queue
+    while min(sum(x.decoded.values()) for x in loaders) < 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert [next(it)["index"] for it in its] == [0, 0, 0]
+    assert [x.prefetched for x in loaders] == [{"ready": 1, "waited": 0}] * 3
+    del its
+    assert _no_prefetching_thread_within(1.0)
+    # an iterator dropped before its first item
+    it = iter(TestLoader(cfg, dataset))
+    assert len(_prefetching_threads()) == 1
+    del it
+    assert _no_prefetching_thread_within(1.0)
+
+
+def test_test_loader_errors_reach_the_consumer_and_its_threads_end():
+    from cpm_tpu_torch.data.loader import TestLoader
+
+    _, cfg = _cfgs()
+    _, dataset = _datasets(*_cfgs(), is_train=False)
+    assert _no_prefetching_thread_within(1.0)
+
+    class Broken(TestLoader):
+        def _load_one_test(self, i):
+            if i == 2:
+                raise OSError("unreadable image")
+            return super()._load_one_test(i)
+
+    it = iter(Broken(cfg, dataset, end=5))
+    assert [next(it)["index"] for _ in range(2)] == [0, 1]
+    with pytest.raises(OSError, match="unreadable image"):
+        next(it)
+    assert _no_prefetching_thread_within(1.0)
+
+    # zip stops at the shortest loader; the others are closed with it
+    pairs = list(zip(TestLoader(cfg, dataset, end=2), TestLoader(cfg, dataset, end=6),
+                     TestLoader(cfg, dataset, end=6, hflip=True)))
+    assert [a["index"] for a, _, _ in pairs] == [0, 1]
+    assert _no_prefetching_thread_within(1.0)
+    # an iterator dropped after its first item
+    assert next(iter(TestLoader(cfg, dataset, start=4)))["index"] == 4
+    assert _no_prefetching_thread_within(1.0)

@@ -15,6 +15,8 @@ against the benchmark's plain reference (benchmark/reference/), on the CPU.
   per-pass sets in clusters, under soft-NMS (linear, gaussian) and hard NMS;
 * the loop's TTA spans, each pass's forward inside its pass and the
   soft-NMS inside the merge;
+* the loop's results with each pass's loader prefetching (the default) and
+  with none (`prefetch=0`);
 * `benchmark/configs/cpm_x101_64x4d_dcn_ms.json` against its YAML through
   `tools/train_net.py::load_config`, key for key but the keys it reduces.
 
@@ -231,6 +233,35 @@ def test_tta_loop_opens_its_spans_nested(tmp_path):
     # a flip pass's width and every pass's scale go to the card
     assert names.count("cpm/sync/consts") >= n + n // 2
     assert not torch.autograd._profiler_enabled()
+
+
+def test_tta_loop_serves_the_same_with_its_loaders_prefetching_or_not(tmp_path, monkeypatch):
+    import cpm_tpu_torch.engine.test as engine
+    from cpm_tpu_torch.data.coco import COCODataset
+    from cpm_tpu_torch.data.loader import TestLoader
+
+    s = _setup("c2", tmp_path)
+    dataset = COCODataset(s["tree"]["annotations"], s["tree"]["images"])
+    n = len(engine.tta_passes(s["pcfg"]))
+
+    def run(prefetch):
+        made = []
+
+        def loader(*args, **kw):
+            made.append(TestLoader(*args, prefetch=prefetch, **kw))
+            return made[-1]
+
+        monkeypatch.setattr(engine, "TestLoader", loader)
+        results = engine.run_inference_on_dataset(s["pcfg"], s["port"], dataset,
+                                                  progress_every=0)
+        assert len(made) == n
+        return results, [x.prefetched for x in made]
+
+    ahead, counts = run(2)
+    alone, alone_counts = run(0)
+    assert ahead == alone and len(ahead) > 0
+    assert all(sum(c.values()) == len(dataset) for c in counts)
+    assert alone_counts == [{"ready": 0, "waited": 0}] * n
 
 
 def test_the_configuration_file_is_its_yaml_but_the_reduced_keys():
